@@ -1,10 +1,13 @@
 // Shared helpers of the dhr_tpu_torch CUDA kernels: element kinds, widening
-// to f32 / int32, and runs of consecutive elements moved with 16-byte
-// vector accesses where the address allows it.
+// to f32 / int32, runs of consecutive elements moved with 16-byte vector
+// accesses where the address allows it, the theta pass's gated
+// accumulation (K1 and K3 both call it, so their sums are the same bits),
+// and the host-side dispatch from runtime kinds to template instances.
 #pragma once
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -98,6 +101,101 @@ __device__ __forceinline__ void store_run(T* __restrict__ p, int64_t n_valid,
     for (int r = 0; r < R; ++r) {
       if (r < n_valid) p[r] = in[r];
     }
+  }
+}
+
+// The theta pass, part 1: stage query b's important dims (w, d, g) in
+// shared memory, then barrier.  A dim outside [0, dim) gets weight 0 and is
+// never read.
+__device__ __forceinline__ void stage_important(
+    const float* __restrict__ imp_vals, const int32_t* __restrict__ imp_dims,
+    const int32_t* __restrict__ imp_gates, int64_t b, int n_imp, int dim,
+    float* s_val, int32_t* s_dim, int32_t* s_gate) {
+  for (int i = threadIdx.x; i < n_imp; i += blockDim.x) {
+    const int d = imp_dims[b * n_imp + i];
+    const bool ok = d >= 0 && d < dim;
+    s_val[i] = ok ? imp_vals[b * n_imp + i] : 0.f;
+    s_dim[i] = ok ? d : 0;
+    s_gate[i] = imp_gates[b * n_imp + i];
+  }
+  __syncthreads();
+}
+
+// The theta pass, part 2: the f32 sums of R consecutive rows n0.. (n_valid
+// of them exist, n_valid >= 1; the rest read as 0)
+//
+//   acc[r] = sum_i  w_i * values_t[d_i, n0 + r] * gate_i(n0 + r)
+//   gate_i(n) = d_i >= lex_dim  or  indices_t[d_i, n] == g_i
+//
+// over the staged dims in their order, each product rounded before its add
+// (__fmul_rn / __fadd_rn, no contraction).  A zero weight adds nothing and
+// is skipped (the weights are the same for the whole block); a CLS dim
+// reads no index row.
+template <int VK, int IK, int R>
+__device__ __forceinline__ void gated_sums(
+    const float* s_val, const int32_t* s_dim, const int32_t* s_gate,
+    int n_imp, const typename Elem<VK>::T* __restrict__ values_t,
+    const typename Elem<IK>::T* __restrict__ indices_t, int64_t n_rows,
+    int64_t n0, int64_t n_valid, int lex_dim, float (&acc)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int i = 0; i < n_imp; ++i) {
+    const float w = s_val[i];
+    if (w == 0.f) continue;
+    const int d = s_dim[i];
+    typename Elem<VK>::T v[R];
+    load_run(values_t + static_cast<int64_t>(d) * n_rows + n0, n_valid, v);
+    if (d < lex_dim) {
+      typename Elem<IK>::T ix[R];
+      load_run(indices_t + static_cast<int64_t>(d) * n_rows + n0, n_valid,
+               ix);
+      const int g = s_gate[i];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = __fmul_rn(to_f32<VK>(v[r]), w);
+        acc[r] = __fadd_rn(acc[r], static_cast<int>(ix[r]) == g ? p : 0.f);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(to_f32<VK>(v[r]), w));
+      }
+    }
+  }
+}
+
+// Host side: a kind as a type, so a generic lambda can take it as a
+// template argument (decltype(k)::value).
+template <int K>
+using KindC = std::integral_constant<int, K>;
+
+// f(KindC<value kind>, KindC<index kind>) for the planes' runtime kinds:
+// values int8 / bf16 / f16 / f32, fold indices int8 / int16.
+template <typename F>
+cudaError_t dispatch_planes(int value_kind, int index_kind, F&& f) {
+  auto with_index = [&](auto vk) -> cudaError_t {
+    switch (index_kind) {
+      case kI8: return f(vk, KindC<kI8>{});
+      case kI16: return f(vk, KindC<kI16>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  switch (value_kind) {
+    case kI8: return with_index(KindC<kI8>{});
+    case kBF16: return with_index(KindC<kBF16>{});
+    case kF16: return with_index(KindC<kF16>{});
+    case kF32: return with_index(KindC<kF32>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f(KindC<out kind>) for an f32 or bf16 score output.
+template <typename F>
+cudaError_t dispatch_out(int out_kind, F&& f) {
+  switch (out_kind) {
+    case kF32: return f(KindC<kF32>{});
+    case kBF16: return f(KindC<kBF16>{});
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -10,7 +10,8 @@
 // over the query's I important dims (w, d, g) = (imp_vals, imp_dims,
 // imp_gates), selected by the caller.  Accumulates in f32 in the order of
 // the important dims (the plain version's order, and the reference scan's),
-// each product rounded before its add, and writes f32 or bf16 once.
+// each product rounded before its add, and writes f32 or bf16 once.  The
+// accumulation is dhr::gated_sums (common.cuh), which K3 shares.
 //
 // What bounds it: bytes.  Per query it streams I_eff dim rows of N values and
 // N indices (I_eff = dims with w != 0; a zero weight adds nothing, so its
@@ -43,23 +44,14 @@ partial_gip_kernel(const float* __restrict__ imp_vals,
                    const typename dhr::Elem<IK>::T* __restrict__ indices_t,
                    typename dhr::Elem<OK>::T* __restrict__ out,
                    int64_t n_rows, int n_imp, int dim, int lex_dim) {
-  using VT = typename dhr::Elem<VK>::T;
-  using IT = typename dhr::Elem<IK>::T;
-  using OT = typename dhr::Elem<OK>::T;
   extern __shared__ unsigned char smem[];
   float* s_val = reinterpret_cast<float*>(smem);
   int32_t* s_dim = reinterpret_cast<int32_t*>(s_val + n_imp);
   int32_t* s_gate = s_dim + n_imp;
 
   const int64_t b = blockIdx.x;
-  for (int i = threadIdx.x; i < n_imp; i += blockDim.x) {
-    const int d = imp_dims[b * n_imp + i];
-    const bool ok = d >= 0 && d < dim;
-    s_val[i] = ok ? imp_vals[b * n_imp + i] : 0.f;
-    s_dim[i] = ok ? d : 0;
-    s_gate[i] = imp_gates[b * n_imp + i];
-  }
-  __syncthreads();
+  dhr::stage_important(imp_vals, imp_dims, imp_gates, b, n_imp, dim, s_val,
+                       s_dim, s_gate);
 
   const int64_t n0 =
       (static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x) * kRows;
@@ -67,35 +59,10 @@ partial_gip_kernel(const float* __restrict__ imp_vals,
   const int64_t n_valid = n_rows - n0;
 
   float acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  dhr::gated_sums<VK, IK>(s_val, s_dim, s_gate, n_imp, values_t, indices_t,
+                          n_rows, n0, n_valid, lex_dim, acc);
 
-  for (int i = 0; i < n_imp; ++i) {
-    const float w = s_val[i];
-    if (w == 0.f) continue;  // uniform across the block
-    const int d = s_dim[i];
-    VT v[kRows];
-    dhr::load_run(values_t + static_cast<int64_t>(d) * n_rows + n0, n_valid,
-                  v);
-    if (d < lex_dim) {
-      IT ix[kRows];
-      dhr::load_run(indices_t + static_cast<int64_t>(d) * n_rows + n0,
-                    n_valid, ix);
-      const int g = s_gate[i];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = __fmul_rn(dhr::to_f32<VK>(v[r]), w);
-        acc[r] = __fadd_rn(acc[r], static_cast<int>(ix[r]) == g ? p : 0.f);
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(dhr::to_f32<VK>(v[r]), w));
-      }
-    }
-  }
-
-  OT o[kRows];
+  typename dhr::Elem<OK>::T o[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) o[r] = dhr::from_f32<OK>(acc[r]);
   dhr::store_run(out + b * n_rows + n0, n_valid, o);
@@ -122,40 +89,6 @@ cudaError_t launch(const void* imp_vals, const void* imp_dims,
   return cudaGetLastError();
 }
 
-template <int VK, int IK>
-cudaError_t by_out(int out_kind, const void* a, const void* b, const void* c,
-                   const void* v, const void* ix, void* out, int64_t n,
-                   int batch, int n_imp, int dim, int lex,
-                   cudaStream_t s) {
-  switch (out_kind) {
-    case dhr::kF32:
-      return launch<VK, IK, dhr::kF32>(a, b, c, v, ix, out, n, batch, n_imp,
-                                       dim, lex, s);
-    case dhr::kBF16:
-      return launch<VK, IK, dhr::kBF16>(a, b, c, v, ix, out, n, batch, n_imp,
-                                        dim, lex, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <int VK>
-cudaError_t by_index(int index_kind, int out_kind, const void* a,
-                     const void* b, const void* c, const void* v,
-                     const void* ix, void* out, int64_t n, int batch,
-                     int n_imp, int dim, int lex, cudaStream_t s) {
-  switch (index_kind) {
-    case dhr::kI8:
-      return by_out<VK, dhr::kI8>(out_kind, a, b, c, v, ix, out, n, batch,
-                                  n_imp, dim, lex, s);
-    case dhr::kI16:
-      return by_out<VK, dhr::kI16>(out_kind, a, b, c, v, ix, out, n, batch,
-                                   n_imp, dim, lex, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // C entry, bound with ctypes.  Pointers are device pointers of contiguous
@@ -172,24 +105,12 @@ extern "C" int partial_gip_launch(const void* imp_vals, const void* imp_dims,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n = static_cast<int64_t>(n_rows);
-  switch (value_kind) {
-    case dhr::kI8:
-      return by_index<dhr::kI8>(index_kind, out_kind, imp_vals, imp_dims,
-                                imp_gates, values_t, indices_t, out, n, batch,
-                                n_imp, dim, lex_dim, s);
-    case dhr::kBF16:
-      return by_index<dhr::kBF16>(index_kind, out_kind, imp_vals, imp_dims,
-                                  imp_gates, values_t, indices_t, out, n,
-                                  batch, n_imp, dim, lex_dim, s);
-    case dhr::kF16:
-      return by_index<dhr::kF16>(index_kind, out_kind, imp_vals, imp_dims,
-                                 imp_gates, values_t, indices_t, out, n, batch,
-                                 n_imp, dim, lex_dim, s);
-    case dhr::kF32:
-      return by_index<dhr::kF32>(index_kind, out_kind, imp_vals, imp_dims,
-                                 imp_gates, values_t, indices_t, out, n, batch,
-                                 n_imp, dim, lex_dim, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dhr::dispatch_planes(value_kind, index_kind, [&](auto vk, auto ik) {
+    return dhr::dispatch_out(out_kind, [&](auto ok) {
+      return launch<decltype(vk)::value, decltype(ik)::value,
+                    decltype(ok)::value>(imp_vals, imp_dims, imp_gates,
+                                         values_t, indices_t, out, n, batch,
+                                         n_imp, dim, lex_dim, s);
+    });
+  });
 }

@@ -100,25 +100,6 @@ cudaError_t launch(const void* qv, const void* qi, const void* rows,
   return cudaGetLastError();
 }
 
-template <int VK>
-cudaError_t by_index(int index_kind, const void* qv, const void* qi,
-                     const void* rows, const void* values,
-                     const void* indices, void* out, int64_t n_rows,
-                     int batch, int n_cand, int dim, int lex_dim,
-                     int qi_stride, cudaStream_t s) {
-  switch (index_kind) {
-    case dhr::kI8:
-      return launch<VK, dhr::kI8>(qv, qi, rows, values, indices, out, n_rows,
-                                  batch, n_cand, dim, lex_dim, qi_stride, s);
-    case dhr::kI16:
-      return launch<VK, dhr::kI16>(qv, qi, rows, values, indices, out,
-                                   n_rows, batch, n_cand, dim, lex_dim,
-                                   qi_stride, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // C entry, bound with ctypes.  Device pointers of contiguous tensors:
@@ -136,24 +117,9 @@ extern "C" int rerank_gip_launch(const void* qv, const void* qi,
                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n = static_cast<int64_t>(n_rows);
-  switch (value_kind) {
-    case dhr::kI8:
-      return by_index<dhr::kI8>(index_kind, qv, qi, rows, values, indices,
-                                out, n, batch, n_cand, dim, lex_dim,
-                                qi_stride, s);
-    case dhr::kBF16:
-      return by_index<dhr::kBF16>(index_kind, qv, qi, rows, values, indices,
-                                  out, n, batch, n_cand, dim, lex_dim,
-                                  qi_stride, s);
-    case dhr::kF16:
-      return by_index<dhr::kF16>(index_kind, qv, qi, rows, values, indices,
-                                 out, n, batch, n_cand, dim, lex_dim,
-                                 qi_stride, s);
-    case dhr::kF32:
-      return by_index<dhr::kF32>(index_kind, qv, qi, rows, values, indices,
-                                 out, n, batch, n_cand, dim, lex_dim,
-                                 qi_stride, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dhr::dispatch_planes(value_kind, index_kind, [&](auto vk, auto ik) {
+    return launch<decltype(vk)::value, decltype(ik)::value>(
+        qv, qi, rows, values, indices, out, n, batch, n_cand, dim, lex_dim,
+        qi_stride, s);
+  });
 }

@@ -1,7 +1,12 @@
-"""Index planes, the GIP searcher, the synthetic corpus and TREC I/O."""
+"""Index planes, the searcher, pool calibration, the synthetic corpus and
+TREC I/O."""
 
 from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
-from dhr_tpu_torch.retrieval.searcher import SearchConfig, Searcher
+from dhr_tpu_torch.retrieval.searcher import (
+    SearchConfig,
+    Searcher,
+    calibrate_pool,
+)
 from dhr_tpu_torch.retrieval.trec import (
     merge_runs,
     read_qrels,
@@ -10,6 +15,6 @@ from dhr_tpu_torch.retrieval.trec import (
 )
 
 __all__ = [
-    "DeviceIndex", "PackedIndex", "SearchConfig", "Searcher", "merge_runs",
-    "read_qrels", "read_run", "write_run",
+    "DeviceIndex", "PackedIndex", "SearchConfig", "Searcher", "calibrate_pool",
+    "merge_runs", "read_qrels", "read_run", "write_run",
 ]

@@ -74,6 +74,23 @@ class PackedIndex:
         q, scales = quantize_per_dim_np(self.values)
         return dataclasses.replace(self, values=q, value_scales=scales)
 
+    def quantize_pq(self, m: int = 64, iters: int = 15, seed: int = 0,
+                    device: str | torch.device | None = None
+                    ) -> "PackedIndex":
+        """Attach PQ codebooks: codes (N, m) u8 + (m, 256, D/m) centroids,
+        trained on the float value plane (the reference's faiss PQ64
+        storage).  Training and encoding run on ``device`` (default the
+        GPU); the codes come back to the host."""
+        if self.value_scales is not None:
+            raise ValueError("PQ-quantize the float index, not the int8 one")
+        from dhr_tpu_torch.ops.pq import train_encode_pq_np
+
+        codes, centroids = train_encode_pq_np(
+            self.values.astype(np.float32), m, iters=iters, seed=seed,
+            device=device)
+        return dataclasses.replace(self, pq_codes=codes,
+                                   pq_centroids=centroids)
+
     def slice_rows(self, start: int, stop: int) -> "PackedIndex":
         return dataclasses.replace(
             self,
@@ -178,8 +195,8 @@ def _widen_indices(indices: torch.Tensor) -> torch.Tensor:
 class DeviceIndex:
     """Device-resident index planes.
 
-    ``layout``: "both" (gip + rerank), "row" (rerank planes only) or "dim"
-    (gip without rerank) decides which orientations exist.
+    ``layout``: "both" (gip + rerank), "row" (ip/pq candidates + rerank)
+    or "dim" (gip without rerank) decides which orientations exist.
     """
 
     values: torch.Tensor | None        # (N, D) int8/bf16/f16/f32
@@ -190,6 +207,8 @@ class DeviceIndex:
     lex_dim: int
     num_rows: int
     value_scales: torch.Tensor | None = None  # (D,) f32
+    pq_codes: torch.Tensor | None = None      # (N, m) uint8
+    pq_centroids: torch.Tensor | None = None  # (m, 256, D/m) f32
 
     @property
     def device(self) -> torch.device:
@@ -263,8 +282,14 @@ class DeviceIndex:
         if packed.value_scales is not None:
             scales = torch.from_numpy(
                 packed.value_scales.astype(np.float32)).to(dev)
+        codes = centroids = None
+        if packed.pq_codes is not None:
+            codes = _as_tensor(packed.pq_codes, dev)
+            centroids = _as_tensor(
+                packed.pq_centroids.astype(np.float32), dev)
         return DeviceIndex(
             values=dv, values_T=dvt, indices=di, indices_T=dit,
             docids=packed.docids, lex_dim=packed.lex_dim,
             num_rows=packed.num_rows, value_scales=scales,
+            pq_codes=codes, pq_centroids=centroids,
         )

@@ -88,4 +88,4 @@ def test_cli_search_without_gpu_fails_unless_cpu_is_asked(tmp_path,
     assert sorted(run) == ["a", "b", "c"]
     assert all(len(docs) == 5 for docs in run.values())
     with pytest.raises(SystemExit):
-        main(args + ["--IP"])
+        main(args + ["--shard-over-devices"])

@@ -1,4 +1,4 @@
-"""CUDA kernels K1 / K2 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1 / K2 / K3 against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a GPU and no JAX it runs with
@@ -9,6 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from dhr_tpu_torch.ops.gip_candidates import (
+    decode_packed_candidates,
+    gip_candidates,
+    gip_candidates_plain,
+)
 from dhr_tpu_torch.ops.partial_gip import (
     partial_gip,
     partial_gip_plain,
@@ -90,6 +95,45 @@ def test_rerank_gip_kernel_matches_plain(cuda, K, vdt, idt):
     _close(got, want, 1e-4)
 
 
+@pytest.mark.parametrize("N", [4096, 4099, 20011])
+@pytest.mark.parametrize("vdt", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("idt", [torch.int8, torch.int16])
+@pytest.mark.parametrize("G,packed,out", [
+    (8, True, torch.float32), (8, False, torch.float32),
+    (8, False, torch.bfloat16), (2, True, torch.float32),
+    (3, False, torch.float32), (16, True, torch.float32)])
+def test_gip_candidates_kernel_matches_plain(cuda, N, vdt, idt, G, packed,
+                                             out):
+    """Rows equal and scores bit-equal (the group sums are K1's exact
+    sums); packed winners decode to the two-plane rows."""
+    D, lex, B = 40, 32, 6
+    vt, it = _planes(0, D, lex, N, vdt, idt)
+    qv, qi = _queries(0, B, D, lex)
+    for n_imp in (12, D):
+        imp = select_important(qv, qi, n_imp)
+        imp_d = [x.to(cuda) for x in imp]
+        before = gip_candidates.launches
+        got = gip_candidates(*imp_d, vt.to(cuda), it.to(cuda), lex, G,
+                             packed, out)
+        torch.cuda.synchronize()
+        assert gip_candidates.launches == before + 1
+        want = gip_candidates_plain(*imp, vt, it, lex, G, packed, out)
+        if packed:
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
+            pos = torch.arange(got.shape[1], device=cuda).expand_as(got)
+            _, rows = decode_packed_candidates(got, pos, G)
+            _, rows2 = gip_candidates(*imp_d, vt.to(cuda), it.to(cuda), lex,
+                                      G, False, torch.float32)
+            valid = rows2 < N
+            assert torch.equal(rows[valid], rows2[valid].long())
+            assert bool((rows[~valid] >= N).all())
+        else:
+            assert torch.equal(got[1].cpu(), want[1])
+            assert torch.equal(got[0].cpu().float().view(torch.int32),
+                               want[0].float().view(torch.int32))
+
+
 def test_kernels_raise_on_bad_input(cuda):
     D, lex, N = 40, 32, 512
     vt, it = _planes(0, D, lex, N, torch.int8, torch.int8)
@@ -101,3 +145,7 @@ def test_kernels_raise_on_bad_input(cuda):
         partial_gip(*imp, vt.to(cuda).to(torch.int32), it.to(cuda), lex)
     with pytest.raises(ValueError):
         partial_gip(*imp, vt.to(cuda), it, lex)              # mixed devices
+    with pytest.raises(ValueError):
+        gip_candidates(*imp, vt.to(cuda), it.to(cuda), lex, 3, True)
+    with pytest.raises(ValueError):
+        gip_candidates(*imp, vt.to(cuda), it, lex, 8, False)  # mixed devices
