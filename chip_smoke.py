@@ -134,32 +134,53 @@ def small_world(seed, torch):
 
 def phase_k1(index, queries, torch):
     """K1 vs plain: 8 queries, I=48 (theta=0.3) and I=896 (theta=0), rows
-    204,800 and 204,803 (prime: ragged edge, unaligned dim rows)."""
+    204,800 and 204,803 (prime: a ragged last tile), dim-major planes built
+    by ``dim_major`` (padded pitch) from the row-major plane in each dtype;
+    plus a batch split forced by a small shared-memory budget.  Every case
+    bit-equal (the kernel sums in the plain version's order)."""
     from dhr_tpu_torch.ops.partial_gip import (
-        partial_gip, partial_gip_plain, select_important)
+        partial_gip, partial_gip_plain, select_important, staging_plan)
+    from dhr_tpu_torch.retrieval.index import dim_major
 
     qv, qv1, qi = (x[:8] for x in queries)
-    worst, cases = 0.0, 0
+    worst, cases, tiles, split_chunks = 0.0, 0, set(), 0
     for n in (204_800, 204_803):
-        vt8 = index.values_T[:, :n].contiguous()
-        it8 = index.indices_T[:, :n].contiguous()
         for vdt in (torch.int8, torch.bfloat16, torch.float32):
-            vt = vt8.to(vdt)
+            vt = dim_major(index.values[:n].to(vdt))
             for idt in (torch.int8, torch.int16):
-                it = it8.to(idt)
+                it = dim_major(index.indices[:n].to(idt))
                 for q, n_imp in ((qv1, 48), (qv, qv.shape[1])):
                     imp = select_important(q, qi, n_imp)
+                    tiles.add(staging_plan(*imp, vt.shape[0],
+                                           LEX_DIM, vt.element_size(),
+                                           it.element_size()).chunks[0].tile)
                     for out in (torch.float32, torch.bfloat16):
-                        tol = 1e-4 if out == torch.float32 else 8e-3
+                        name = f"partial_gip N={n} {vdt} {idt} I={n_imp} {out}"
                         got = partial_gip(*imp, vt, it, LEX_DIM, out)
                         want = partial_gip_plain(*imp, vt, it, LEX_DIM, out)
                         torch.cuda.synchronize()
-                        worst = max(worst, check_close(
-                            f"partial_gip N={n} {vdt} {idt} I={n_imp} {out}",
-                            got, want, tol, torch))
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{name}: not bit-equal")
+                        worst = max(worst, check_close(name, got, want, 0.0,
+                                                       torch))
                         cases += 1
+            del vt, it
+        vt = dim_major(index.values[:n])
+        it = dim_major(index.indices[:n])
+        imp = select_important(qv1, qi, 48)
+        plan = staging_plan(*imp, vt.shape[0], LEX_DIM, 1, 1,
+                            smem_bytes=16 * 2 * 64)
+        split_chunks = len(plan.chunks)
+        if split_chunks < 2:
+            raise AssertionError("the small budget did not split the batch")
+        got = partial_gip(*imp, vt, it, LEX_DIM, torch.float32, plan=plan)
+        if not torch.equal(got, partial_gip_plain(*imp, vt, it, LEX_DIM)):
+            raise AssertionError(f"partial_gip N={n} split batch: not "
+                                 "bit-equal")
+        cases += 1
     emit({"phase": "k1_vs_plain", "cases": cases, "max_abs_err": worst,
-          "tol": "1e-4 (f32 out) / 8e-3 (bf16 out) * max(|want|, 1)"})
+          "tiles": sorted(tiles), "split_chunks": split_chunks,
+          "tol": "0 (bit-equal, f32 and bf16 out)"})
     return worst
 
 
@@ -193,26 +214,25 @@ def phase_k2(index, queries, seed, torch):
 
 
 def phase_k3(index, queries, torch):
-    """K3 vs plain: 8 queries, rows 204,800 and 204,803 (ragged, unaligned
-    dim rows), value int8/bf16, index int8/int16, I=48 (theta 0.3) and
-    I=896 (theta 0); G=8 packed, G=8 two planes (f32 and bf16 out), G=3
-    two planes.  Rows equal, scores bit-equal, packed rows decode to the
-    two-plane rows."""
+    """K3 vs plain: 8 queries, rows 204,800 and 204,803 (ragged), padded
+    dim-major planes (``dim_major``), value int8/bf16, index int8/int16,
+    I=48 (theta 0.3) and I=896 (theta 0); G=8 packed, G=8 two planes (f32
+    and bf16 out), G=3 two planes.  Rows equal, scores bit-equal, packed
+    rows decode to the two-plane rows."""
     from dhr_tpu_torch.ops.gip_candidates import (
         decode_packed_candidates, gip_candidates, gip_candidates_plain)
     from dhr_tpu_torch.ops.partial_gip import select_important
+    from dhr_tpu_torch.retrieval.index import dim_major
 
     qv, qv1, qi = (x[:8] for x in queries)
     variants = ((8, True, torch.float32), (8, False, torch.float32),
                 (8, False, torch.bfloat16), (3, False, torch.float32))
     worst, cases = 0.0, 0
     for n in (204_800, SMALL_ROWS):
-        vt8 = index.values_T[:, :n].contiguous()
-        it8 = index.indices_T[:, :n].contiguous()
         for vdt in (torch.int8, torch.bfloat16):
-            vt = vt8.to(vdt)
+            vt = dim_major(index.values[:n].to(vdt))
             for idt in (torch.int8, torch.int16):
-                it = it8.to(idt)
+                it = dim_major(index.indices[:n].to(idt))
                 for q, n_imp in ((qv1, 48), (qv, qv.shape[1])):
                     imp = select_important(q, qi, n_imp)
                     two_plane_rows = None
@@ -537,7 +557,7 @@ def phase_main(args, torch):
         "rows_full_size": args.rows == MSMARCO_PASSAGES,
         "queries": args.queries, "query_batch": bs,
         "index_build_s": build_s,
-        "index_bytes": sum(t.numel() * t.element_size() for t in (
+        "index_bytes": sum(t.untyped_storage().nbytes() for t in (
             index.values, index.values_T, index.indices, index.indices_T)),
         "qps_median": float(np.median(qps)), "qps_passes": qps,
         "stage_ms_first_batch": stage_ms,
@@ -619,7 +639,7 @@ def phase_timing(searcher, batch, launches, errs, torch):
     from dhr_tpu_torch.ops.gip_candidates import (
         gip_candidates, gip_candidates_plain)
     from dhr_tpu_torch.ops.partial_gip import (
-        partial_gip, partial_gip_plain, select_important)
+        partial_gip, partial_gip_plain, select_important, staging_plan)
     from dhr_tpu_torch.ops.rerank_gip import rerank_gip, rerank_gip_plain
 
     idx = searcher.index
@@ -630,12 +650,23 @@ def phase_timing(searcher, batch, launches, errs, torch):
     imp = select_important(qv1b, qib, 48)
     vt, it = idx.values_T, idx.indices_T
     out_dt = torch.bfloat16
-    k1 = lambda: partial_gip(*imp, vt, it, lex, out_dt)  # noqa: E731
+    # the kernel's time with its plan made beforehand, and the plan's own
+    # (device work and the host's one read of |U|, per call)
+    make_plan = lambda: staging_plan(  # noqa: E731
+        *imp, D, lex, vt.element_size(), it.element_size())
+    plan = make_plan()
+    k1 = lambda: partial_gip(*imp, vt, it, lex, out_dt, plan=plan)  # noqa: E731
     k1_plain = lambda: partial_gip_plain(*imp, vt, it, lex, out_dt)  # noqa: E731
     k1_ms = cuda_ms(k1, 5, torch)
+    k1_with_plan_ms = cuda_ms(
+        lambda: partial_gip(*imp, vt, it, lex, out_dt), 5, torch)
+    plan_ms = cuda_ms(make_plan, 5, torch)
     k1_plain_ms = cuda_ms(k1_plain, 1, torch)
-    k1_err = check_close("partial_gip main path", k1(), k1_plain(), 8e-3,
-                         torch)
+    got, want = k1(), k1_plain()
+    if not torch.equal(got, want):
+        raise AssertionError("partial_gip main path: not bit-equal")
+    k1_err = check_close("partial_gip main path", got, want, 0.0, torch)
+    del got, want
     used = imp[0] != 0
     dims = imp[1][used]
     union = torch.unique(dims)
@@ -684,6 +715,12 @@ def phase_timing(searcher, batch, launches, errs, torch):
     emit({"phase": "kernel_shapes",
           "partial_gip": {"B": B, "N": N, "I": 48, "nonzero_imp": nnz,
                           "distinct_dims": union.numel(),
+                          "plan_tile": plan.chunks[0].tile,
+                          "plan_ms": plan_ms,
+                          "ms_with_plan": k1_with_plan_ms,
+                          "plan_staged_dims": [c.dims.numel()
+                                               for c in plan.chunks],
+                          "plan_chunks": len(plan.chunks),
                           "bytes_each_input_once": k1_bytes,
                           "bytes_per_query_streams": k1_stream_bytes,
                           "stream_bound_ms": k1_stream_bytes

@@ -1,8 +1,13 @@
 // Shared helpers of the dhr_tpu_torch CUDA kernels: element kinds, widening
-// to f32 / int32, runs of consecutive elements moved with 16-byte vector
-// accesses where the address allows it, the theta pass's gated
-// accumulation (K1 and K3 both call it, so their sums are the same bits),
-// and the host-side dispatch from runtime kinds to template instances.
+// to f32 / int32, runs of consecutive elements moved with vector accesses,
+// 16-byte cp.async into shared memory, K3's gated accumulation straight
+// from the dim-major planes, and the host-side dispatch from runtime kinds
+// to template instances.
+//
+// Dim-major planes come at a padded pitch (retrieval/index.py dim_major:
+// a multiple of 128 elements), and the wrappers refuse a plane whose row
+// pitch or base is not 16-byte aligned, so every dim row starts 16-byte
+// aligned and no dim-major read needs an element-by-element path.
 #pragma once
 
 #include <cstdint>
@@ -61,15 +66,52 @@ template <> __device__ __forceinline__ uint16_t from_f32<kBF16>(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-// Load R consecutive elements at p, of which n_valid (may be < R) exist;
-// missing ones read as 0.  16-byte loads through the read-only path when
-// the run is whole and p is 16-byte aligned, element loads otherwise.
+// A word of B bytes, for vector accesses of R elements at once.
+template <int B> struct Word;
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<16> { using T = uint4; };
+struct alignas(16) Word32 { uint4 lo, hi; };
+template <> struct Word<32> { using T = Word32; };
+
+// Load R consecutive elements at p (R * sizeof(T) bytes, p aligned to that)
+// with one access, e.g. from shared memory.
+template <typename T, int R>
+__device__ __forceinline__ void load_vec(const T* p, T (&out)[R]) {
+  using W = typename Word<R * static_cast<int>(sizeof(T))>::T;
+  const W w = *reinterpret_cast<const W*>(p);
+  memcpy(&out[0], &w, sizeof(W));
+}
+
+// Store the first n_valid (may be < R, or <= 0) of R consecutive elements
+// at p: one vector store when the run is whole and p is aligned to it,
+// element stores otherwise (an output row of odd length starts anywhere).
+template <typename T, int R>
+__device__ __forceinline__ void store_vec(T* p, int64_t n_valid,
+                                          const T (&in)[R]) {
+  using W = typename Word<R * static_cast<int>(sizeof(T))>::T;
+  if (n_valid >= R && (reinterpret_cast<uintptr_t>(p) % sizeof(W)) == 0) {
+    W w;
+    memcpy(&w, &in[0], sizeof(W));
+    *reinterpret_cast<W*>(p) = w;
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < n_valid) p[r] = in[r];
+    }
+  }
+}
+
+// Load R consecutive elements of a dim-major row at p (16-byte aligned: the
+// pitch rule above), of which n_valid (may be < R) exist; missing ones read
+// as 0.  16-byte loads through the read-only path for a whole run, element
+// loads only for the ragged end of the row.
 template <typename T, int R>
 __device__ __forceinline__ void load_run(const T* __restrict__ p,
                                          int64_t n_valid, T (&out)[R]) {
   constexpr int kBytes = R * static_cast<int>(sizeof(T));
   static_assert(kBytes % 16 == 0, "a run must be whole 16-byte words");
-  if (n_valid >= R && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+  if (n_valid >= R) {
     const uint4* q = reinterpret_cast<const uint4*>(p);
 #pragma unroll
     for (int k = 0; k < kBytes / 16; ++k) {
@@ -82,29 +124,22 @@ __device__ __forceinline__ void load_run(const T* __restrict__ p,
   }
 }
 
-// Store R consecutive elements at p, of which only n_valid are written.
-template <typename T, int R>
-__device__ __forceinline__ void store_run(T* __restrict__ p, int64_t n_valid,
-                                          const T (&in)[R]) {
-  constexpr int kBytes = R * static_cast<int>(sizeof(T));
-  static_assert(kBytes % 16 == 0, "a run must be whole 16-byte words");
-  if (n_valid >= R && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    uint4* q = reinterpret_cast<uint4*>(p);
-#pragma unroll
-    for (int k = 0; k < kBytes / 16; ++k) {
-      uint4 w;
-      memcpy(&w, &in[k * (16 / sizeof(T))], 16);
-      q[k] = w;
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < n_valid) p[r] = in[r];
-    }
-  }
+// 16 bytes from global src to shared dst (both 16-byte aligned), of which
+// the first src_bytes (0..16) are read and the rest zero-filled; async
+// (cp.async.cg: cached in L2 only), completed by cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-// The theta pass, part 1: stage query b's important dims (w, d, g) in
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K3's theta pass, part 1: stage query b's important dims (w, d, g) in
 // shared memory, then barrier.  A dim outside [0, dim) gets weight 0 and is
 // never read.
 __device__ __forceinline__ void stage_important(
@@ -121,7 +156,7 @@ __device__ __forceinline__ void stage_important(
   __syncthreads();
 }
 
-// The theta pass, part 2: the f32 sums of R consecutive rows n0.. (n_valid
+// K3's theta pass, part 2: the f32 sums of R consecutive rows n0.. (n_valid
 // of them exist, n_valid >= 1; the rest read as 0)
 //
 //   acc[r] = sum_i  w_i * values_t[d_i, n0 + r] * gate_i(n0 + r)
@@ -130,13 +165,16 @@ __device__ __forceinline__ void stage_important(
 // over the staged dims in their order, each product rounded before its add
 // (__fmul_rn / __fadd_rn, no contraction).  A zero weight adds nothing and
 // is skipped (the weights are the same for the whole block); a CLS dim
-// reads no index row.
+// reads no index row.  Dim row d starts at d * v_pitch (values) and
+// d * i_pitch (indices).  K1's staged kernel accumulates the same way, so
+// K1's and K3's sums are the same bits.
 template <int VK, int IK, int R>
 __device__ __forceinline__ void gated_sums(
     const float* s_val, const int32_t* s_dim, const int32_t* s_gate,
     int n_imp, const typename Elem<VK>::T* __restrict__ values_t,
-    const typename Elem<IK>::T* __restrict__ indices_t, int64_t n_rows,
-    int64_t n0, int64_t n_valid, int lex_dim, float (&acc)[R]) {
+    const typename Elem<IK>::T* __restrict__ indices_t, int64_t v_pitch,
+    int64_t i_pitch, int64_t n0, int64_t n_valid, int lex_dim,
+    float (&acc)[R]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
   for (int i = 0; i < n_imp; ++i) {
@@ -144,10 +182,10 @@ __device__ __forceinline__ void gated_sums(
     if (w == 0.f) continue;
     const int d = s_dim[i];
     typename Elem<VK>::T v[R];
-    load_run(values_t + static_cast<int64_t>(d) * n_rows + n0, n_valid, v);
+    load_run(values_t + static_cast<int64_t>(d) * v_pitch + n0, n_valid, v);
     if (d < lex_dim) {
       typename Elem<IK>::T ix[R];
-      load_run(indices_t + static_cast<int64_t>(d) * n_rows + n0, n_valid,
+      load_run(indices_t + static_cast<int64_t>(d) * i_pitch + n0, n_valid,
                ix);
       const int g = s_gate[i];
 #pragma unroll

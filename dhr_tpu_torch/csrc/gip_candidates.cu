@@ -7,7 +7,7 @@
 //
 //   s[b, r] = sum_i  w_i * values_T[d_i, r] * gate_i(r)
 //
-// with K1's own code (dhr::stage_important + dhr::gated_sums of
+// with K1's arithmetic (dhr::stage_important + dhr::gated_sums of
 // common.cuh: order of the important dims, __fmul_rn / __fadd_rn, zero
 // weights skipped, CLS dims gated open), so the sums are K1's bit for bit,
 // then reduces every group of G rows to its best row.  The partition is the
@@ -29,9 +29,9 @@
 // - grid (B, ceil(N / S)) with the query on blockIdx.x, as in K1, so
 //   concurrent blocks share row tiles across queries through L2;
 // - a block spans S rows, S = lcm(4096, 128 G) (4096 for G | 32), in S/4096
-//   passes of K1's per-thread runs (256 threads x 16 rows, 16-byte loads
-//   where the row start is aligned, element loads otherwise: the same
-//   unaligned fallback as K1 on odd N);
+//   passes of per-thread runs (256 threads x 16 rows, 16-byte loads: the
+//   dim rows come at a padded, 16-byte aligned pitch; element loads only
+//   for the ragged end of N);
 // - the f32 sums go to shared memory; after one barrier each thread reduces
 //   groups in j order, reading consecutive lanes (no bank conflicts) and
 //   writing consecutive reduced positions (coalesced).
@@ -54,8 +54,8 @@ gip_candidates_kernel(const float* __restrict__ imp_vals,
                       const typename dhr::Elem<IK>::T* __restrict__ indices_t,
                       typename dhr::Elem<OK>::T* __restrict__ out_vals,
                       int32_t* __restrict__ out_rows, int64_t n_rows,
-                      int64_t n_red, int n_imp, int dim, int lex_dim,
-                      int group, int span) {
+                      int64_t v_pitch, int64_t i_pitch, int64_t n_red,
+                      int n_imp, int dim, int lex_dim, int group, int span) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_sum = reinterpret_cast<float*>(smem);  // span floats
   float* s_val = s_sum + span;
@@ -74,7 +74,8 @@ gip_candidates_kernel(const float* __restrict__ imp_vals,
     float acc[kRows];
     if (n_valid > 0) {
       dhr::gated_sums<VK, IK>(s_val, s_dim, s_gate, n_imp, values_t,
-                              indices_t, n_rows, n0, n_valid, lex_dim, acc);
+                              indices_t, v_pitch, i_pitch, n0, n_valid,
+                              lex_dim, acc);
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -123,9 +124,9 @@ template <int VK, int IK, int OK, bool PACKED>
 cudaError_t launch(const void* imp_vals, const void* imp_dims,
                    const void* imp_gates, const void* values_t,
                    const void* indices_t, void* out_vals, void* out_rows,
-                   int64_t n_rows, int64_t n_red, int batch, int n_imp,
-                   int dim, int lex_dim, int group, int span,
-                   cudaStream_t stream) {
+                   int64_t n_rows, int64_t v_pitch, int64_t i_pitch,
+                   int64_t n_red, int batch, int n_imp, int dim, int lex_dim,
+                   int group, int span, cudaStream_t stream) {
   auto* kernel = gip_candidates_kernel<VK, IK, OK, PACKED>;
   const size_t smem =
       static_cast<size_t>(span) * 4 + static_cast<size_t>(n_imp) * 12;
@@ -144,16 +145,17 @@ cudaError_t launch(const void* imp_vals, const void* imp_dims,
       static_cast<const typename dhr::Elem<VK>::T*>(values_t),
       static_cast<const typename dhr::Elem<IK>::T*>(indices_t),
       static_cast<typename dhr::Elem<OK>::T*>(out_vals),
-      static_cast<int32_t*>(out_rows), n_rows, n_red, n_imp, dim, lex_dim,
-      group, span);
+      static_cast<int32_t*>(out_rows), n_rows, v_pitch, i_pitch, n_red, n_imp,
+      dim, lex_dim, group, span);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry, bound with ctypes.  Pointers are device pointers of contiguous
-// tensors: imp_vals f32 (B, I), imp_dims / imp_gates int32 (B, I),
-// values_T (dim, N) of value_kind, indices_T (lex_dim, N) of index_kind,
+// C entry, bound with ctypes.  Pointers are device pointers: imp_vals f32
+// (B, I), imp_dims / imp_gates int32 (B, I), contiguous; values_T (dim, N)
+// of value_kind at row pitch v_pitch and indices_T (lex_dim, N) of
+// index_kind at row pitch i_pitch (elements; each row 16-byte aligned);
 // out_vals (B, n_red) f32 (packed) or out_kind, out_rows (B, n_red) int32
 // (ignored when packed).  span is a multiple of 4096 and of 128 * group.
 // Launches on `stream`, allocates nothing, does not synchronise, and
@@ -161,9 +163,10 @@ cudaError_t launch(const void* imp_vals, const void* imp_dims,
 extern "C" int gip_candidates_launch(
     const void* imp_vals, const void* imp_dims, const void* imp_gates,
     const void* values_t, const void* indices_t, void* out_vals,
-    void* out_rows, long long n_rows, long long n_red, int batch, int n_imp,
-    int dim, int lex_dim, int group, int span, int value_kind,
-    int index_kind, int out_kind, int packed, void* stream) {
+    void* out_rows, long long n_rows, long long v_pitch, long long i_pitch,
+    long long n_red, int batch, int n_imp, int dim, int lex_dim, int group,
+    int span, int value_kind, int index_kind, int out_kind, int packed,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t n = static_cast<int64_t>(n_rows);
   const int64_t nr = static_cast<int64_t>(n_red);
@@ -172,12 +175,14 @@ extern "C" int gip_candidates_launch(
     if (packed) {
       return launch<VK, IK, dhr::kF32, true>(
           imp_vals, imp_dims, imp_gates, values_t, indices_t, out_vals,
-          out_rows, n, nr, batch, n_imp, dim, lex_dim, group, span, s);
+          out_rows, n, v_pitch, i_pitch, nr, batch, n_imp, dim, lex_dim,
+          group, span, s);
     }
     return dhr::dispatch_out(out_kind, [&](auto ok) {
       return launch<VK, IK, decltype(ok)::value, false>(
           imp_vals, imp_dims, imp_gates, values_t, indices_t, out_vals,
-          out_rows, n, nr, batch, n_imp, dim, lex_dim, group, span, s);
+          out_rows, n, v_pitch, i_pitch, nr, batch, n_imp, dim, lex_dim,
+          group, span, s);
     });
   });
 }

@@ -7,110 +7,290 @@
 //   out[b, n] = sum_i  w_i * values_T[d_i, n] * gate_i(n)
 //   gate_i(n) = d_i >= lex_dim  or  indices_T[d_i, n] == g_i
 //
-// over the query's I important dims (w, d, g) = (imp_vals, imp_dims,
-// imp_gates), selected by the caller.  Accumulates in f32 in the order of
-// the important dims (the plain version's order, and the reference scan's),
-// each product rounded before its add, and writes f32 or bf16 once.  The
-// accumulation is dhr::gated_sums (common.cuh), which K3 shares.
+// over the query's I important dims, selected by the caller.  Accumulates
+// in f32 in the order of the important dims (the plain version's order, and
+// the reference scan's), each product rounded before its add (__fmul_rn /
+// __fadd_rn, no contraction), zero weights skipped, and writes f32 or bf16
+// once: the sums are the plain version's bits.
 //
-// What bounds it: bytes.  Per query it streams I_eff dim rows of N values and
-// N indices (I_eff = dims with w != 0; a zero weight adds nothing, so its
-// rows are never read) and writes N scores.  Design against that:
-// - grid (B, ceil(N / 4096)) with the query on blockIdx.x, so the blocks in
-//   flight at once are the same row tile for consecutive queries; queries
-//   that share popular dims then read those rows from L2.
-// - each thread owns 16 consecutive rows and reads each dim row's run with
-//   16-byte loads (int8: one load; 2-byte kinds: two; f32: four), so a warp
-//   reads 512 contiguous rows per dim; a row whose start is not 16-byte
-//   aligned (odd N) falls back to element loads.
-// - the block's (w, d, g) triples sit in shared memory; the ragged edge of
-//   N is masked in the loads and stores, so N needs no particular multiple.
-// - CLS dims (d >= lex_dim) are gated open and read no index row; a dim
-//   outside [0, dim) is treated as weight 0 and never read.
+// What bounds it: bytes, if each input is read once; as built, instruction
+// issue.  A batch's queries share most of their important dims (at the
+// bench operating point 128 queries name ~750 distinct dims for ~4,600
+// non-zero (query, dim) pairs), so the design reads each distinct dim row
+// once per row tile for the whole batch, not once per query:
+// - the host (ops/partial_gip.py staging_plan) gives U, the batch's sorted
+//   distinct dims with a non-zero weight; per query its used dims in their
+//   order as (weight, key) entries, key = the dim's slot in U and its gate;
+//   a count per query; and the queries in order of their counts;
+// - a 1-D grid over row tiles of T rows (T = 128 / 64 / 32 / 16, the
+//   largest whose staged rows fit; 64 when that lets two blocks share an SM,
+//   so one block's copies overlap the other's arithmetic);
+// - each block stages the T-row segment of every U dim's value row, and of
+//   the fold row for the lexical ones (U's first n_lex slots), plus one zero
+//   fold row, into shared memory with 16-byte cp.async (rows start 16-byte
+//   aligned: the planes' pitch is padded; the ragged last tile zero-fills
+//   past N), then waits and barriers once;
+// - then every query of the batch is computed from that copy: a group of
+//   L = T / R lanes per query, each lane owning R = 8 consecutive rows, so
+//   a warp holds 32 / L queries at a time, of similar counts (the order).
+//   The group walks its query's entries in order; they come in with one
+//   coalesced 8-byte load per L dims and reach the lanes by shuffles.  A
+//   lane's R values (and folds) of one dim are one shared-memory access,
+//   and a group's accesses of one dim are one contiguous segment;
+// - per product: int8 values widen without I2F (a quarter-rate
+//   instruction), folds compare a 32-bit word at a time, CLS dims gate
+//   against the zero fold row with gate 0 (always open: no branch), and a
+//   product is added only where its gate opens;
+// - each group writes its query's T outputs once, R per lane.
+// HBM then moves each staged row once per tile (the each-input-once
+// bytes); what is left is instruction issue, ~5 per gated product plus the
+// per-dim cost (shuffles, addressing, two loads) over R.  R = 8 beat 4 and
+// 16 on the card, and T = 64 beat 32 and 128; a persistent variant with
+// two staging buffers per block (one block an SM) measured slower: one
+// barrier per tile across 32 warps of unequal work (PERF.md).
+
+#include <climits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;  // rows per thread
+constexpr int kThreads = 512;
+constexpr int kRows = 8;         // rows per lane
+constexpr int kNoSlot = 0xFFFF;  // key slot of an entry past a query's count
 
-template <int VK, int IK, int OK>
-__global__ void __launch_bounds__(kThreads)
-partial_gip_kernel(const float* __restrict__ imp_vals,
-                   const int32_t* __restrict__ imp_dims,
-                   const int32_t* __restrict__ imp_gates,
+// Stage the 16 bytes of a dim row at rows n.. (row = the dim row's start);
+// past n_rows they read as zero.
+template <typename E>
+__device__ __forceinline__ void stage16(E* dst, const E* __restrict__ row,
+                                        int64_t n, int64_t n_rows) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(E));
+  const int64_t left = n_rows - n;
+  const int bytes = left >= kPer ? 16
+                    : left > 0   ? static_cast<int>(left * sizeof(E))
+                                 : 0;
+  dhr::cp_async16(dst, bytes ? row + n : row, bytes);
+}
+
+// f32 of the R values at p (shared memory, aligned to R elements).  int8
+// avoids I2F, which issues at a quarter of the f32 rate: with u = x + 128
+// (x ^ 0x80), the bits 0x4B0000uu are the f32 2^23 + u, and subtracting
+// 2^23 + 128 leaves x exactly.  Other kinds widen as dhr::to_f32.
+template <int VK, int R>
+__device__ __forceinline__ void widen(const typename dhr::Elem<VK>::T* p,
+                                      float (&x)[R]) {
+  if constexpr (VK == dhr::kI8) {
+    static_assert(R % 4 == 0, "int8 values widen a word at a time");
+    uint32_t w[R / 4];
+    dhr::load_vec(reinterpret_cast<const uint32_t*>(p), w);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint32_t bits =
+          __byte_perm(w[r / 4] ^ 0x80808080u, 0x4B000000u, 0x7650 | (r % 4));
+      x[r] = __fadd_rn(__uint_as_float(bits), -8388736.f);
+    }
+  } else {
+    typename dhr::Elem<VK>::T v[R];
+    dhr::load_vec(p, v);
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = dhr::to_f32<VK>(v[r]);
+  }
+}
+
+// open[r]: the fold at p[r] equals the gate g, compared a 32-bit word of
+// folds at a time (x ^ the gate repeated in every fold is zero in the folds
+// that match).  The caller guarantees g lies in the folds' range, so equal
+// low bits mean equal values.
+template <int IK, int R>
+__device__ __forceinline__ void gates(const typename dhr::Elem<IK>::T* p,
+                                      int g, bool (&open)[R]) {
+  constexpr int kBits = 8 * static_cast<int>(sizeof(typename dhr::Elem<IK>::T));
+  constexpr int kPer = 32 / kBits;  // folds per word
+  constexpr uint32_t kMask = (1u << kBits) - 1u;
+  static_assert(R % kPer == 0, "whole words of folds");
+  const uint32_t rep = (static_cast<uint32_t>(g) & kMask) *
+                       (kBits == 8 ? 0x01010101u : 0x00010001u);
+  uint32_t w[R / kPer];
+  dhr::load_vec(reinterpret_cast<const uint32_t*>(p), w);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    open[r] = ((w[r / kPer] ^ rep) & (kMask << (kBits * (r % kPer)))) == 0;
+  }
+}
+
+template <int VK, int IK, int OK, int T>
+__global__ void __launch_bounds__(kThreads, 2)
+partial_gip_kernel(const int2* __restrict__ entries,
+                   const int32_t* __restrict__ counts,
+                   const int32_t* __restrict__ order,
+                   const int32_t* __restrict__ dims_u,
                    const typename dhr::Elem<VK>::T* __restrict__ values_t,
                    const typename dhr::Elem<IK>::T* __restrict__ indices_t,
                    typename dhr::Elem<OK>::T* __restrict__ out,
-                   int64_t n_rows, int n_imp, int dim, int lex_dim) {
-  extern __shared__ unsigned char smem[];
-  float* s_val = reinterpret_cast<float*>(smem);
-  int32_t* s_dim = reinterpret_cast<int32_t*>(s_val + n_imp);
-  int32_t* s_gate = s_dim + n_imp;
+                   int64_t n_rows, int64_t v_pitch, int64_t i_pitch,
+                   int batch, int n_imp, int n_u, int n_lex) {
+  using VT = typename dhr::Elem<VK>::T;
+  using IT = typename dhr::Elem<IK>::T;
+  using OT = typename dhr::Elem<OK>::T;
+  constexpr int R = kRows;
+  constexpr int L = T / R;    // lanes per query: 32, 16, 8 or 4
+  constexpr int QW = 32 / L;  // queries per warp at a time
+  constexpr int kVPer = 16 / static_cast<int>(sizeof(VT));
+  constexpr int kIPer = 16 / static_cast<int>(sizeof(IT));
+  constexpr int kVChunks = T / kVPer;  // 16-byte chunks per staged row
+  constexpr int kIChunks = T / kIPer;
 
-  const int64_t b = blockIdx.x;
-  dhr::stage_important(imp_vals, imp_dims, imp_gates, b, n_imp, dim, s_val,
-                       s_dim, s_gate);
+  extern __shared__ __align__(16) unsigned char smem[];
+  VT* s_v = reinterpret_cast<VT*>(smem);  // [n_u][T]
+  IT* s_i = reinterpret_cast<IT*>(smem + static_cast<size_t>(n_u) * T *
+                                             sizeof(VT));  // [n_lex + 1][T]
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * T;
 
-  const int64_t n0 =
-      (static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x) * kRows;
-  if (n0 >= n_rows) return;
-  const int64_t n_valid = n_rows - n0;
+  // fold row n_lex stays zero: CLS entries read it with gate 0 (open)
+  const int n_vc = n_u * kVChunks;
+  const int n_chunks = n_vc + (n_lex + 1) * kIChunks;
+  for (int c = threadIdx.x; c < n_chunks; c += blockDim.x) {
+    if (c < n_vc) {
+      const int slot = c / kVChunks, k = c % kVChunks;
+      stage16(s_v + slot * T + k * kVPer,
+              values_t + static_cast<int64_t>(__ldg(dims_u + slot)) * v_pitch,
+              n0 + k * kVPer, n_rows);
+    } else {
+      const int slot = (c - n_vc) / kIChunks, k = (c - n_vc) % kIChunks;
+      const int d = slot < n_lex ? __ldg(dims_u + slot) : 0;
+      stage16(s_i + slot * T + k * kIPer,
+              indices_t + static_cast<int64_t>(d) * i_pitch,
+              slot < n_lex ? n0 + k * kIPer : n_rows, n_rows);
+    }
+  }
+  dhr::cp_async_wait_all();
+  __syncthreads();
 
-  float acc[kRows];
-  dhr::gated_sums<VK, IK>(s_val, s_dim, s_gate, n_imp, values_t, indices_t,
-                          n_rows, n0, n_valid, lex_dim, acc);
-
-  typename dhr::Elem<OK>::T o[kRows];
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / L, ll = lane % L;
+  const int r0 = ll * R;
+  const int64_t n_valid = n_rows - n0 - r0;
+  const VT* my_v = s_v + r0;
+  const IT* my_i = s_i + r0;
+  // An entry past a query's count: skipped, or for int8 values (always
+  // finite) weight 0 on slot 0, whose products (+-0) leave the sums' bits
+  // as they are, so the loop needs no test.
+  constexpr bool kTestSkip = VK != dhr::kI8;
+  const int2 past = make_int2(0, kTestSkip ? kNoSlot : 0);
+  const int n_warps = blockDim.x >> 5;
+  for (int qb = (threadIdx.x >> 5) * QW; qb < batch; qb += n_warps * QW) {
+    const bool active = qb + sub < batch;
+    const int b = active ? __ldg(order + qb + sub) : 0;
+    const int count = active ? __ldg(counts + b) : 0;
+    int n_dims = count;  // the most of the warp's queries: shuffles need all
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) o[r] = dhr::from_f32<OK>(acc[r]);
-  dhr::store_run(out + b * n_rows + n0, n_valid, o);
+    for (int o = L; o < 32; o <<= 1) {
+      n_dims = max(n_dims, __shfl_xor_sync(0xffffffffu, n_dims, o));
+    }
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int i0 = 0; i0 < n_dims; i0 += L) {
+      int2 mine = past;
+      if (i0 + ll < count) {
+        mine = __ldg(entries + static_cast<int64_t>(b) * n_imp + i0 + ll);
+      }
+      const int m = min(L, n_dims - i0);
+      for (int j = 0; j < m; ++j) {
+        const float w = __int_as_float(__shfl_sync(0xffffffffu, mine.x, j, L));
+        const int key = __shfl_sync(0xffffffffu, mine.y, j, L);
+        const int slot = key & 0xFFFF;
+        if (kTestSkip && slot == kNoSlot) continue;
+        float x[R];
+        widen<VK>(my_v + slot * T, x);
+        bool open[R];
+        gates<IK>(my_i + min(slot, n_lex) * T, key >> 16, open);
+        // a closed gate adds +0.0 in the plain version, which leaves an f32
+        // sum (never -0.0) as it is: add only where the gate opens
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (open[r]) acc[r] = __fadd_rn(acc[r], __fmul_rn(x[r], w));
+        }
+      }
+    }
+    if (active) {
+      OT o[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) o[r] = dhr::from_f32<OK>(acc[r]);
+      dhr::store_vec(out + static_cast<int64_t>(b) * n_rows + n0 + r0,
+                     n_valid, o);
+    }
+  }
 }
 
-template <int VK, int IK, int OK>
-cudaError_t launch(const void* imp_vals, const void* imp_dims,
-                   const void* imp_gates, const void* values_t,
-                   const void* indices_t, void* out, int64_t n_rows,
-                   int batch, int n_imp, int dim, int lex_dim,
+template <int VK, int IK, int OK, int T>
+cudaError_t launch(const void* entries, const void* counts, const void* order,
+                   const void* dims_u,
+                   const void* values_t, const void* indices_t, void* out,
+                   int64_t n_rows, int64_t v_pitch, int64_t i_pitch,
+                   int batch, int n_imp, int n_u, int n_lex,
                    cudaStream_t stream) {
-  const int64_t rows_per_block = static_cast<int64_t>(kThreads) * kRows;
-  const dim3 grid(batch, static_cast<unsigned>(
-                             (n_rows + rows_per_block - 1) / rows_per_block));
-  const size_t smem = static_cast<size_t>(n_imp) * 12;
-  partial_gip_kernel<VK, IK, OK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(imp_vals),
-      static_cast<const int32_t*>(imp_dims),
-      static_cast<const int32_t*>(imp_gates),
+  auto* kernel = partial_gip_kernel<VK, IK, OK, T>;
+  const size_t smem =
+      static_cast<size_t>(T) *
+      (static_cast<size_t>(n_u) * sizeof(typename dhr::Elem<VK>::T) +
+       static_cast<size_t>(n_lex + 1) * sizeof(typename dhr::Elem<IK>::T));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int64_t tiles = (n_rows + T - 1) / T;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(tiles), kThreads, smem, stream>>>(
+      static_cast<const int2*>(entries), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(order), static_cast<const int32_t*>(dims_u),
       static_cast<const typename dhr::Elem<VK>::T*>(values_t),
       static_cast<const typename dhr::Elem<IK>::T*>(indices_t),
-      static_cast<typename dhr::Elem<OK>::T*>(out), n_rows, n_imp, dim,
-      lex_dim);
+      static_cast<typename dhr::Elem<OK>::T*>(out), n_rows, v_pitch, i_pitch,
+      batch, n_imp, n_u, n_lex);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry, bound with ctypes.  Pointers are device pointers of contiguous
-// tensors: imp_vals f32 (B, I), imp_dims / imp_gates int32 (B, I),
-// values_T (dim, N) of value_kind, indices_T (lex_dim, N) of index_kind,
-// out (B, N) of out_kind.  Launches on `stream`, allocates nothing, does not
-// synchronise, and returns cudaGetLastError() of the launch.
-extern "C" int partial_gip_launch(const void* imp_vals, const void* imp_dims,
-                                  const void* imp_gates, const void* values_t,
+// C entry, bound with ctypes.  Pointers are device pointers: entries int32
+// (B, I, 2) contiguous, entries[b, i] = (bits of the f32 weight, slot |
+// gate << 16) for i < counts[b] (a lexical dim's gate within the folds'
+// range, a CLS dim's 0), counts int32 (B,), order int32 (B,) a permutation
+// of the queries; dims_u int32 (n_u,), sorted, the first n_lex of them
+// < lex_dim; values_T (dim, N) of value_kind at row pitch v_pitch and
+// indices_T (lex_dim, N) of index_kind at row pitch i_pitch (elements; each
+// row 16-byte aligned); out (B, N) of out_kind, contiguous.  tile is 128,
+// 64, 32 or 16.  Launches on `stream`, allocates nothing, does not
+// synchronise, and returns the first CUDA error of the set-up or the launch.
+extern "C" int partial_gip_launch(const void* entries, const void* counts,
+                                  const void* order,
+                                  const void* dims_u, const void* values_t,
                                   const void* indices_t, void* out,
-                                  long long n_rows, int batch, int n_imp,
-                                  int dim, int lex_dim, int value_kind,
-                                  int index_kind, int out_kind,
-                                  void* stream) {
+                                  long long n_rows, long long v_pitch,
+                                  long long i_pitch, int batch, int n_imp,
+                                  int n_u, int n_lex, int tile,
+                                  int value_kind, int index_kind,
+                                  int out_kind, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n = static_cast<int64_t>(n_rows);
   return dhr::dispatch_planes(value_kind, index_kind, [&](auto vk, auto ik) {
     return dhr::dispatch_out(out_kind, [&](auto ok) {
-      return launch<decltype(vk)::value, decltype(ik)::value,
-                    decltype(ok)::value>(imp_vals, imp_dims, imp_gates,
-                                         values_t, indices_t, out, n, batch,
-                                         n_imp, dim, lex_dim, s);
+      constexpr int VK = decltype(vk)::value, IK = decltype(ik)::value,
+                    OK = decltype(ok)::value;
+      const auto go = [&](auto t) {
+        return launch<VK, IK, OK, decltype(t)::value>(
+            entries, counts, order, dims_u, values_t, indices_t, out, n_rows,
+            v_pitch, i_pitch, batch, n_imp, n_u, n_lex, s);
+      };
+      switch (tile) {
+        case 128: return go(std::integral_constant<int, 128>{});
+        case 64: return go(std::integral_constant<int, 64>{});
+        case 32: return go(std::integral_constant<int, 32>{});
+        case 16: return go(std::integral_constant<int, 16>{});
+        default: return cudaErrorInvalidValue;
+      }
     });
   });
 }

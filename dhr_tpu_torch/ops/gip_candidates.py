@@ -23,8 +23,9 @@ with the winner's ``j`` in the low ``log2 G`` mantissa bits; else
 
 Bound on the card: bytes — K1's reads (``I`` dim rows of values and
 indices per query) plus ``B * P * 4`` bytes of output (two planes: plus the
-row plane).  The kernel (``csrc/gip_candidates.cu``) runs K1's accumulation
-and reduces each block's span in shared memory.
+row plane).  The kernel (``csrc/gip_candidates.cu``) runs K1's arithmetic
+per query, straight from the dim-major planes (each row 16-byte aligned on
+the card, as for K1), and reduces each block's span in shared memory.
 
 Routing: a CPU tensor goes to :func:`gip_candidates_plain`; a CUDA tensor
 launches the kernel or raises.  ``gip_candidates.launches`` counts launches.
@@ -40,8 +41,6 @@ import torch.nn.functional as F
 
 from dhr_tpu_torch.ops import _build
 from dhr_tpu_torch.ops.partial_gip import (
-    _MAX_GRID_Y,
-    _MAX_IMP,
     _check,
     partial_gip_plain,
     select_important,
@@ -50,6 +49,8 @@ from dhr_tpu_torch.ops.partial_gip import (
 LANE = 128
 _PASS_ROWS = 256 * 16    # rows of one pass of the kernel's threads
 _MAX_SPAN = 8 * _PASS_ROWS   # 128 KB of f32 sums in shared memory
+_MAX_IMP = 4096          # (val, dim, gate) triples staged in 48 KB of smem
+_MAX_GRID_Y = 65535
 
 
 def reduced_lanes(n_rows: int, reduce_block: int) -> int:
@@ -142,7 +143,8 @@ def gip_candidates(imp_vals, imp_dims, imp_gates, values_T, indices_T,
     err = _launcher()(
         imp_vals.data_ptr(), imp_dims.data_ptr(), imp_gates.data_ptr(),
         values_T.data_ptr(), indices_T.data_ptr(), vals.data_ptr(),
-        0 if rows is None else rows.data_ptr(), N, P, B, n_imp, D, lex_dim,
+        0 if rows is None else rows.data_ptr(), N, values_T.stride(0),
+        indices_T.stride(0), P, B, n_imp, D, lex_dim,
         G, span, _build.KIND[values_T.dtype], _build.KIND[indices_T.dtype],
         _build.KIND[out_dtype], int(packed_ids),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -160,7 +162,7 @@ gip_candidates.launches = 0
 def _launcher():
     fn = _build.load("gip_candidates").gip_candidates_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4
                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

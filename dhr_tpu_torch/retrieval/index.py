@@ -12,8 +12,11 @@ plus a sidecar ``.docids.json``.  A compatibility reader ingests the
 reference's pickle triple ``[values, indices, ids]``.
 
 On the device, :class:`DeviceIndex` keeps the row-major planes (the rerank's
-row gathers) and/or their dim-major twins (the theta pass reads one dim row
-per important dim), each contiguous.
+row gathers, contiguous) and/or their dim-major twins (the theta pass reads
+one dim row per important dim).  A dim-major plane is a ``(D, N)`` view of
+``(D, pitch)`` storage, ``pitch`` = N rounded up to a multiple of
+:data:`ROW_PITCH`, so every dim row and every row tile of the theta-pass
+kernels starts 16-byte aligned (:func:`dim_major`).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 
 from dhr_tpu_torch.device import resolve_device
 from dhr_tpu_torch.ops.quantize import quantize_per_dim_np
+
+ROW_PITCH = 128  # elements: the dim-major row pitch is a multiple of this
 
 
 @dataclasses.dataclass
@@ -182,6 +187,19 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
+def dim_major(plane: torch.Tensor) -> torch.Tensor:
+    """The ``(D, N)`` dim-major twin of a row-major ``(N, D)`` plane, as a
+    view of ``(D, pitch)`` storage with ``pitch = ceil(N / 128) * 128``
+    (``stride(0) == pitch``, ``stride(1) == 1``): one transposing copy, the
+    padding zeroed.  Costs at most 127 elements per dim row."""
+    n, d = plane.shape
+    pitch = -(-n // ROW_PITCH) * ROW_PITCH
+    out = torch.empty(d, pitch, dtype=plane.dtype, device=plane.device)
+    out[:, :n].copy_(plane.T)
+    out[:, n:].zero_()
+    return out[:, :n]
+
+
 def _widen_indices(indices: torch.Tensor) -> torch.Tensor:
     """uint8 -> int8 when every fold is < 128, else int16: reinterpreting
     uint8 >= 128 as int8 would change the value."""
@@ -200,9 +218,9 @@ class DeviceIndex:
     """
 
     values: torch.Tensor | None        # (N, D) int8/bf16/f16/f32
-    values_T: torch.Tensor | None      # (D, N)
+    values_T: torch.Tensor | None      # (D, N) view, stride(0) = pitch
     indices: torch.Tensor | None       # (N, lex) int8/int16
-    indices_T: torch.Tensor | None     # (lex, N)
+    indices_T: torch.Tensor | None     # (lex, N) view, stride(0) = pitch
     docids: np.ndarray                 # host-side
     lex_dim: int
     num_rows: int
@@ -233,14 +251,14 @@ class DeviceIndex:
         dev = resolve_device(device)
         values = _as_tensor(values, dev)
         dv = values.contiguous() if layout != "dim" else None
-        dvt = values.T.contiguous() if layout != "row" else None
+        dvt = dim_major(values) if layout != "row" else None
         di = dit = None
         if indices is not None:
             indices = _widen_indices(_as_tensor(indices, dev))
             if layout != "dim":
                 di = indices.contiguous()
             if layout != "row":
-                dit = indices.T.contiguous()
+                dit = dim_major(indices)
         return DeviceIndex(
             values=dv, values_T=dvt, indices=di, indices_T=dit,
             docids=np.asarray(docids), lex_dim=int(lex_dim),
@@ -269,7 +287,7 @@ class DeviceIndex:
             values = values.to(value_dtype)
         values = values.to(dev)
         dv = values if layout != "dim" else None
-        dvt = values.T.contiguous() if layout != "row" else None
+        dvt = dim_major(values) if layout != "row" else None
         di = dit = None
         if packed.indices is not None:
             indices = _widen_indices(torch.from_numpy(
@@ -277,7 +295,7 @@ class DeviceIndex:
             if layout != "dim":
                 di = indices
             if layout != "row":
-                dit = indices.T.contiguous()
+                dit = dim_major(indices)
         scales = None
         if packed.value_scales is not None:
             scales = torch.from_numpy(

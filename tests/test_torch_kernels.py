@@ -2,8 +2,12 @@
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a GPU and no JAX it runs with
-``python -m pytest --noconftest tests/test_torch_kernels.py``.
+``python -m pytest --noconftest tests/test_torch_kernels.py``.  Dim-major
+planes are built as ``DeviceIndex`` builds them (``dim_major``: a padded,
+16-byte aligned row pitch).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -18,8 +22,11 @@ from dhr_tpu_torch.ops.partial_gip import (
     partial_gip,
     partial_gip_plain,
     select_important,
+    staging_plan,
 )
 from dhr_tpu_torch.ops.rerank_gip import rerank_gip, rerank_gip_plain
+from dhr_tpu_torch.retrieval.index import dim_major
+from dhr_tpu_torch.retrieval.searcher import _ip_scores
 
 
 @pytest.fixture
@@ -54,24 +61,80 @@ def _close(got, want, rel):
     assert float((got[fin] - want[fin]).abs().max()) <= rel * scale
 
 
-@pytest.mark.parametrize("N", [4096, 4099, 20011])
+def _on_card(vt, it, device):
+    """Padded dim-major planes on the card from (D, N) host planes."""
+    return (dim_major(vt.T.contiguous().to(device)),
+            dim_major(it.T.contiguous().to(device)))
+
+
+@functools.lru_cache(maxsize=1)
+def _wide_rows(N, D, lex):
+    """Row-major int8 value and fold planes at full width, made on the
+    card (numpy would take seconds at 204,803 x 896)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(N)
+    v = torch.randint(-127, 128, (N, D), generator=g, device="cuda",
+                      dtype=torch.int8)
+    f = torch.randint(0, 5, (N, lex), generator=g, device="cuda",
+                      dtype=torch.int8)
+    return v, f
+
+
+@pytest.mark.parametrize("N", [16, 65, 204_800, 204_803])
 @pytest.mark.parametrize("vdt", [torch.int8, torch.bfloat16, torch.float16,
                                  torch.float32])
 @pytest.mark.parametrize("idt", [torch.int8, torch.int16])
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
 def test_partial_gip_kernel_matches_plain(cuda, N, vdt, idt, out):
-    D, lex, B = 40, 32, 6
-    vt, it = _planes(0, D, lex, N, vdt, idt)
+    """Full width (D = 896, lex = 768), I = 48 and 896; N = 16 (one
+    ragged tile), 65 (one 64-row tile + 1), 204,800 and 204,803.  Bit-equal
+    to the plain version on the card, f32 and bf16 out."""
+    D, lex, B = 896, 768, 6
+    v, f = _wide_rows(N, D, lex)
+    vt, it = dim_major(v.to(vdt)), dim_major(f.to(idt))
     qv, qi = _queries(0, B, D, lex)
-    for n_imp in (12, D):
-        imp = select_important(qv, qi, n_imp)
-        imp_d = [x.to(cuda) for x in imp]
+    qi[:, :lex:7] += 256   # low byte a fold's, value beyond int8: never open
+    qi[:, 1:lex:11] -= 1 << 16   # low 16 bits a fold's: never open
+    for n_imp in (48, D):
+        imp = [x.to(cuda) for x in select_important(qv, qi, n_imp)]
         before = partial_gip.launches
-        got = partial_gip(*imp_d, vt.to(cuda), it.to(cuda), lex, out)
+        got = partial_gip(*imp, vt, it, lex, out)
         torch.cuda.synchronize()
         assert partial_gip.launches == before + 1
         want = partial_gip_plain(*imp, vt, it, lex, out)
-        _close(got, want, 1e-4 if out == torch.float32 else 8e-3)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N", [65, 204_803])
+def test_partial_gip_kernel_split_batch(cuda, N):
+    """A shared-memory budget that holds about one query's dims splits the
+    batch into chunks, one launch each; the sums stay bit-equal."""
+    D, lex, B = 896, 768, 6
+    v, f = _wide_rows(N, D, lex)
+    vt, it = dim_major(v), dim_major(f)
+    qv, qi = _queries(0, B, D, lex)
+    imp = [x.to(cuda) for x in select_important(qv, qi, 48)]
+    plan = staging_plan(*imp, D, lex, 1, 1, smem_bytes=16 * 2 * 64)
+    assert len(plan.chunks) > 1
+    before = partial_gip.launches
+    got = partial_gip(*imp, vt, it, lex, torch.float32, plan=plan)
+    torch.cuda.synchronize()
+    assert partial_gip.launches == before + len(plan.chunks)
+    assert torch.equal(got, partial_gip_plain(*imp, vt, it, lex))
+
+
+def test_ip_scores_over_a_padded_bf16_plane(cuda):
+    """The dim-major ip GEMM reads the padded plane in place (bf16 x bf16
+    -> f32); small integers and dyadic weights make every sum exact."""
+    rng = np.random.default_rng(3)
+    n, d = 1001, 96
+    values = torch.from_numpy(rng.integers(-8, 9, (n, d)).astype(np.float32))
+    qv = torch.from_numpy(rng.integers(-16, 17, (5, d)).astype(np.float32)
+                          / 8)
+    plane = dim_major(values.to(torch.bfloat16).to(cuda))
+    assert plane.stride(0) == 1024
+    got = _ip_scores(qv.to(cuda), plane, row_major=False)
+    assert torch.equal(got.cpu(), qv @ values.T)
 
 
 @pytest.mark.parametrize("K", [37, 1001])
@@ -108,13 +171,13 @@ def test_gip_candidates_kernel_matches_plain(cuda, N, vdt, idt, G, packed,
     sums); packed winners decode to the two-plane rows."""
     D, lex, B = 40, 32, 6
     vt, it = _planes(0, D, lex, N, vdt, idt)
+    vt_d, it_d = _on_card(vt, it, cuda)
     qv, qi = _queries(0, B, D, lex)
     for n_imp in (12, D):
         imp = select_important(qv, qi, n_imp)
         imp_d = [x.to(cuda) for x in imp]
         before = gip_candidates.launches
-        got = gip_candidates(*imp_d, vt.to(cuda), it.to(cuda), lex, G,
-                             packed, out)
+        got = gip_candidates(*imp_d, vt_d, it_d, lex, G, packed, out)
         torch.cuda.synchronize()
         assert gip_candidates.launches == before + 1
         want = gip_candidates_plain(*imp, vt, it, lex, G, packed, out)
@@ -123,8 +186,8 @@ def test_gip_candidates_kernel_matches_plain(cuda, N, vdt, idt, G, packed,
                                want.view(torch.int32))
             pos = torch.arange(got.shape[1], device=cuda).expand_as(got)
             _, rows = decode_packed_candidates(got, pos, G)
-            _, rows2 = gip_candidates(*imp_d, vt.to(cuda), it.to(cuda), lex,
-                                      G, False, torch.float32)
+            _, rows2 = gip_candidates(*imp_d, vt_d, it_d, lex, G, False,
+                                      torch.float32)
             valid = rows2 < N
             assert torch.equal(rows[valid], rows2[valid].long())
             assert bool((rows[~valid] >= N).all())
@@ -140,7 +203,11 @@ def test_kernels_raise_on_bad_input(cuda):
     qv, qi = _queries(0, 2, D, lex)
     imp = [x.to(cuda) for x in select_important(qv, qi, 4)]
     with pytest.raises(ValueError):
-        partial_gip(*imp, vt.to(cuda).T, it.to(cuda), lex)   # not contiguous
+        partial_gip(*imp, vt.to(cuda).T, it.to(cuda), lex)   # not (D, N)
+    odd_v, odd_i = _planes(0, D, lex, N + 3, torch.int8, torch.int8)
+    for fn in (partial_gip, gip_candidates):   # contiguous, pitch N + 3
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(*imp, odd_v.to(cuda), odd_i.to(cuda), lex)
     with pytest.raises(TypeError):
         partial_gip(*imp, vt.to(cuda).to(torch.int32), it.to(cuda), lex)
     with pytest.raises(ValueError):
