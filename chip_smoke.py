@@ -185,8 +185,9 @@ def phase_k1(index, queries, torch):
 
 
 def phase_k2(index, queries, seed, torch):
-    """K2 vs plain: B=16, K=10,000 and 1,001, D=896, lex=768, int8 and
-    int16 indices, int8/bf16/f32 values; one row id out of range."""
+    """K2 vs plain: B=16, K=10,000 and 1,001, lex=768, int8 and int16
+    indices, int8/bf16/f32 values; D=896 (rows of whole 16-byte words) and
+    D=890 (not: the element path); row ids out of range on both sides."""
     from dhr_tpu_torch.ops.rerank_gip import rerank_gip, rerank_gip_plain
 
     qv, _, qi = queries
@@ -197,79 +198,111 @@ def phase_k2(index, queries, seed, torch):
     for k in (10_000, 1_001):
         rows = torch.randint(0, n, (qv.shape[0], k), generator=g,
                              device="cuda")
-        rows[0, 0] = n  # never read: scores -inf
-        for vdt in (torch.int8, torch.bfloat16, torch.float32):
-            vals = index.values.to(vdt)
-            for idt in (torch.int8, torch.int16):
-                ind = index.indices.to(idt)
-                got = rerank_gip(qv, qi, rows, vals, ind, LEX_DIM)
-                want = rerank_gip_plain(qv, qi, rows, vals, ind, LEX_DIM)
-                torch.cuda.synchronize()
-                worst = max(worst, check_close(
-                    f"rerank_gip K={k} {vdt} {idt}", got, want, 1e-4, torch))
-                cases += 1
+        rows[0, 0], rows[1, 1] = n, -1  # never read: scores -inf
+        for D in (index.dim, 890):
+            for vdt in (torch.int8, torch.bfloat16, torch.float32):
+                vals = index.values[:, :D].to(vdt).contiguous()
+                q = qv[:, :D].contiguous()
+                for idt in (torch.int8, torch.int16):
+                    ind = index.indices.to(idt)
+                    got = rerank_gip(q, qi, rows, vals, ind, LEX_DIM)
+                    want = rerank_gip_plain(q, qi, rows, vals, ind, LEX_DIM)
+                    torch.cuda.synchronize()
+                    if not bool(torch.isneginf(got[[0, 1], [0, 1]]).all()):
+                        raise AssertionError("rerank_gip: an out-of-range "
+                                             "row id did not score -inf")
+                    worst = max(worst, check_close(
+                        f"rerank_gip K={k} D={D} {vdt} {idt}", got, want,
+                        1e-4, torch))
+                    cases += 1
+                del vals
     emit({"phase": "k2_vs_plain", "cases": cases, "max_abs_err": worst,
-          "tol": "1e-4 * max(|want|, 1)"})
+          "dims": [index.dim, 890], "tol": "1e-4 * max(|want|, 1)"})
     return worst
 
 
 def phase_k3(index, queries, torch):
-    """K3 vs plain: 8 queries, rows 204,800 and 204,803 (ragged), padded
+    """K3 vs plain: 8 queries, rows 204,800, 204,803 (ragged) and 204,700
+    (the last group block partial: at G=3 whole lane tiles past N), padded
     dim-major planes (``dim_major``), value int8/bf16, index int8/int16,
     I=48 (theta 0.3) and I=896 (theta 0); G=8 packed, G=8 two planes (f32
-    and bf16 out), G=3 two planes.  Rows equal, scores bit-equal, packed
-    rows decode to the two-plane rows."""
+    and bf16 out), G=3 two planes; plus, at 204,803 rows, a batch split
+    into query chunks by a small shared-memory budget.  Rows equal, scores
+    bit-equal, packed rows decode to the two-plane rows; the plan's launch
+    limits are the built kernel's."""
     from dhr_tpu_torch.ops.gip_candidates import (
-        decode_packed_candidates, gip_candidates, gip_candidates_plain)
+        MAX_GROUP, QUERY_ROWS, candidates_plan, decode_packed_candidates,
+        gip_candidates, gip_candidates_plain, kernel_limits)
     from dhr_tpu_torch.ops.partial_gip import select_important
     from dhr_tpu_torch.retrieval.index import dim_major
 
+    if kernel_limits() != (QUERY_ROWS, MAX_GROUP):
+        raise AssertionError(f"K3's plan limits {(QUERY_ROWS, MAX_GROUP)} "
+                             f"are not the kernel's {kernel_limits()}")
     qv, qv1, qi = (x[:8] for x in queries)
     variants = ((8, True, torch.float32), (8, False, torch.float32),
                 (8, False, torch.bfloat16), (3, False, torch.float32))
-    worst, cases = 0.0, 0
-    for n in (204_800, SMALL_ROWS):
+    worst, cases, tiles, split_chunks = 0.0, 0, set(), 0
+
+    def check(name, n, imp, vt, it, plan=None):
+        nonlocal worst, cases
+        two_plane_rows = None
+        for G, packed, out in variants:
+            case = f"{name} G={G} packed={packed} {out}"
+            got = gip_candidates(*imp, vt, it, LEX_DIM, G, packed, out,
+                                 plan=plan)
+            want = gip_candidates_plain(*imp, vt, it, LEX_DIM, G, packed, out)
+            torch.cuda.synchronize()
+            if packed:
+                got_v, want_v = got, want
+                packed_plane = got
+            else:
+                (got_v, got_r), (want_v, want_r) = got, want
+                if not torch.equal(got_r, want_r):
+                    raise AssertionError(f"{case}: rows differ")
+                if G == 8 and out == torch.float32:
+                    two_plane_rows = got_r
+            bits = (got_v.float().view(torch.int32),
+                    want_v.float().view(torch.int32))
+            if not torch.equal(*bits):
+                raise AssertionError(f"{case}: scores differ")
+            worst = max(worst, check_close(case, got_v, want_v, 0.0, torch))
+            cases += 1
+        pos = torch.arange(packed_plane.shape[1], device="cuda")
+        _, rows = decode_packed_candidates(
+            packed_plane, pos.expand_as(packed_plane), 8)
+        valid = two_plane_rows < n
+        if not (torch.equal(rows[valid], two_plane_rows[valid].long())
+                and bool((rows[~valid] >= n).all())):
+            raise AssertionError(f"{name}: decoded packed rows != two-plane "
+                                 "rows")
+
+    for n in (204_800, SMALL_ROWS, 204_700):
         for vdt in (torch.int8, torch.bfloat16):
             vt = dim_major(index.values[:n].to(vdt))
             for idt in (torch.int8, torch.int16):
                 it = dim_major(index.indices[:n].to(idt))
                 for q, n_imp in ((qv1, 48), (qv, qv.shape[1])):
                     imp = select_important(q, qi, n_imp)
-                    two_plane_rows = None
-                    for G, packed, out in variants:
-                        name = (f"gip_candidates N={n} {vdt} {idt} "
-                                f"I={n_imp} G={G} packed={packed} {out}")
-                        got = gip_candidates(*imp, vt, it, LEX_DIM, G,
-                                             packed, out)
-                        want = gip_candidates_plain(*imp, vt, it, LEX_DIM,
-                                                    G, packed, out)
-                        torch.cuda.synchronize()
-                        if packed:
-                            got_v, want_v = got, want
-                            packed_plane = got
-                        else:
-                            (got_v, got_r), (want_v, want_r) = got, want
-                            if not torch.equal(got_r, want_r):
-                                raise AssertionError(f"{name}: rows differ")
-                            if G == 8 and out == torch.float32:
-                                two_plane_rows = got_r
-                        bits = (got_v.float().view(torch.int32),
-                                want_v.float().view(torch.int32))
-                        if not torch.equal(*bits):
-                            raise AssertionError(f"{name}: scores differ")
-                        worst = max(worst, check_close(
-                            name, got_v, want_v, 0.0, torch))
-                        cases += 1
-                    pos = torch.arange(packed_plane.shape[1], device="cuda")
-                    _, rows = decode_packed_candidates(
-                        packed_plane, pos.expand_as(packed_plane), 8)
-                    valid = two_plane_rows < n
-                    if not (torch.equal(rows[valid],
-                                        two_plane_rows[valid].long())
-                            and bool((rows[~valid] >= n).all())):
-                        raise AssertionError(
-                            f"decoded packed rows != two-plane rows at N={n}")
+                    tiles.add(candidates_plan(
+                        *imp, vt.shape[0], LEX_DIM, vt.element_size(),
+                        it.element_size()).chunks[0].tile)
+                    check(f"gip_candidates N={n} {vdt} {idt} I={n_imp}", n,
+                          imp, vt, it)
+            del vt, it
+    vt = dim_major(index.values[:SMALL_ROWS])
+    it = dim_major(index.indices[:SMALL_ROWS])
+    imp = select_important(qv1, qi, 48)
+    plan = candidates_plan(*imp, vt.shape[0], LEX_DIM, 1, 1,
+                           smem_bytes=4096)
+    split_chunks = len(plan.chunks)
+    if split_chunks < 2:
+        raise AssertionError("the small budget did not split the batch")
+    check(f"gip_candidates N={SMALL_ROWS} split batch", SMALL_ROWS, imp, vt,
+          it, plan)
     emit({"phase": "k3_vs_plain", "cases": cases, "max_abs_err": worst,
+          "tiles": sorted(tiles), "split_chunks": split_chunks,
+          "limits": [QUERY_ROWS, MAX_GROUP],
           "tol": "0 (rows equal, scores bit-equal)"})
     return worst
 
@@ -637,7 +670,7 @@ def phase_timing(searcher, batch, launches, errs, torch):
     """Kernel, plain and bound times at the main path's first-batch shapes
     (K3 at the fused path's, which are the same queries and planes)."""
     from dhr_tpu_torch.ops.gip_candidates import (
-        gip_candidates, gip_candidates_plain)
+        candidates_plan, gip_candidates, gip_candidates_plain)
     from dhr_tpu_torch.ops.partial_gip import (
         partial_gip, partial_gip_plain, select_important, staging_plan)
     from dhr_tpu_torch.ops.rerank_gip import rerank_gip, rerank_gip_plain
@@ -680,9 +713,15 @@ def phase_timing(searcher, batch, launches, errs, torch):
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / F32_FLOPS_PER_S)
 
     G = 8
-    k3 = lambda: gip_candidates(*imp, vt, it, lex, G, True)  # noqa: E731
+    make_k3_plan = lambda: candidates_plan(  # noqa: E731
+        *imp, D, lex, vt.element_size(), it.element_size())
+    k3_plan = make_k3_plan()
+    k3 = lambda: gip_candidates(*imp, vt, it, lex, G, True, plan=k3_plan)  # noqa: E731
     k3_plain = lambda: gip_candidates_plain(*imp, vt, it, lex, G, True)  # noqa: E731
     k3_ms = cuda_ms(k3, 5, torch)
+    k3_with_plan_ms = cuda_ms(
+        lambda: gip_candidates(*imp, vt, it, lex, G, True), 5, torch)
+    k3_plan_ms = cuda_ms(make_k3_plan, 5, torch)
     k3_plain_ms = cuda_ms(k3_plain, 1, torch)
     got, want = k3(), k3_plain()
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
@@ -726,6 +765,10 @@ def phase_timing(searcher, batch, launches, errs, torch):
                           "stream_bound_ms": k1_stream_bytes
                           / HBM_BYTES_PER_S * 1e3},
           "gip_candidates": {"B": B, "N": N, "G": G, "reduced_lanes": P,
+                             "plan_tile": k3_plan.chunks[0].tile,
+                             "plan_chunks": len(k3_plan.chunks),
+                             "plan_ms": k3_plan_ms,
+                             "ms_with_plan": k3_with_plan_ms,
                              "bytes_each_input_once": k3_bytes,
                              "bytes_per_query_streams": k3_stream_bytes,
                              "stream_bound_ms": k3_stream_bytes

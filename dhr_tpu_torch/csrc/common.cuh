@@ -1,8 +1,7 @@
 // Shared helpers of the dhr_tpu_torch CUDA kernels: element kinds, widening
-// to f32 / int32, runs of consecutive elements moved with vector accesses,
-// 16-byte cp.async into shared memory, K3's gated accumulation straight
-// from the dim-major planes, and the host-side dispatch from runtime kinds
-// to template instances.
+// to f32 without I2F, word-wise fold gates, runs of consecutive elements
+// moved with vector accesses, 16-byte cp.async into shared memory, and the
+// host-side dispatch from runtime kinds to template instances.
 //
 // Dim-major planes come at a padded pitch (retrieval/index.py dim_major:
 // a multiple of 128 elements), and the wrappers refuse a plane whose row
@@ -38,13 +37,20 @@ template <> struct Elem<kBF16> { using T = uint16_t; };
 template <> struct Elem<kF16> { using T = uint16_t; };
 template <> struct Elem<kF32> { using T = float; };
 
+// 32-bit words that hold R elements of kind K.
+template <int K, int R>
+inline constexpr int kWords =
+    R * static_cast<int>(sizeof(typename Elem<K>::T)) / 4;
+
+// f32 of one value element.  int8 avoids I2F, which runs at 16 a clock an
+// SM on sm_90, an eighth of the f32 rate: with u = x + 128
+// (x ^ 0x80), the bits 0x4B0000uu are the f32 2^23 + u, and subtracting
+// 2^23 + 128 leaves x exactly.
 template <int K>
 __device__ __forceinline__ float to_f32(typename Elem<K>::T x);
 template <> __device__ __forceinline__ float to_f32<kI8>(int8_t x) {
-  return static_cast<float>(x);
-}
-template <> __device__ __forceinline__ float to_f32<kI16>(int16_t x) {
-  return static_cast<float>(x);
+  const uint32_t u = static_cast<uint8_t>(x) ^ 0x80u;
+  return __fadd_rn(__uint_as_float(0x4B000000u | u), -8388736.f);
 }
 template <> __device__ __forceinline__ float to_f32<kBF16>(uint16_t x) {
   return __uint_as_float(static_cast<uint32_t>(x) << 16);
@@ -102,25 +108,73 @@ __device__ __forceinline__ void store_vec(T* p, int64_t n_valid,
   }
 }
 
-// Load R consecutive elements of a dim-major row at p (16-byte aligned: the
-// pitch rule above), of which n_valid (may be < R) exist; missing ones read
-// as 0.  16-byte loads through the read-only path for a whole run, element
-// loads only for the ragged end of the row.
-template <typename T, int R>
-__device__ __forceinline__ void load_run(const T* __restrict__ p,
-                                         int64_t n_valid, T (&out)[R]) {
-  constexpr int kBytes = R * static_cast<int>(sizeof(T));
-  static_assert(kBytes % 16 == 0, "a run must be whole 16-byte words");
-  if (n_valid >= R) {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
+// f32 of the R value elements of kind VK held in the words w (element r at
+// byte r * size), exact; int8 without I2F as to_f32<kI8>, four a word
+// (one PRMT and one FADD each).
+template <int VK, int R>
+__device__ __forceinline__ void widen_words(
+    const uint32_t (&w)[kWords<VK, R>], float (&x)[R]) {
+  if constexpr (VK == kI8) {
+    static_assert(R % 4 == 0, "int8 values widen a word at a time");
 #pragma unroll
-    for (int k = 0; k < kBytes / 16; ++k) {
-      const uint4 w = __ldg(q + k);
-      memcpy(&out[k * (16 / sizeof(T))], &w, 16);
+    for (int r = 0; r < R; ++r) {
+      const uint32_t bits =
+          __byte_perm(w[r / 4] ^ 0x80808080u, 0x4B000000u, 0x7650 | (r % 4));
+      x[r] = __fadd_rn(__uint_as_float(bits), -8388736.f);
     }
   } else {
+    typename Elem<VK>::T v[R];
+    memcpy(&v[0], &w[0], sizeof(v));
 #pragma unroll
-    for (int r = 0; r < R; ++r) out[r] = r < n_valid ? p[r] : T(0);
+    for (int r = 0; r < R; ++r) x[r] = to_f32<VK>(v[r]);
+  }
+}
+
+// widen_words of the R values at p (shared memory, aligned to R elements),
+// loaded with one access.
+template <int VK, int R>
+__device__ __forceinline__ void widen(const typename Elem<VK>::T* p,
+                                      float (&x)[R]) {
+  uint32_t w[kWords<VK, R>];
+  load_vec(reinterpret_cast<const uint32_t*>(p), w);
+  widen_words<VK>(w, x);
+}
+
+// open[r]: fold r of the words w equals the gate at the same place of the
+// words g (gates packed like the folds: their low 8 or 16 bits), compared a
+// 32-bit word at a time (w ^ g is zero in the folds that match).  The
+// caller guarantees each gate lies in the folds' range, so equal low bits
+// mean equal values.
+template <int IK, int R>
+__device__ __forceinline__ void gates_words(
+    const uint32_t (&w)[kWords<IK, R>], const uint32_t (&g)[kWords<IK, R>],
+    bool (&open)[R]) {
+  constexpr int kBits = 8 * static_cast<int>(sizeof(typename Elem<IK>::T));
+  constexpr int kPer = 32 / kBits;  // folds per word
+  constexpr uint32_t kMask = (1u << kBits) - 1u;
+  static_assert(R % kPer == 0, "whole words of folds");
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    open[r] =
+        ((w[r / kPer] ^ g[r / kPer]) & (kMask << (kBits * (r % kPer)))) == 0;
+  }
+}
+
+// open[r]: the fold at p[r] (shared memory, aligned to R elements) equals
+// the one gate g (in the folds' range), as gates_words with g repeated.
+template <int IK, int R>
+__device__ __forceinline__ void gates(const typename Elem<IK>::T* p, int g,
+                                      bool (&open)[R]) {
+  constexpr int kBits = 8 * static_cast<int>(sizeof(typename Elem<IK>::T));
+  constexpr int kPer = 32 / kBits;  // folds per word
+  constexpr uint32_t kMask = (1u << kBits) - 1u;
+  const uint32_t rep = (static_cast<uint32_t>(g) & kMask) *
+                       (kBits == 8 ? 0x01010101u : 0x00010001u);
+  uint32_t w[kWords<IK, R>];
+  load_vec(reinterpret_cast<const uint32_t*>(p), w);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    open[r] = ((w[r / kPer] ^ rep) & (kMask << (kBits * (r % kPer)))) == 0;
   }
 }
 
@@ -139,67 +193,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// K3's theta pass, part 1: stage query b's important dims (w, d, g) in
-// shared memory, then barrier.  A dim outside [0, dim) gets weight 0 and is
-// never read.
-__device__ __forceinline__ void stage_important(
-    const float* __restrict__ imp_vals, const int32_t* __restrict__ imp_dims,
-    const int32_t* __restrict__ imp_gates, int64_t b, int n_imp, int dim,
-    float* s_val, int32_t* s_dim, int32_t* s_gate) {
-  for (int i = threadIdx.x; i < n_imp; i += blockDim.x) {
-    const int d = imp_dims[b * n_imp + i];
-    const bool ok = d >= 0 && d < dim;
-    s_val[i] = ok ? imp_vals[b * n_imp + i] : 0.f;
-    s_dim[i] = ok ? d : 0;
-    s_gate[i] = imp_gates[b * n_imp + i];
-  }
-  __syncthreads();
+// Close the calling thread's group of cp.async issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// K3's theta pass, part 2: the f32 sums of R consecutive rows n0.. (n_valid
-// of them exist, n_valid >= 1; the rest read as 0)
-//
-//   acc[r] = sum_i  w_i * values_t[d_i, n0 + r] * gate_i(n0 + r)
-//   gate_i(n) = d_i >= lex_dim  or  indices_t[d_i, n] == g_i
-//
-// over the staged dims in their order, each product rounded before its add
-// (__fmul_rn / __fadd_rn, no contraction).  A zero weight adds nothing and
-// is skipped (the weights are the same for the whole block); a CLS dim
-// reads no index row.  Dim row d starts at d * v_pitch (values) and
-// d * i_pitch (indices).  K1's staged kernel accumulates the same way, so
-// K1's and K3's sums are the same bits.
-template <int VK, int IK, int R>
-__device__ __forceinline__ void gated_sums(
-    const float* s_val, const int32_t* s_dim, const int32_t* s_gate,
-    int n_imp, const typename Elem<VK>::T* __restrict__ values_t,
-    const typename Elem<IK>::T* __restrict__ indices_t, int64_t v_pitch,
-    int64_t i_pitch, int64_t n0, int64_t n_valid, int lex_dim,
-    float (&acc)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  for (int i = 0; i < n_imp; ++i) {
-    const float w = s_val[i];
-    if (w == 0.f) continue;
-    const int d = s_dim[i];
-    typename Elem<VK>::T v[R];
-    load_run(values_t + static_cast<int64_t>(d) * v_pitch + n0, n_valid, v);
-    if (d < lex_dim) {
-      typename Elem<IK>::T ix[R];
-      load_run(indices_t + static_cast<int64_t>(d) * i_pitch + n0, n_valid,
-               ix);
-      const int g = s_gate[i];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = __fmul_rn(to_f32<VK>(v[r]), w);
-        acc[r] = __fadd_rn(acc[r], static_cast<int>(ix[r]) == g ? p : 0.f);
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc[r] = __fadd_rn(acc[r], __fmul_rn(to_f32<VK>(v[r]), w));
-      }
-    }
-  }
+// Wait until at most N of the calling thread's groups are still in flight
+// (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage the 16 bytes of a dim row at rows n.. (row = the dim row's start)
+// into shared memory at dst; past n_rows they read as zero.
+template <typename E>
+__device__ __forceinline__ void stage16(E* dst, const E* __restrict__ row,
+                                        int64_t n, int64_t n_rows) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(E));
+  const int64_t left = n_rows - n;
+  const int bytes = left >= kPer ? 16
+                    : left > 0   ? static_cast<int>(left * sizeof(E))
+                                 : 0;
+  cp_async16(dst, bytes ? row + n : row, bytes);
 }
 
 // Host side: a kind as a type, so a generic lambda can take it as a
@@ -233,6 +249,18 @@ cudaError_t dispatch_out(int out_kind, F&& f) {
   switch (out_kind) {
     case kF32: return f(KindC<kF32>{});
     case kBF16: return f(KindC<kBF16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f(std::integral_constant<int, tile>) for a row tile of 128, 64, 32 or 16.
+template <typename F>
+cudaError_t dispatch_tile(int tile, F&& f) {
+  switch (tile) {
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 16: return f(std::integral_constant<int, 16>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -38,7 +38,8 @@
 //   lane's R values (and folds) of one dim are one shared-memory access,
 //   and a group's accesses of one dim are one contiguous segment;
 // - per product: int8 values widen without I2F (a quarter-rate
-//   instruction), folds compare a 32-bit word at a time, CLS dims gate
+//   instruction; dhr::widen), folds compare a 32-bit word at a time
+//   (dhr::gates), CLS dims gate
 //   against the zero fold row with gate 0 (always open: no branch), and a
 //   product is added only where its gate opens;
 // - each group writes its query's T outputs once, R per lane.
@@ -58,65 +59,6 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kRows = 8;         // rows per lane
 constexpr int kNoSlot = 0xFFFF;  // key slot of an entry past a query's count
-
-// Stage the 16 bytes of a dim row at rows n.. (row = the dim row's start);
-// past n_rows they read as zero.
-template <typename E>
-__device__ __forceinline__ void stage16(E* dst, const E* __restrict__ row,
-                                        int64_t n, int64_t n_rows) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(E));
-  const int64_t left = n_rows - n;
-  const int bytes = left >= kPer ? 16
-                    : left > 0   ? static_cast<int>(left * sizeof(E))
-                                 : 0;
-  dhr::cp_async16(dst, bytes ? row + n : row, bytes);
-}
-
-// f32 of the R values at p (shared memory, aligned to R elements).  int8
-// avoids I2F, which issues at a quarter of the f32 rate: with u = x + 128
-// (x ^ 0x80), the bits 0x4B0000uu are the f32 2^23 + u, and subtracting
-// 2^23 + 128 leaves x exactly.  Other kinds widen as dhr::to_f32.
-template <int VK, int R>
-__device__ __forceinline__ void widen(const typename dhr::Elem<VK>::T* p,
-                                      float (&x)[R]) {
-  if constexpr (VK == dhr::kI8) {
-    static_assert(R % 4 == 0, "int8 values widen a word at a time");
-    uint32_t w[R / 4];
-    dhr::load_vec(reinterpret_cast<const uint32_t*>(p), w);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const uint32_t bits =
-          __byte_perm(w[r / 4] ^ 0x80808080u, 0x4B000000u, 0x7650 | (r % 4));
-      x[r] = __fadd_rn(__uint_as_float(bits), -8388736.f);
-    }
-  } else {
-    typename dhr::Elem<VK>::T v[R];
-    dhr::load_vec(p, v);
-#pragma unroll
-    for (int r = 0; r < R; ++r) x[r] = dhr::to_f32<VK>(v[r]);
-  }
-}
-
-// open[r]: the fold at p[r] equals the gate g, compared a 32-bit word of
-// folds at a time (x ^ the gate repeated in every fold is zero in the folds
-// that match).  The caller guarantees g lies in the folds' range, so equal
-// low bits mean equal values.
-template <int IK, int R>
-__device__ __forceinline__ void gates(const typename dhr::Elem<IK>::T* p,
-                                      int g, bool (&open)[R]) {
-  constexpr int kBits = 8 * static_cast<int>(sizeof(typename dhr::Elem<IK>::T));
-  constexpr int kPer = 32 / kBits;  // folds per word
-  constexpr uint32_t kMask = (1u << kBits) - 1u;
-  static_assert(R % kPer == 0, "whole words of folds");
-  const uint32_t rep = (static_cast<uint32_t>(g) & kMask) *
-                       (kBits == 8 ? 0x01010101u : 0x00010001u);
-  uint32_t w[R / kPer];
-  dhr::load_vec(reinterpret_cast<const uint32_t*>(p), w);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    open[r] = ((w[r / kPer] ^ rep) & (kMask << (kBits * (r % kPer)))) == 0;
-  }
-}
 
 template <int VK, int IK, int OK, int T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -152,15 +94,16 @@ partial_gip_kernel(const int2* __restrict__ entries,
   for (int c = threadIdx.x; c < n_chunks; c += blockDim.x) {
     if (c < n_vc) {
       const int slot = c / kVChunks, k = c % kVChunks;
-      stage16(s_v + slot * T + k * kVPer,
-              values_t + static_cast<int64_t>(__ldg(dims_u + slot)) * v_pitch,
-              n0 + k * kVPer, n_rows);
+      dhr::stage16(
+          s_v + slot * T + k * kVPer,
+          values_t + static_cast<int64_t>(__ldg(dims_u + slot)) * v_pitch,
+          n0 + k * kVPer, n_rows);
     } else {
       const int slot = (c - n_vc) / kIChunks, k = (c - n_vc) % kIChunks;
       const int d = slot < n_lex ? __ldg(dims_u + slot) : 0;
-      stage16(s_i + slot * T + k * kIPer,
-              indices_t + static_cast<int64_t>(d) * i_pitch,
-              slot < n_lex ? n0 + k * kIPer : n_rows, n_rows);
+      dhr::stage16(s_i + slot * T + k * kIPer,
+                   indices_t + static_cast<int64_t>(d) * i_pitch,
+                   slot < n_lex ? n0 + k * kIPer : n_rows, n_rows);
     }
   }
   dhr::cp_async_wait_all();
@@ -202,9 +145,9 @@ partial_gip_kernel(const int2* __restrict__ entries,
         const int slot = key & 0xFFFF;
         if (kTestSkip && slot == kNoSlot) continue;
         float x[R];
-        widen<VK>(my_v + slot * T, x);
+        dhr::widen<VK>(my_v + slot * T, x);
         bool open[R];
-        gates<IK>(my_i + min(slot, n_lex) * T, key >> 16, open);
+        dhr::gates<IK>(my_i + min(slot, n_lex) * T, key >> 16, open);
         // a closed gate adds +0.0 in the plain version, which leaves an f32
         // sum (never -0.0) as it is: add only where the gate opens
 #pragma unroll
@@ -284,13 +227,7 @@ extern "C" int partial_gip_launch(const void* entries, const void* counts,
             entries, counts, order, dims_u, values_t, indices_t, out, n_rows,
             v_pitch, i_pitch, batch, n_imp, n_u, n_lex, s);
       };
-      switch (tile) {
-        case 128: return go(std::integral_constant<int, 128>{});
-        case 64: return go(std::integral_constant<int, 64>{});
-        case 32: return go(std::integral_constant<int, 32>{});
-        case 16: return go(std::integral_constant<int, 16>{});
-        default: return cudaErrorInvalidValue;
-      }
+      return dhr::dispatch_tile(tile, go);
     });
   });
 }

@@ -21,36 +21,49 @@ Outputs: with ``packed_ids`` (``G`` a power of two) one ``(B, P)`` f32 plane
 with the winner's ``j`` in the low ``log2 G`` mantissa bits; else
 ``(scores (B, P) out_dtype, rows (B, P) int32)``.
 
-Bound on the card: bytes — K1's reads (``I`` dim rows of values and
-indices per query) plus ``B * P * 4`` bytes of output (two planes: plus the
-row plane).  The kernel (``csrc/gip_candidates.cu``) runs K1's arithmetic
-per query, straight from the dim-major planes (each row 16-byte aligned on
-the card, as for K1), and reduces each block's span in shared memory.
+Bound on the card: bytes — K1's reads (the batch's distinct used dim rows
+of values and folds, each once) plus ``B * P * 4`` bytes of output (two
+planes: plus the row plane).  The kernel (``csrc/gip_candidates.cu``) is
+K1's staged design walked over whole groups: a block owns ``T`` lanes of
+one group block, stages each of its ``G`` row segments for every distinct
+dim once (:func:`candidates_plan`: K1's :func:`staging_plan` with this
+kernel's tile picker), computes every query from that copy with K1's
+arithmetic, keeps the running maxima in registers and writes each reduced
+lane once.  Planes as K1's: each row 16-byte aligned on the card.
 
 Routing: a CPU tensor goes to :func:`gip_candidates_plain`; a CUDA tensor
-launches the kernel or raises.  ``gip_candidates.launches`` counts launches.
+launches the kernel or raises.  ``gip_candidates.launches`` counts launches
+(one per query chunk of the plan).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
 
 from dhr_tpu_torch.ops import _build
 from dhr_tpu_torch.ops.partial_gip import (
+    _MAX_SLOTS,
+    SMEM_BYTES,
+    SMEM_TWO_BLOCKS,
+    TILES,
+    StagingPlan,
     _check,
     partial_gip_plain,
     select_important,
+    staged_bytes,
+    staging_plan,
 )
 
 LANE = 128
-_PASS_ROWS = 256 * 16    # rows of one pass of the kernel's threads
-_MAX_SPAN = 8 * _PASS_ROWS   # 128 KB of f32 sums in shared memory
-_MAX_IMP = 4096          # (val, dim, gate) triples staged in 48 KB of smem
-_MAX_GRID_Y = 65535
+# The kernel's launch limits, as csrc gip_candidates_limits reports them
+# (held equal on the card by tests/test_torch_kernels.py and chip_smoke.py):
+# the (query, row) pairs whose running maxima a block holds (512 lanes x 2
+# query groups x 8 rows), and the largest group (j travels in a byte).
+QUERY_ROWS = 512 * 2 * 8
+MAX_GROUP = 256
 
 
 def reduced_lanes(n_rows: int, reduce_block: int) -> int:
@@ -58,9 +71,33 @@ def reduced_lanes(n_rows: int, reduce_block: int) -> int:
     return -(-n_rows // (LANE * reduce_block)) * LANE
 
 
-def _span(reduce_block: int) -> int:
-    """Rows per thread block: a multiple of a pass and of ``128 G``."""
-    return math.lcm(_PASS_ROWS, LANE * reduce_block)
+def pick_candidates_tile(n_dims: int, n_lex: int, n_queries: int,
+                         value_bytes: int, index_bytes: int,
+                         smem_bytes: int = SMEM_BYTES) -> int | None:
+    """K3's lane tile for ``n_queries`` queries over a union of ``n_dims``
+    dims (``n_lex`` lexical): each warp keeps its queries' running maxima
+    in registers, so a block holds at most ``QUERY_ROWS / tile`` queries;
+    of the tiles that allow that and whose staged rows fit ``smem_bytes``,
+    the largest at which two blocks share an SM, else the largest; None
+    when there is none."""
+    if n_dims > _MAX_SLOTS:
+        return None
+    fp = lambda t: staged_bytes(  # noqa: E731
+        n_dims, n_lex, t, value_bytes, index_bytes)
+    tiles = [t for t in TILES
+             if n_queries * t <= QUERY_ROWS and fp(t) <= smem_bytes]
+    two = [t for t in tiles if fp(t) <= SMEM_TWO_BLOCKS]
+    return (two or tiles or [None])[0]
+
+
+def candidates_plan(imp_vals, imp_dims, imp_gates, dim: int, lex_dim: int,
+                    value_bytes: int, index_bytes: int,
+                    smem_bytes: int = SMEM_BYTES) -> StagingPlan:
+    """K3's staging plan: :func:`staging_plan` with K3's tile picker (a
+    chunk holds at most as many queries as a block has lanes for)."""
+    return staging_plan(imp_vals, imp_dims, imp_gates, dim, lex_dim,
+                        value_bytes, index_bytes, smem_bytes,
+                        pick=pick_candidates_tile)
 
 
 def _pack(best: torch.Tensor, j: torch.Tensor, G: int) -> torch.Tensor:
@@ -106,12 +143,15 @@ def decode_packed_candidates(packed: torch.Tensor, pos: torch.Tensor,
 
 def gip_candidates(imp_vals, imp_dims, imp_gates, values_T, indices_T,
                    lex_dim: int, reduce_block: int = 8,
-                   packed_ids: bool = False, out_dtype=torch.bfloat16):
+                   packed_ids: bool = False, out_dtype=torch.bfloat16,
+                   plan: StagingPlan | None = None):
     """Per-group winners of the theta pass over ``(B, N)`` rows.
 
     Inputs as :func:`ops.partial_gip.partial_gip`.  Returns one ``(B, P)``
     f32 plane (``packed_ids``; ``out_dtype`` is ignored: the id bits need
     the f32 mantissa) or ``(scores (B, P) out_dtype, rows (B, P) int32)``.
+    ``plan``: a :func:`candidates_plan` of these inputs, made here when
+    None.
     """
     G = int(reduce_block)
     _check(imp_vals, imp_dims, imp_gates, values_T, indices_T, lex_dim,
@@ -128,11 +168,9 @@ def gip_candidates(imp_vals, imp_dims, imp_gates, values_T, indices_T,
         raise ValueError(f"gip_candidates runs on cuda or cpu, not {dev}")
     B, n_imp = imp_vals.shape
     D, N = values_T.shape
-    span = _span(G)
-    if n_imp > _MAX_IMP or span > _MAX_SPAN or N >= 2**31 \
-            or -(-N // span) > _MAX_GRID_Y:
-        raise ValueError(f"shape out of the kernel's range: B={B}, "
-                         f"I={n_imp}, N={N}, G={G}")
+    if G > MAX_GROUP or N >= 2**31:
+        raise ValueError(f"shape out of the kernel's range: N={N}, G={G} "
+                         f"(G <= {MAX_GROUP}, N < 2**31)")
     P = reduced_lanes(N, G)
     vals = torch.empty(B, P, dtype=torch.float32 if packed_ids else out_dtype,
                        device=dev)
@@ -140,29 +178,47 @@ def gip_candidates(imp_vals, imp_dims, imp_gates, values_T, indices_T,
                                                device=dev)
     if B == 0 or N == 0:
         return vals if packed_ids else (vals, rows)
-    err = _launcher()(
-        imp_vals.data_ptr(), imp_dims.data_ptr(), imp_gates.data_ptr(),
-        values_T.data_ptr(), indices_T.data_ptr(), vals.data_ptr(),
-        0 if rows is None else rows.data_ptr(), N, values_T.stride(0),
-        indices_T.stride(0), P, B, n_imp, D, lex_dim,
-        G, span, _build.KIND[values_T.dtype], _build.KIND[indices_T.dtype],
-        _build.KIND[out_dtype], int(packed_ids),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"gip_candidates kernel launch failed: CUDA error "
-                           f"{err}")
-    gip_candidates.launches += 1
+    if plan is None:
+        plan = candidates_plan(imp_vals, imp_dims, imp_gates, D, lex_dim,
+                               values_T.element_size(),
+                               indices_T.element_size())
+    launch = _launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c in plan.chunks:
+        err = launch(
+            plan.entries[c.start].data_ptr(), plan.counts[c.start].data_ptr(),
+            plan.order[c.start].data_ptr(), c.dims.data_ptr(),
+            values_T.data_ptr(), indices_T.data_ptr(),
+            vals[c.start].data_ptr(),
+            0 if rows is None else rows[c.start].data_ptr(), N,
+            values_T.stride(0), indices_T.stride(0), P, c.stop - c.start,
+            n_imp, c.dims.numel(), c.n_lex, G, c.tile,
+            _build.KIND[values_T.dtype], _build.KIND[indices_T.dtype],
+            _build.KIND[out_dtype], int(packed_ids), stream,
+        )
+        if err:
+            raise RuntimeError(f"gip_candidates kernel launch failed: CUDA "
+                               f"error {err}")
+        gip_candidates.launches += 1
     return vals if packed_ids else (vals, rows)
 
 
 gip_candidates.launches = 0
 
 
+def kernel_limits() -> tuple[int, int]:
+    """``(query rows, largest group)`` as the built kernel reports them
+    (needs the card's build)."""
+    q, g = ctypes.c_int(), ctypes.c_int()
+    _build.load("gip_candidates").gip_candidates_limits(ctypes.byref(q),
+                                                        ctypes.byref(g))
+    return q.value, g.value
+
+
 def _launcher():
     fn = _build.load("gip_candidates").gip_candidates_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4
                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

@@ -127,7 +127,7 @@ def pick_tile(n_dims: int, n_lex: int, value_bytes: int, index_bytes: int,
 
 def staging_plan(imp_vals, imp_dims, imp_gates, dim: int, lex_dim: int,
                  value_bytes: int, index_bytes: int,
-                 smem_bytes: int = SMEM_BYTES) -> StagingPlan:
+                 smem_bytes: int = SMEM_BYTES, pick=None) -> StagingPlan:
     """The kernel's staging plan for a batch of important dims.
 
     A dim is used where its weight is non-zero and it lies in ``[0, dim)``.
@@ -136,7 +136,9 @@ def staging_plan(imp_vals, imp_dims, imp_gates, dim: int, lex_dim: int,
     consecutive query chunks, each as long as its union fits.  Everything
     is queued on the device first and the union's size read last: one
     device-to-host read, so the device idles only from that read to the
-    launch (more reads only to split).
+    launch (more reads only to split).  ``pick(n_dims, n_lex, n_queries,
+    value_bytes, index_bytes, smem_bytes)`` chooses a chunk's tile (None:
+    it does not fit); by default K1's :func:`pick_tile`.
     """
     B, n_imp = imp_dims.shape
     dev = imp_dims.device
@@ -152,10 +154,12 @@ def staging_plan(imp_vals, imp_dims, imp_gates, dim: int, lex_dim: int,
                                      lex_dim, index_bytes)
     order = torch.argsort(counts).int()
     n_u, n_lex = torch.stack([union.sum(), union[:lex_dim].sum()]).tolist()
-    fits = lambda u, lx: pick_tile(u, lx, value_bytes, index_bytes,  # noqa: E731
-                                   smem_bytes)
-    if fits(n_u, n_lex) is not None:
-        chunk = Chunk(0, B, dims[:n_u], n_lex, fits(n_u, n_lex))
+    if pick is None:
+        pick = lambda u, lx, nq, *a: pick_tile(u, lx, *a)  # noqa: E731
+    fits = lambda u, lx, nq: pick(u, lx, nq, value_bytes,  # noqa: E731
+                                  index_bytes, smem_bytes)
+    if fits(n_u, n_lex, B) is not None:
+        chunk = Chunk(0, B, dims[:n_u], n_lex, fits(n_u, n_lex, B))
         return StagingPlan(slots, (chunk,), entries, counts, order)
     chunks = []
     for start, stop in _split(present[:, :dim].cpu().numpy(), lex_dim,
@@ -165,7 +169,7 @@ def staging_plan(imp_vals, imp_dims, imp_gates, dim: int, lex_dim: int,
         slots[start:stop] = _slot_table(u)[d[start:stop]]
         chunks.append(Chunk(start, stop,
                             torch.nonzero_static(u, size=n_u).flatten().int(),
-                            n_lex, fits(n_u, n_lex)))
+                            n_lex, fits(n_u, n_lex, stop - start)))
     entries, counts = kernel_entries(slots, imp_vals, imp_dims, imp_gates,
                                      lex_dim, index_bytes)
     order = torch.cat([torch.argsort(counts[c.start:c.stop]).int()
@@ -181,16 +185,16 @@ def _slot_table(union: torch.Tensor) -> torch.Tensor:
 
 
 def _split(present: np.ndarray, lex_dim: int, fits) -> list[tuple[int, int]]:
-    """Greedy query chunks whose unions fit."""
+    """Greedy query chunks whose unions (and queries) fit."""
     bounds, start = [], 0
     acc = np.zeros(present.shape[1], dtype=bool)
     size = lambda u: (int(u.sum()), int(u[:lex_dim].sum()))  # noqa: E731
     for b in range(present.shape[0]):
         grown = acc | present[b]
-        if b > start and fits(*size(grown)) is None:
+        if b > start and fits(*size(grown), b + 1 - start) is None:
             bounds.append((start, b))
             start, grown = b, present[b]
-        if fits(*size(grown)) is None:
+        if fits(*size(grown), b + 1 - start) is None:
             raise ValueError(
                 f"query {b} alone uses {int(present[b].sum())} dims: too "
                 "many to stage in shared memory at any tile")

@@ -14,9 +14,13 @@ import pytest
 import torch
 
 from dhr_tpu_torch.ops.gip_candidates import (
+    MAX_GROUP,
+    QUERY_ROWS,
+    candidates_plan,
     decode_packed_candidates,
     gip_candidates,
     gip_candidates_plain,
+    kernel_limits,
 )
 from dhr_tpu_torch.ops.partial_gip import (
     partial_gip,
@@ -195,6 +199,89 @@ def test_gip_candidates_kernel_matches_plain(cuda, N, vdt, idt, G, packed,
             assert torch.equal(got[1].cpu(), want[1])
             assert torch.equal(got[0].cpu().float().view(torch.int32),
                                want[0].float().view(torch.int32))
+
+
+@pytest.mark.parametrize("D", [896, 890])
+@pytest.mark.parametrize("vdt", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("idt", [torch.int8, torch.int16])
+def test_rerank_gip_kernel_full_width(cuda, D, vdt, idt):
+    """D = 896 (rows of whole 16-byte words: the word path) and 890 (not:
+    the element path), lex = 768; row ids out of range on both sides and
+    gates beyond the folds' range."""
+    lex, N, B, K = 768, 5000, 4, 1001
+    v, f = _wide_rows(N, 896, lex)
+    values = v[:, :D].to(vdt).contiguous()
+    indices = f.to(idt)
+    qv, qi = _queries(4, B, D, lex)
+    qi[:, :lex:7] += 256      # low byte a fold's, value beyond int8
+    qi[:, 1:lex:11] -= 1 << 16   # low 16 bits a fold's: never open
+    rows = torch.from_numpy(
+        np.random.default_rng(5).integers(0, N, (B, K)).astype(np.int64))
+    rows[0, 0], rows[1, 17], rows[2, K - 1] = N, -1, 1 << 40
+    qv, qi, rows = qv.to(cuda), qi.to(cuda), rows.to(cuda)
+    before = rerank_gip.launches
+    got = rerank_gip(qv, qi, rows, values, indices, lex)
+    torch.cuda.synchronize()
+    assert rerank_gip.launches == before + 1
+    want = rerank_gip_plain(qv, qi, rows, values, indices, lex)
+    assert bool(torch.isneginf(got[[0, 1, 2], [0, 17, K - 1]]).all())
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("N", [65, 204_700, 204_803])
+@pytest.mark.parametrize("G", [8, 3])
+@pytest.mark.parametrize("split", [False, True])
+def test_gip_candidates_kernel_full_width(cuda, N, G, split):
+    """D = 896, lex = 768, int8 planes; N = 204,700 leaves the last group
+    block partial (and, at G = 3, whole lane tiles past N); a small
+    shared-memory budget splits the batch into query chunks, one launch
+    each.  Every output form bit-equal to the plain version."""
+    D, lex, B = 896, 768, 6
+    v, f = _wide_rows(N, D, lex)
+    vt, it = dim_major(v), dim_major(f)
+    qv, qi = _queries(2, B, D, lex)
+    imp = [x.to(cuda) for x in select_important(qv, qi, 48)]
+    plan = candidates_plan(*imp, D, lex, 1, 1,
+                           smem_bytes=4096 if split else 227 * 1024)
+    assert (len(plan.chunks) > 1) == split
+    forms = [(False, torch.float32), (False, torch.bfloat16)]
+    if G & (G - 1) == 0:
+        forms.append((True, torch.float32))
+    for packed, out in forms:
+        before = gip_candidates.launches
+        got = gip_candidates(*imp, vt, it, lex, G, packed, out, plan=plan)
+        torch.cuda.synchronize()
+        assert gip_candidates.launches == before + len(plan.chunks)
+        want = gip_candidates_plain(*imp, vt, it, lex, G, packed, out)
+        if packed:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        else:
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[0].float().view(torch.int32),
+                               want[0].float().view(torch.int32))
+
+
+def test_gip_candidates_plan_limits_are_the_kernels(cuda):
+    """The host plans chunks by the limits the built kernel enforces."""
+    assert kernel_limits() == (QUERY_ROWS, MAX_GROUP)
+
+
+@pytest.mark.parametrize("G", [3, 8])
+def test_gip_candidates_kernel_ties_take_the_first_j(cuda, G):
+    """Equal sums across a group: the winner is j = 0 in every group block
+    (strict > over the steps, as the reference's first maximum)."""
+    N = 128 * G * 5 + 77
+    vt = torch.ones(2, N, dtype=torch.int8)
+    it = torch.zeros(1, N, dtype=torch.int8)
+    imp = (torch.ones(1, 2), torch.tensor([[0, 1]], dtype=torch.int32),
+           torch.zeros(1, 2, dtype=torch.int32))
+    vt_d, it_d = dim_major(vt.T.contiguous().to(cuda)), \
+        dim_major(it.T.contiguous().to(cuda))
+    got = gip_candidates(*[x.to(cuda) for x in imp], vt_d, it_d, 1, G, False,
+                         torch.float32)
+    want = gip_candidates_plain(*imp, vt, it, 1, G, False, torch.float32)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
 
 
 def test_kernels_raise_on_bad_input(cuda):

@@ -247,7 +247,9 @@ def test_row_chunked_ip_equals_unchunked_at_prime_rows(rng, rerank):
     sp, rp = plain.search(qv, qi)
     sc, rc = chunked.search(qv, qi)
     np.testing.assert_array_equal(rp, rc)
-    np.testing.assert_array_equal(sp, sc)
+    # a chunk is a narrower GEMM, which CPU BLAS may block differently: the
+    # f32 scores agree to rounding, not bit for bit
+    np.testing.assert_allclose(sc, sp, rtol=1e-6)
     _, want, _ = _both(packed, qv, qi, layout="row",
                        value_dtype=torch.float32, row_chunk=32, **kw)
     _assert_rankings_equal(sc, rc, *want)
