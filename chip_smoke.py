@@ -15,6 +15,13 @@ pool, exact rerank, top 1000):
 - the fused path: theta pass reduced per 8-row group (K3), selection over
   the reduced plane with arithmetic row decoding, rerank (K2).
 
+Before the search phases, ``encode_path`` runs the encode slice at
+DistilBERT-base width with random weights (no checkpoint is in the
+repository): the card against the CPU in f32, then the user's path through
+the CLI (``encode`` a 65,536-passage corpus and 1,024 queries, ``index
+--quantize``, ``search`` at the bench point, K1 and K2 launched), then the
+``Encoder``'s passages/s, stage times and achieved TFLOP/s.
+
 It checks each path's kernel launch counts and its staged-vs-exact ranking
 agreement.  On a 204,803-row slice it also holds the other search modes
 (row-chunked ip, pq, two-tier escalation) on the card against the same
@@ -47,6 +54,10 @@ K1_SOURCE = "dhr_tpu_torch/csrc/partial_gip.cu"
 K2_SOURCE = "dhr_tpu_torch/csrc/rerank_gip.cu"
 K3_SOURCE = "dhr_tpu_torch/csrc/gip_candidates.cu"
 SMALL_ROWS = 204_803
+H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+ENCODE_PASSAGES = 65_536
+ENCODE_QUERIES = 1_024
+ENCODE_REMOVE_DIMS = 570
 
 
 def emit(obj) -> None:
@@ -113,6 +124,381 @@ def phase_build():
                     "spilling_lines": spills}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "dir": str(_build.build_dir()), "ptxas": ptxas})
+
+
+def _passage_tokens(rng, n, np):
+    """MS MARCO-like token lists without specials: ids in [570, 30522),
+    lengths clipped lognormal with a mean of ~66, in [8, 126]."""
+    lens = np.clip(rng.lognormal(np.log(60.0), 0.45, n), 8, 126).astype(int)
+    flat = rng.integers(ENCODE_REMOVE_DIMS, 30522, int(lens.sum()))
+    return np.split(flat, np.cumsum(lens)[:-1]), lens
+
+
+def _dhr_config(dtype):
+    from dhr_tpu_torch.models import EncoderConfig, RetrieverConfig
+
+    return RetrieverConfig(
+        model_type="dhr", add_pooler=True, projection_dim=128,
+        dlr_out_dim=LEX_DIM,
+        encoder=dataclasses.replace(EncoderConfig.distilbert_base(),
+                                    dtype=dtype))
+
+
+def _encode_card_vs_cpu(tree, seed, torch, np):
+    """f32 reps of 8 passages of 128 tokens on the card and on the CPU
+    (same weights), and the card's bf16 reps against its f32 ones."""
+    from dhr_tpu_torch.data.collate import pad_token_batch
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+    from dhr_tpu_torch.models.transformer import compute_copy
+    from dhr_tpu_torch.ops.densify import densify
+
+    rng = np.random.default_rng(seed + 3)
+    toks, _ = _passage_tokens(rng, 8, np)
+    toks[0] = rng.integers(ENCODE_REMOVE_DIMS, 30522, 126)  # a full row
+    b = pad_token_batch([t.tolist() for t in toks], 128, 0, 101, 102)
+    ids, mask = (torch.from_numpy(b[k]) for k in ("input_ids",
+                                                  "attention_mask"))
+    reps = {}
+    for name, dtype, dev in (("cpu_f32", torch.float32, "cpu"),
+                             ("card_f32", torch.float32, "cuda"),
+                             ("card_bf16", torch.bfloat16, "cuda")):
+        model = load_flax_params(BiEncoder(_dhr_config(dtype)), tree)
+        model = compute_copy(model, dtype, torch.device(dev)).eval()
+        with torch.inference_mode():
+            r = model.encoder_q(ids.to(dev), mask.to(dev))
+        reps[name] = (r.lexical.float().cpu(), r.semantic.float().cpu())
+        del model
+    lex_cpu = reps["cpu_f32"][0]
+    folded = lex_cpu[:, ENCODE_REMOVE_DIMS:].reshape(8, -1, LEX_DIM)
+    top2 = folded.topk(2, dim=1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs()
+    _, f_cpu = densify(lex_cpu, LEX_DIM, ENCODE_REMOVE_DIMS)
+
+    def compare(name):
+        lex, sem = reps[name]
+        want_lex, want_sem = (reps["cpu_f32"] if name == "card_f32"
+                              else reps["card_f32"])
+        _, f = densify(lex, LEX_DIM, ENCODE_REMOVE_DIMS)
+        _, f_want = densify(want_lex, LEX_DIM, ENCODE_REMOVE_DIMS)
+        return {
+            "lexical_max_rel_diff": float((lex - want_lex).abs().max()
+                                          / want_lex.abs().max()),
+            "cls_max_rel_diff": float((sem - want_sem).abs().max()
+                                      / want_sem.abs().max()),
+            "fold_agreement": float((f == f_want).float().mean()),
+            "unequal_folds": int((f != f_want).sum()),
+        }, f
+
+    card, f_card = compare("card_f32")
+    card["unequal_folds_not_near_tie"] = int(
+        ((f_card != f_cpu) & ~near_tie).sum())
+    bf16, _ = compare("card_bf16")
+    if card["unequal_folds_not_near_tie"]:
+        raise AssertionError(f"card vs CPU f32: folds differ beyond near "
+                             f"ties: {card}")
+    if max(card["lexical_max_rel_diff"], card["cls_max_rel_diff"]) > 1e-3:
+        raise AssertionError(f"card vs CPU f32 reps differ: {card}")
+    # ties built on purpose: the first (lowest) fold wins on the card too
+    x = torch.zeros(4, ENCODE_REMOVE_DIMS + 39 * LEX_DIM)
+    x[:, ENCODE_REMOVE_DIMS:] = torch.randint(
+        0, 3, (4, 39 * LEX_DIM), generator=torch.Generator().manual_seed(
+            seed)).float()
+    ties_equal = torch.equal(
+        densify(x.cuda(), LEX_DIM, ENCODE_REMOVE_DIMS)[1].cpu(),
+        densify(x, LEX_DIM, ENCODE_REMOVE_DIMS)[1])
+    if not ties_equal:
+        raise AssertionError("densify on the card breaks ties differently")
+    return {"passages": 8, "padded_len": 128, "card_f32_vs_cpu_f32": card,
+            "card_bf16_vs_card_f32": bf16,
+            "near_tie_rel": 1e-5, "densify_ties_first_fold": ties_equal}
+
+
+def _timing_line(stderr_text: str, verb: str) -> dict:
+    for line in stderr_text.splitlines():
+        if line.startswith("DHR_TIMING "):
+            t = json.loads(line[len("DHR_TIMING "):])
+            if t.get("verb", "search") == verb:
+                return t
+    raise AssertionError(f"no DHR_TIMING line of {verb}")
+
+
+def _run_cli(argv, verb=None):
+    """``python -m dhr_tpu_torch <argv>`` in this process; the DHR_TIMING
+    line of ``verb`` when given."""
+    import contextlib
+    import io
+
+    from dhr_tpu_torch.cli.main import main as cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        cli(argv)
+    sys.stderr.write(err.getvalue())
+    return _timing_line(err.getvalue(), verb) if verb else None
+
+
+def _read_run(path):
+    out = {}
+    with open(path) as f:
+        for line in f:
+            q, _, doc, _, score, _ = line.split()
+            out.setdefault(q, []).append((doc, float(score)))
+    return out
+
+
+def _encode_user_path(root, seed, torch, np):
+    """encode (corpus, bf16, batch 32) -> encode --encode-is-qry -> index
+    --quantize -> search at the bench point, through the CLI; K1 and K2
+    must launch.  Then the exact brute force for the agreement."""
+    from dhr_tpu_torch.data.examples import write_jsonl
+
+    rng = np.random.default_rng(seed + 4)
+    toks, lens = _passage_tokens(rng, ENCODE_PASSAGES, np)
+    corpus, queries = f"{root}/corpus.jsonl", f"{root}/queries.jsonl"
+    write_jsonl(corpus, ({"text_id": str(i), "text": t.tolist()}
+                         for i, t in enumerate(toks)))
+    q_lens = rng.integers(4, 21, ENCODE_QUERIES)
+    write_jsonl(queries, ({"text_id": f"q{i}", "text": rng.integers(
+        ENCODE_REMOVE_DIMS, 30522, n).tolist()} for i, n in enumerate(q_lens)))
+    model = ["--model", "dhr", "--add-pooler", "--projection-dim", "128",
+             "--dlr-out-dim", str(LEX_DIM), "--batch-size", "32"]
+    search = ["search", "--index-path", f"{root}/index.npz", "--query-path",
+              f"{root}/q.npz", "--topk", "1000", "--query-batch", "128"]
+    reset_launches()
+    t_p = _run_cli(["encode", *model, "--input", corpus, "--output",
+                    f"{root}/corpus.npz"], "encode")
+    t_q = _run_cli(["encode", *model, "--input", queries, "--output",
+                    f"{root}/q.npz", "--encode-is-qry"], "encode")
+    _run_cli(["index", "--inputs", f"{root}/corpus.npz", "--output",
+              f"{root}/index.npz", "--quantize"])
+    t_s = _run_cli([*search, "--theta", "0.3", "--max-important-dims", "48",
+                    "--agip-topk", "10000", "--rerank", "--output",
+                    f"{root}/run.trec"], "search")
+    launches = read_launches()
+    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
+        raise AssertionError(f"encode path launches {launches}: K1 and K2 "
+                             "must launch")
+    reset_launches()
+    _run_cli([*search, "--brute-force", "--exact-candidates",
+              "--no-candidate-bf16", "--output", f"{root}/exact.trec"],
+             "search")
+    exact_launches = read_launches()
+
+    shapes = {}
+    for name, want in (("corpus", ENCODE_PASSAGES), ("q", ENCODE_QUERIES)):
+        with np.load(f"{root}/{name}.npz") as z:
+            v, ind = z["values"], z["indices"]
+            shapes[name] = {"values": [list(v.shape), str(v.dtype)],
+                            "indices": [list(ind.shape), str(ind.dtype)]}
+            if (v.shape != (want, LEX_DIM + 128) or v.dtype != np.float16
+                    or ind.shape != (want, LEX_DIM) or ind.dtype != np.uint8):
+                raise AssertionError(f"{name}.npz planes {shapes[name]}")
+            if int(ind.max()) >= 39 or not np.isfinite(
+                    v.astype(np.float32)).all():
+                raise AssertionError(f"{name}.npz: folds >= 39 or non-finite "
+                                     "values")
+    with np.load(f"{root}/index.npz") as z:
+        shapes["index"] = {k: [list(z[k].shape), str(z[k].dtype)]
+                           for k in ("values", "indices", "value_scales")}
+        if z["values"].dtype != np.int8 or z["values"].shape != (
+                ENCODE_PASSAGES, LEX_DIM + 128):
+            raise AssertionError(f"index planes {shapes['index']}")
+    run, exact = _read_run(f"{root}/run.trec"), _read_run(f"{root}/exact.trec")
+    if len(run) != ENCODE_QUERIES or any(
+            len(r) != min(1000, ENCODE_PASSAGES) or not np.isfinite([s for _, s in r]).all()
+            for r in run.values()):
+        raise AssertionError("the run lacks queries, rows or finite scores")
+    qids = sorted(run)
+    agree = agreement([np.array([d for d, _ in run[q]]) for q in qids],
+                      [np.array([d for d, _ in exact[q]]) for q in qids])
+    return {
+        "passages": ENCODE_PASSAGES, "queries": ENCODE_QUERIES,
+        "passage_len_mean": float(lens.mean() + 2),
+        "passages_per_s_cli_b32": t_p["items_per_s"],
+        "encode_wall_s_cli_b32": t_p["encode_wall_s"],
+        "queries_per_s_cli_encode": t_q["items_per_s"],
+        "search_qps": t_s["qps"], "launches": launches,
+        "exact_launches": exact_launches, "planes": shapes,
+        "staged_vs_brute_force_informative_only": agree,
+    }, toks
+
+
+def transformer_flops_per_token(L: int) -> int:
+    """Six layers of projections and FFN, plus attention's two L-long
+    products, per padded token of DistilBERT-base."""
+    H, F = 768, 3072
+    return 2 * 6 * (4 * H * H + 2 * H * F) + 6 * 4 * L * H
+
+
+def head_flops_per_token() -> int:
+    """The MLM transform and the vocabulary projection, per position."""
+    H, Vv = 768, 30522
+    return 2 * (H * H + H * Vv)
+
+
+def encode_flops_per_token(L: int) -> int:
+    """Forward FLOPs per padded token of the DHR DistilBERT-base encoder."""
+    return transformer_flops_per_token(L) + head_flops_per_token()
+
+
+def _encode_timing(tree, toks, torch, np):
+    """Passages/s through the Encoder API at batch 32 and 256, padded to
+    128 and length-bucketed; per-batch stage ms (CUDA events) of the first
+    batch; peak memory; achieved TFLOP/s."""
+    from dhr_tpu_torch.data.collate import collate_encode, wrap_specials
+    from dhr_tpu_torch.encode import (
+        EncodeConfig, Encoder, bucketed_encode_batches)
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+
+    cfg = _dhr_config(torch.bfloat16)
+    model = load_flax_params(BiEncoder(cfg), tree)
+    lists = [t.tolist() for t in toks]
+    ids = [str(i) for i in range(len(lists))]
+    out = {"passages": len(lists), "dtype": "bf16",
+           "peak_tflops_dense_bf16": H100_BF16_FLOPS_PER_S / 1e12}
+    for bs in (32, 256):
+        enc = Encoder(model, cfg, EncodeConfig(batch_size=bs))
+        for bucketed in (False, True):
+            if bucketed:
+                batches, _ = bucketed_encode_batches(ids, lists, bs, 128,
+                                                     101, 102)
+                batches = list(batches)
+            else:
+                batches = [collate_encode(
+                    ids[s:s + bs], [wrap_specials(t, 128, 101, 102)
+                                    for t in lists[s:s + bs]], 128)
+                    for s in range(0, len(lists), bs)]
+            flops = sum(b["input_ids"].size * encode_flops_per_token(
+                b["input_ids"].shape[1]) for b in batches)
+            enc.encode_corpus(batches[:2])  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            packed = enc.encode_corpus(batches)
+            wall = time.perf_counter() - t0
+            if packed.values.shape != (len(lists), LEX_DIM + 128):
+                raise AssertionError("Encoder planes of the wrong shape")
+            name = f"b{bs}_{'bucketed' if bucketed else 'padded128'}"
+            out[name] = {
+                "passages_per_s": len(lists) / wall, "wall_s": wall,
+                "padded_tokens": int(sum(b["input_ids"].size
+                                         for b in batches)),
+                "tflops_achieved": flops / wall / 1e12,
+                "share_of_bf16_peak": flops / wall / H100_BF16_FLOPS_PER_S,
+                "flop_bound_s": flops / H100_BF16_FLOPS_PER_S,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            }
+        # stage ms of one padded batch
+        b = collate_encode(ids[:bs], [wrap_specials(t, 128, 101, 102)
+                                      for t in lists[:bs]], 128)
+        x = torch.from_numpy(b["input_ids"]).cuda()
+        m = torch.from_numpy(b["attention_mask"]).cuda()
+        e = enc.model.encoder("passage")
+        with torch.inference_mode():
+            hidden = e.hidden_states(x, m)
+            reps = e.reps(hidden, x, m)
+            stage = {
+                "transformer": cuda_ms(lambda: e.hidden_states(x, m), 5,
+                                       torch),
+                "mlm_head_softmax_max": cuda_ms(lambda: e.reps(hidden, x, m),
+                                                5, torch),
+                "densify_pack_copy_back": cuda_ms(
+                    lambda: [t.cpu() for t in enc.planes(reps)
+                             if t is not None], 5, torch),
+            }
+        # the head runs on positions 1..127; its composite passes over the
+        # (B, 127, V) plane: logits written (bf16), the bias add read and
+        # written (bf16), softmax read (bf16) and written (f32), the
+        # weighting read and written (f32), the max read (f32)
+        t_flops = bs * 128 * transformer_flops_per_token(128)
+        h_flops = bs * 127 * head_flops_per_token()
+        stage.update({
+            "transformer_tflops": t_flops / stage["transformer"] / 1e9,
+            "transformer_flop_bound_ms": t_flops / H100_BF16_FLOPS_PER_S
+            * 1e3,
+            "head_tflops": h_flops / stage["mlm_head_softmax_max"] / 1e9,
+            "head_flop_bound_ms": h_flops / H100_BF16_FLOPS_PER_S * 1e3,
+            "head_plane_passes_gb": bs * 127 * 30522 * (2 + 4 + 6 + 8 + 4)
+            / 1e9,
+        })
+        out[f"b{bs}_stage_ms_per_batch_padded128"] = stage
+        out[f"b{bs}_split_ms_padded128"] = _encode_split(e, hidden, x, m,
+                                                         torch)
+        del enc, hidden, reps
+        torch.cuda.empty_cache()
+    return out
+
+
+def _encode_split(e, hidden, x, m, torch):
+    """Where a padded batch's device time goes, by CUDA events: one layer
+    and its attention; the head's passes one by one (the logits GEMM with
+    its bias add, the f32 softmax, the weighting, the max over positions);
+    and the host's time to enqueue the whole transformer, which, near its
+    device time, says the host holds the card back."""
+    import torch.nn.functional as F
+
+    layer = e.backbone.encoder.layers[0]
+    bias = torch.where(m[:, None, None, :] > 0, 0.0, -1e9).to(hidden.dtype)
+    with torch.inference_mode():
+        logits = e.backbone.logits(hidden[:, 1:])
+        probs = torch.softmax(logits, dim=-1, dtype=torch.float32)
+        w = (e.term_weight(hidden[:, 1:]).float()
+             * m[:, 1:, None].float())
+        split = {
+            "one_layer": cuda_ms(lambda: layer(hidden, bias), 5, torch),
+            "one_layer_attention": cuda_ms(
+                lambda: layer.attention(hidden, bias), 5, torch),
+            "one_layer_ffn_gelu": cuda_ms(
+                lambda: layer.ffn_out(F.gelu(layer.ffn_in(hidden))), 5,
+                torch),
+            "head_logits_and_bias": cuda_ms(
+                lambda: e.backbone.logits(hidden[:, 1:]), 5, torch),
+            "head_softmax_f32": cuda_ms(
+                lambda: torch.softmax(logits, dim=-1, dtype=torch.float32),
+                5, torch),
+            "head_weighting": cuda_ms(lambda: probs.mul_(w), 5, torch),
+            "head_max_over_positions": cuda_ms(
+                lambda: probs.amax(dim=-2), 5, torch),
+        }
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.hidden_states(x, m)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    split["transformer_host_enqueue_ms"] = sorted(host)[2]
+    return split
+
+
+def phase_encode_path(args, torch):
+    """The encode slice at DistilBERT-base width (6 x 768, vocab 30522, the
+    DHR head: 768 lexical dims + a 128-dim CLS projection), random weights
+    from ``--seed`` in the Flax layout loaded by ``load_flax_params``:
+    card against CPU, the user path through the CLI (encode -> index ->
+    search, K1 and K2 launched), and the Encoder's speed."""
+    import tempfile
+
+    import numpy as np
+
+    from dhr_tpu_torch.models import random_flax_params
+
+    tree = random_flax_params(_dhr_config(torch.float32),
+                              torch.Generator().manual_seed(args.seed))
+    t0 = time.perf_counter()
+    parity = _encode_card_vs_cpu(tree, args.seed, torch, np)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        user, toks = _encode_user_path(root, args.seed, torch, np)
+    t2 = time.perf_counter()
+    timing = _encode_timing(tree, toks, torch, np)
+    emit({"phase": "encode_path", "model": "distilbert-base DHR "
+          "(6x768, vocab 30522, remove_dims 570, 768 + 128 dims)",
+          "weights": f"random, seed {args.seed}", "card_vs_cpu": parity,
+          "user_path": user, "timing": timing,
+          "seconds": {"card_vs_cpu": t1 - t0, "user_path": t2 - t1,
+                      "timing": time.perf_counter() - t2}})
+    torch.cuda.empty_cache()
 
 
 def small_world(seed, torch):
@@ -830,6 +1216,7 @@ def main() -> int:
 
     name, smi = phase_device(torch)
     phase_build()
+    phase_encode_path(args, torch)
     index, queries, raw = small_world(args.seed + 1, torch)
     errs = (phase_k1(index, queries, torch),
             phase_k2(index, queries, args.seed, torch),

@@ -1,5 +1,7 @@
 """``python -m dhr_tpu_torch`` — the ported verbs of ``dhr_tpu``'s CLI.
 
+- ``encode``      tokenized corpus / queries -> packed planes (``.npz``),
+                  on the GPU;
 - ``index``       merge shard files, optionally attach PQ codebooks
                   (``--pq-m``) and int8-quantize them;
 - ``search``      gip / ip / pq retrieval on the GPU -> TREC run file, or,
@@ -9,17 +11,21 @@
 - ``eval``        MRR / recall / nDCG of a run against qrels.
 
 Flag names follow ``python -m dhr_tpu``.  Flags of what is not ported yet
-are accepted by name and fail with a message saying so.  ``search`` and the
-PQ build of ``index --pq-m`` run on the GPU; ``--device cpu`` runs them on
-the CPU (``search``: the plain PyTorch path) instead.
+are accepted by name and fail with a message saying so.  ``encode``,
+``search`` and the PQ build of ``index --pq-m`` run on the GPU; ``--device
+cpu`` runs them on the CPU (the plain PyTorch path) instead.  Every verb
+also accepts ``--config file.json`` whose keys are the long option names
+(flags given on the command line win).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import sys
+import time
 
 import numpy as np
 
@@ -28,6 +34,10 @@ logger = logging.getLogger("dhr_tpu_torch")
 _UNPORTED_SEARCH = {
     "--shard-over-devices": "multi-GPU sharding",
     "--candidate-recall": "approximate candidate recall targets",
+}
+_UNPORTED_ENCODE = {
+    "--pack": "token packing",
+    "--pack-segments": "token packing",
 }
 
 
@@ -41,6 +51,220 @@ class _Unported(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string}: {self.what} is not ported to "
                      "dhr_tpu_torch yet (use python -m dhr_tpu)")
+
+
+def _apply_config_file(args: argparse.Namespace,
+                       parser: argparse.ArgumentParser) -> argparse.Namespace:
+    """Fill args from a JSON file; explicit (non-default) CLI flags win.  A
+    key naming a flag that is not ported fails as the flag does."""
+    cfg_path = getattr(args, "config", None)
+    if not cfg_path:
+        return args
+    with open(cfg_path) as f:
+        overrides = json.load(f)
+    sub = getattr(args, "_subparser", parser)
+    unported = {a.dest: a for a in sub._actions if isinstance(a, _Unported)}
+    for key, value in overrides.items():
+        key = key.replace("-", "_")
+        if key in unported:
+            action = unported[key]
+            action(sub, args, value, action.option_strings[0])
+        if getattr(args, key, None) == sub.get_default(key):
+            setattr(args, key, value)
+    return args
+
+
+# ----------------------------------------------------------------- encode --
+
+
+def _check_special_ids(args, vocab_size: int) -> None:
+    """Out-of-vocabulary [CLS]/[SEP] ids would index past the embedding
+    table; fail loudly instead."""
+    for name in ("cls_token_id", "sep_token_id"):
+        tid = getattr(args, name, None)
+        if tid is not None and tid >= vocab_size:
+            raise SystemExit(
+                f"--{name.replace('_', '-')}={tid} is out of range for "
+                f"vocab_size={vocab_size}; pass in-vocab special-token ids "
+                "(e.g. --cls-token-id 1 --sep-token-id 2 with --tiny-vocab)"
+            )
+
+
+def _model_cfg_from_args(args):
+    """DistilBERT-base computes in bf16; an HF-loaded model in f32 unless
+    ``--bf16``; ``--tiny`` always in f32 (the reference's rule)."""
+    import torch
+
+    from dhr_tpu_torch.models.retrievers import RetrieverConfig
+    from dhr_tpu_torch.models.transformer import EncoderConfig
+
+    if args.model_name_or_path:
+        from dhr_tpu_torch.models.hf_io import encoder_config_from_hf
+
+        enc = encoder_config_from_hf(
+            args.model_name_or_path,
+            dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        )
+    elif args.tiny:
+        enc = EncoderConfig.tiny(vocab_size=args.tiny_vocab,
+                                 dtype=torch.float32)
+    else:
+        enc = EncoderConfig.distilbert_base()
+    cfg = RetrieverConfig(
+        model_type=args.model,
+        encoder=enc,
+        untie_encoder=args.untie_encoder,
+        add_pooler=args.add_pooler,
+        projection_dim=args.projection_dim,
+        pooling=args.pooling,
+        combine_cls=not args.no_combine_cls,
+        dlr_out_dim=args.dlr_out_dim,
+        agg_dim=args.agg_dim,
+        semi_aggregate=args.semi_aggregate,
+        skip_mlm=args.skip_mlm,
+    )
+    _check_special_ids(args, cfg.encoder.vocab_size)
+    return cfg
+
+
+def _load_init_params(args, model_cfg):
+    """A ``BiEncoder`` with random weights (a fixed seed), then, given
+    ``--model-name-or-path``, the HF checkpoint's backbone and its sidecar
+    heads."""
+    import torch
+
+    from dhr_tpu_torch.models.flax_params import (
+        load_flax_params,
+        random_flax_params,
+    )
+    from dhr_tpu_torch.models.hf_io import (
+        load_hf_backbone,
+        load_hf_state_dict,
+        load_sidecar_head,
+    )
+    from dhr_tpu_torch.models.retrievers import BiEncoder
+
+    model = BiEncoder(model_cfg)
+    load_flax_params(model, random_flax_params(
+        model_cfg, torch.Generator().manual_seed(0)))
+    path = args.model_name_or_path
+    if not path:
+        return model
+    sd = load_hf_state_dict(path)
+    sides = [model.encoder_q] + ([model.encoder_p]
+                                 if model_cfg.untie_encoder else [])
+    for enc in sides:
+        try:
+            load_hf_backbone(enc.backbone, sd, model_cfg.encoder)
+        except ValueError as e:
+            raise SystemExit(f"--model {model_cfg.model_type} with "
+                             f"{path}: {e}") from e
+    for name, key in (("pooler", "pooler"), ("TermWeightTrans", "term_weight")):
+        head = load_sidecar_head(path, name)
+        if head is None:
+            continue
+        if hasattr(model.encoder_q, key):
+            getattr(model.encoder_q, key).linear.load_state_dict(head["q"])
+        if model_cfg.untie_encoder and head["p"] is not None and hasattr(
+                model.encoder_p, key):
+            getattr(model.encoder_p, key).linear.load_state_dict(head["p"])
+    return model
+
+
+def cmd_encode(args):
+    from dhr_tpu_torch.data import load_tokenized_corpus
+    from dhr_tpu_torch.data.collate import collate_encode, wrap_specials
+    from dhr_tpu_torch.device import resolve_device
+    from dhr_tpu_torch.encode import (
+        EncodeConfig,
+        Encoder,
+        bucketed_encode_batches,
+    )
+
+    device = resolve_device(args.device)
+    model_cfg = _model_cfg_from_args(args)
+    enc = Encoder(
+        _load_init_params(args, model_cfg), model_cfg,
+        EncodeConfig(batch_size=args.batch_size,
+                     remove_dims=args.remove_dims),
+        device=device,
+    )
+    ids, texts = load_tokenized_corpus(args.input)
+    if args.encode_num_shard > 1:
+        shard = np.array_split(np.arange(len(ids)), args.encode_num_shard)[
+            args.encode_shard_index
+        ]
+        ids = [ids[i] for i in shard]
+        texts = [texts[i] for i in shard]
+    max_len = args.q_max_len if args.encode_is_qry else args.p_max_len
+
+    order = None
+    if args.length_bucketing:
+        # sort-by-length batches padded to small bucket lengths: the same
+        # reps, a fraction of the pad work; outputs restored below
+        if model_cfg.model_type == "colbert":
+            raise SystemExit(
+                "--length-bucketing is not supported for colbert: token "
+                "reps are (N, L, D) and need one common L")
+        batches, order = bucketed_encode_batches(
+            ids, texts, args.batch_size, max_len,
+            args.cls_token_id, args.sep_token_id,
+        )
+    else:
+        def plain():
+            for start in range(0, len(ids), args.batch_size):
+                toks = [
+                    wrap_specials(t, max_len, args.cls_token_id,
+                                  args.sep_token_id)
+                    for t in texts[start: start + args.batch_size]
+                ]
+                yield collate_encode(ids[start: start + args.batch_size],
+                                     toks, max_len)
+
+        batches = plain()
+
+    def _restore(*arrays):
+        """Undo the length sort so outputs land in input order."""
+        if order is None:
+            return arrays
+        inv = np.argsort(order)
+        return tuple(a[inv] if a is not None else None for a in arrays)
+
+    t_enc0 = time.perf_counter()
+    if model_cfg.model_type == "colbert":
+        role = "query" if args.encode_is_qry else "passage"
+        reps, out_ids = enc.encode_tokens(batches, role)
+        np.savez(args.output, token=reps)
+        with open(args.output + ".ids.json", "w") as f:
+            json.dump(list(map(str, out_ids)), f)
+        logger.info("encoded %d %ss -> %s (token reps %s)", len(out_ids),
+                    role, args.output, reps.shape)
+    elif args.encode_is_qry:
+        qv, qi, qids = enc.encode_queries(batches)
+        qv, qi, qids_arr = _restore(qv, qi, np.asarray(qids, dtype=object))
+        np.savez(args.output, values=qv,
+                 **({"indices": qi} if qi is not None else {}))
+        with open(args.output + ".qids.json", "w") as f:
+            json.dump(list(map(str, qids_arr)), f)
+        logger.info("encoded %d queries -> %s", len(qids_arr), args.output)
+    else:
+        packed = enc.encode_corpus(batches)
+        values, indices, docids = _restore(packed.values, packed.indices,
+                                           packed.docids)
+        packed = dataclasses.replace(packed, values=values, indices=indices,
+                                     docids=docids)
+        packed.save(args.output)
+        logger.info("encoded %d passages -> %s", packed.num_rows,
+                    args.output)
+    enc_wall = time.perf_counter() - t_enc0
+    print("DHR_TIMING " + json.dumps({
+        "verb": "encode", "items": len(ids), "device": str(device),
+        "encode_wall_s": enc_wall,
+        "items_per_s": len(ids) / max(enc_wall, 1e-9),
+    }), file=sys.stderr)
+
+
+# ------------------------------------------------------------- retrieval --
 
 
 def cmd_index(args):
@@ -196,9 +420,65 @@ def cmd_eval(args):
     print(json.dumps(out, indent=1))
 
 
+def _finish(p: argparse.ArgumentParser, fn) -> None:
+    """Every verb takes ``--config``; ``_subparser`` gives the config rule
+    the verb's own defaults."""
+    p.add_argument("--config", default=None,
+                   help="JSON file of long option names -> values; flags "
+                        "given on the command line win")
+    p.set_defaults(_subparser=p, fn=fn)
+
+
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model", default="dhr",
+                   choices=["dense", "dhr", "dlr", "agg", "colbert"])
+    p.add_argument("--model-name-or-path", default=None,
+                   help="local HF checkpoint directory (+ pooler.pt / "
+                        "TermWeightTrans.pt); default: random weights")
+    p.add_argument("--untie-encoder", action="store_true")
+    p.add_argument("--add-pooler", action="store_true")
+    p.add_argument("--projection-dim", type=int, default=128)
+    p.add_argument("--pooling", default="cls", choices=["cls", "mean"])
+    p.add_argument("--no-combine-cls", action="store_true")
+    p.add_argument("--dlr-out-dim", type=int, default=768)
+    p.add_argument("--agg-dim", type=int, default=640)
+    p.add_argument("--semi-aggregate", action="store_true")
+    p.add_argument("--skip-mlm", action="store_true")
+    p.add_argument("--remove-dims", type=int, default=570)
+    p.add_argument("--bf16", action="store_true",
+                   help="compute an HF-loaded model in bf16 (DistilBERT-"
+                        "base without a checkpoint always does)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--cls-token-id", type=int, default=101)
+    p.add_argument("--sep-token-id", type=int, default=102)
+    p.add_argument("--tiny", action="store_true",
+                   help="random tiny encoder (smoke tests / quickstart)")
+    p.add_argument("--tiny-vocab", type=int, default=1024)
+    p.add_argument("--q-max-len", type=int, default=32)
+    p.add_argument("--p-max-len", type=int, default=128)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m dhr_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("encode")
+    _add_model_args(p)
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--encode-is-qry", action="store_true")
+    p.add_argument("--encode-num-shard", type=int, default=1)
+    p.add_argument("--encode-shard-index", type=int, default=0)
+    p.add_argument("--length-bucketing", action="store_true",
+                   help="sort by length and pad each batch to a small "
+                        "bucket length instead of max_len (same reps, "
+                        "less pad work on short-document corpora)")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (cuda), 'cpu' runs "
+                        "on the CPU")
+    for flag, what in _UNPORTED_ENCODE.items():
+        p.add_argument(flag, action=_Unported, what=what)
+    _finish(p, cmd_encode)
 
     p = sub.add_parser("index")
     p.add_argument("--inputs", required=True, help="glob of shard files")
@@ -211,7 +491,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device of the PQ build (--pq-m); default "
                         "the GPU (cuda), 'cpu' runs it on the CPU")
-    p.set_defaults(fn=cmd_index)
+    _finish(p, cmd_index)
 
     p = sub.add_parser("search")
     p.add_argument("--index-path", required=True)
@@ -293,14 +573,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "the plain PyTorch path")
     for flag, what in _UNPORTED_SEARCH.items():
         p.add_argument(flag, action=_Unported, what=what)
-    p.set_defaults(fn=cmd_search)
+    _finish(p, cmd_search)
 
     p = sub.add_parser("merge-runs")
     p.add_argument("--inputs", required=True, help="glob of TREC runs")
     p.add_argument("--output", required=True)
     p.add_argument("--topk", type=int, default=1000)
     p.add_argument("--run-name", default="dhr_tpu")
-    p.set_defaults(fn=cmd_merge_runs)
+    _finish(p, cmd_merge_runs)
 
     p = sub.add_parser("eval")
     p.add_argument("--qrels", required=True)
@@ -310,14 +590,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict", action="store_true",
                    help="fail when a qrels query has no positive judgment "
                         "instead of counting it as recall 0")
-    p.set_defaults(fn=cmd_eval)
+    _finish(p, cmd_eval)
     return ap
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = _apply_config_file(parser.parse_args(argv), parser)
     args.fn(args)
 
 

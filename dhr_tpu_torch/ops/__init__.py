@@ -1,6 +1,8 @@
-"""Core ops: quantization, GIP oracles, top-k, PQ, and the CUDA kernels
-K1 / K2 / K3."""
+"""Core ops: quantization, GIP oracles, top-k, PQ, densify / aggregate, and
+the CUDA kernels K1 / K2 / K3."""
 
+from dhr_tpu_torch.ops.aggregate import aggregate, cal_remove_dim, merge_reps
+from dhr_tpu_torch.ops.densify import densify, undensify
 from dhr_tpu_torch.ops.gip import (
     gip_scores_masked,
     gip_scores_pairwise,
@@ -21,10 +23,11 @@ from dhr_tpu_torch.ops.rerank_gip import rerank_gip
 from dhr_tpu_torch.ops.topk import blockwise_topk, merge_topk
 
 __all__ = [
-    "blockwise_topk", "decode_packed_candidates", "gip_candidates",
+    "aggregate", "blockwise_topk", "cal_remove_dim",
+    "decode_packed_candidates", "densify", "gip_candidates",
     "gip_scores_masked", "gip_scores_pairwise", "gip_scores_subindex",
-    "ip_scores", "merge_topk", "pad_indices_for_cls", "partial_gip",
-    "partial_gip_candidates", "partial_gip_scores", "quantize_per_dim",
-    "quantize_per_dim_np", "rerank_gip", "scale_cls_tail",
-    "threshold_query_values",
+    "ip_scores", "merge_reps", "merge_topk", "pad_indices_for_cls",
+    "partial_gip", "partial_gip_candidates", "partial_gip_scores",
+    "quantize_per_dim", "quantize_per_dim_np", "rerank_gip",
+    "scale_cls_tail", "threshold_query_values", "undensify",
 ]

@@ -416,6 +416,10 @@ class Searcher:
         numpy."""
         qv, qv1, qi = prepped
         bs = self.config.query_batch
+        if qv.shape[0] == 0:  # no batch to run: (0, k) outputs, no launch
+            k = min(self.config.topk, self._k1) if self._rerank else self._k1
+            return (np.zeros((0, k), np.float32), np.zeros((0, k), np.int64),
+                    np.zeros((0,), np.float32))
         outs = [self.search_batch(qv[s:s + bs], qv1[s:s + bs], qi[s:s + bs])
                 for s in range(0, qv.shape[0], bs)]
         return tuple(torch.cat([o[i] for o in outs]).cpu().numpy()

@@ -1,5 +1,6 @@
-"""dhr_tpu_torch stands alone: no JAX, nothing of dhr_tpu, and no silent
-CPU fallback where the GPU is the default."""
+"""dhr_tpu_torch stands alone: no JAX, Flax, transformers or safetensors,
+nothing of dhr_tpu, and no silent CPU fallback where the GPU is the
+default."""
 
 import os
 import subprocess
@@ -25,9 +26,11 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "dhr_tpu" or m.startswith("dhr_tpu."))
+             or m == "dhr_tpu" or m.startswith("dhr_tpu.")
+             or m.split(".")[0] in ("flax", "transformers", "safetensors"))
 print(len(names), bad)
 assert "dhr_tpu_torch.cli.main" in names and "dhr_tpu_torch.ops._build" in names
+assert "dhr_tpu_torch.models.hf_io" in names and "dhr_tpu_torch.encode" in names
 assert not bad, bad
 """
 
@@ -89,3 +92,32 @@ def test_cli_search_without_gpu_fails_unless_cpu_is_asked(tmp_path,
     assert all(len(docs) == 5 for docs in run.values())
     with pytest.raises(SystemExit):
         main(args + ["--shard-over-devices"])
+
+
+def test_encoder_and_encode_verb_default_to_the_gpu(tmp_path, monkeypatch):
+    """Without CUDA the Encoder and the encode verb raise unless the CPU is
+    asked for."""
+    import json
+
+    from dhr_tpu_torch.cli.main import main
+    from dhr_tpu_torch.encode import Encoder
+    from dhr_tpu_torch.models import BiEncoder, EncoderConfig, RetrieverConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RetrieverConfig(encoder=EncoderConfig.tiny(dtype=torch.float32),
+                          dlr_out_dim=64, add_pooler=True)
+    model = BiEncoder(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Encoder(model, cfg)
+    assert Encoder(model, cfg, device="cpu").device.type == "cpu"
+    (tmp_path / "c.jsonl").write_text(json.dumps(
+        {"text_id": "a", "text": [100, 200]}) + "\n")
+    args = ["encode", "--tiny", "--add-pooler", "--dlr-out-dim", "64",
+            "--remove-dims", "64", "--cls-token-id", "1", "--sep-token-id",
+            "2", "--p-max-len", "8", "--input", str(tmp_path / "c.jsonl"),
+            "--output", str(tmp_path / "e.npz")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(args)
+    assert not (tmp_path / "e.npz").exists()
+    main(args + ["--device", "cpu"])
+    assert PackedIndex.load(str(tmp_path / "e.npz")).values.shape == (1, 192)

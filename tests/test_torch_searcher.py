@@ -153,3 +153,113 @@ def test_unported_modes_raise(world):
             Searcher(tidx, cfg, device="cpu")
     with pytest.raises(ValueError):
         Searcher(tidx, SearchConfig(), device=torch.device("meta"))
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(theta=0.0, topk=TOPK),
+    dict(theta=0.3, rerank=True, agip_topk=AGIP, topk=TOPK,
+         max_important_dims=24),
+    dict(mode="ip", topk=TOPK),
+    dict(theta=0.3, rerank=True, agip_topk=AGIP, topk=TOPK,
+         fused_candidates=True),
+])
+def test_empty_query_set_returns_zero_rows(world, cfg):
+    """0 queries: (0, topk) f32 scores and int64 rows, no kernel launched;
+    the reference also returns (0, topk)."""
+    jidx, tidx, qv, qi = world
+    before = (partial_gip.launches, rerank_gip.launches)
+    s, r = Searcher(tidx, SearchConfig(**cfg), device="cpu").search(
+        qv[:0], qi[:0])
+    assert s.shape == r.shape == (0, TOPK)
+    assert s.dtype == np.float32 and r.dtype == np.int64
+    assert (partial_gip.launches, rerank_gip.launches) == before
+    js, jr = JaxSearcher(jidx, JaxConfig(**cfg)).search(qv[:0], qi[:0])
+    assert np.asarray(js).shape == np.asarray(jr).shape == (0, TOPK)
+
+
+def _cli_world(tmp_path):
+    """Two index shards, queries, a run and qrels on disk."""
+    import json
+
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        PackedIndex(rng.random((20, 6)).astype(np.float16),
+                    rng.integers(0, 3, (20, 4)).astype(np.uint8),
+                    np.asarray([f"d{i}{j}" for j in range(20)], dtype=object),
+                    4).save(str(tmp_path / f"shard{i}.npz"))
+    np.savez(tmp_path / "q.npz", values=rng.random((3, 6)).astype(np.float32),
+             indices=rng.integers(0, 3, (3, 4)).astype(np.int32))
+    (tmp_path / "q.npz.qids.json").write_text(json.dumps(["a", "b", "c"]))
+    (tmp_path / "qrels.tsv").write_text("a\t0\td00\t1\nb\t0\td11\t1\n")
+    (tmp_path / "corpus.jsonl").write_text("".join(
+        json.dumps({"text_id": f"p{i}", "text": [70 + i, 80, 90]}) + "\n"
+        for i in range(5)))
+
+
+@pytest.mark.parametrize("verb", ["index", "search", "merge-runs", "eval",
+                                  "encode"])
+def test_config_file_fills_defaults_and_flags_win(tmp_path, capsys,
+                                                  monkeypatch, verb):
+    """``--config``: a JSON file of long option names fills the flags left
+    at their defaults; a flag given on the command line wins."""
+    import json
+
+    from dhr_tpu_torch.cli.main import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _cli_world(tmp_path)
+    t = str(tmp_path)
+    cfg = tmp_path / "cfg.json"
+
+    def run(args, config):
+        cfg.write_text(json.dumps(config))
+        main([verb, *args, "--config", str(cfg)])
+
+    if verb == "index":
+        args = ["--inputs", f"{t}/shard*.npz", "--output", f"{t}/i.npz"]
+        run(args, {"quantize": True, "pq-m": 2, "device": "cpu"})
+        got = PackedIndex.load(f"{t}/i.npz")
+        assert got.value_scales is not None and got.pq_codes.shape == (40, 2)
+        run(args + ["--pq-m", "3"], {"pq_m": 2, "device": "cpu"})
+        assert PackedIndex.load(f"{t}/i.npz").pq_codes.shape == (40, 3)
+    elif verb == "search":
+        main(["index", "--inputs", f"{t}/shard*.npz", "--output",
+              f"{t}/i.npz"])
+        args = ["--index-path", f"{t}/i.npz", "--query-path", f"{t}/q.npz",
+                "--output", f"{t}/run.trec"]
+        run(args, {"device": "cpu", "topk": 3, "brute_force": True})
+        lines = (tmp_path / "run.trec").read_text().splitlines()
+        assert len(lines) == 9
+        run(args + ["--topk", "5"], {"device": "cpu", "topk": 3,
+                                     "brute_force": True})
+        assert len((tmp_path / "run.trec").read_text().splitlines()) == 15
+        (tmp_path / "run_a.trec").write_text("\n".join(lines) + "\n")
+    elif verb == "merge-runs":
+        for i in range(2):
+            (tmp_path / f"r{i}.trec").write_text("".join(
+                f"a Q0 d{i}{j} {j + 1} {10.0 - j - i / 2} x\n"
+                for j in range(4)))
+        args = ["--inputs", f"{t}/r*.trec", "--output", f"{t}/m.trec"]
+        run(args, {"topk": 3})
+        assert len((tmp_path / "m.trec").read_text().splitlines()) == 3
+        run(args + ["--topk", "6"], {"topk": 3})
+        assert len((tmp_path / "m.trec").read_text().splitlines()) == 6
+    elif verb == "eval":
+        (tmp_path / "run.trec").write_text(
+            "a Q0 d00 1 3.0 x\na Q0 d01 2 2.0 x\nb Q0 d11 1 1.0 x\n")
+        args = ["--qrels", f"{t}/qrels.tsv", "--run", f"{t}/run.trec"]
+        run(args, {"rcap": True, "k": 5})
+        assert "R_cap@5" in capsys.readouterr().out
+        run(args + ["--k", "7"], {"rcap": True, "k": 5})
+        assert "R_cap@7" in capsys.readouterr().out
+    else:
+        args = ["--input", f"{t}/corpus.jsonl", "--output", f"{t}/e.npz",
+                "--tiny", "--add-pooler", "--dlr-out-dim", "64",
+                "--remove-dims", "64", "--cls-token-id", "1",
+                "--sep-token-id", "2", "--p-max-len", "16"]
+        run(args, {"device": "cpu", "projection_dim": 8})
+        got = PackedIndex.load(f"{t}/e.npz")
+        assert got.values.shape == (5, 64 + 8)
+        run(args + ["--projection-dim", "16"],
+            {"device": "cpu", "projection_dim": 8})
+        assert PackedIndex.load(f"{t}/e.npz").values.shape == (5, 64 + 16)
