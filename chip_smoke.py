@@ -22,6 +22,16 @@ the CLI (``encode`` a 65,536-passage corpus and 1,024 queries, ``index
 --quantize``, ``search`` at the bench point, K1 and K2 launched), then the
 ``Encoder``'s passages/s, stage times and achieved TFLOP/s.
 
+``train_path`` follows: the same model trains on the card (its random tree
+written as an HF directory and imported by ``train``): one f32 step on the
+card against the CPU, the packed and grad-cache steps against the plain one,
+the documented run (batch 24 x 8 passages, lr 7e-6, bf16) for 40 steps
+through the CLI and again cut at step 20 and resumed (losses must agree,
+and the loss must fall), the trained export through ``encode`` -> ``index
+--quantize`` -> ``search`` (K1 and K2 launched), ``encode --pack`` against
+plain, and the steps' speed (steps/s, passages/s, tokens/s, TFLOP/s, the
+split of a step, peak memory).
+
 It checks each path's kernel launch counts and its staged-vs-exact ranking
 agreement.  On a 204,803-row slice it also holds the other search modes
 (row-chunked ip, pq, two-tier escalation) on the card against the same
@@ -40,7 +50,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -58,6 +70,13 @@ H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 ENCODE_PASSAGES = 65_536
 ENCODE_QUERIES = 1_024
 ENCODE_REMOVE_DIMS = 570
+TRAIN_QUERIES = 2_048
+TRAIN_NEGATIVES = 32
+TRAIN_STEPS = 40
+# the documented DHR run, docs/pipeline.md:25-30
+TRAIN_FLAGS = ["--train-n-passages", "8", "--batch-size", "24",
+               "--learning-rate", "7e-6", "--p-max-len", "128",
+               "--q-max-len", "32", "--bf16"]
 
 
 def emit(obj) -> None:
@@ -498,6 +517,589 @@ def phase_encode_path(args, torch):
           "user_path": user, "timing": timing,
           "seconds": {"card_vs_cpu": t1 - t0, "user_path": t2 - t1,
                       "timing": time.perf_counter() - t2}})
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# train_path: the train slice at DistilBERT-base width
+# --------------------------------------------------------------------------
+
+
+def _train_data(root, seed, np):
+    """The corpus of ``encode_path``'s kind (65,536 passages) and 2,048
+    train groups: each query's 6-30 ids are drawn from its positive
+    passage (so the positive can be learned), plus 32 negative pids."""
+    from dhr_tpu_torch.data.examples import write_jsonl
+
+    rng = np.random.default_rng(seed + 5)
+    toks, lens = _passage_tokens(rng, ENCODE_PASSAGES, np)
+    write_jsonl(f"{root}/corpus.jsonl", ({"text_id": str(i),
+                                          "text": t.tolist()}
+                                         for i, t in enumerate(toks)))
+    groups = []
+    for _ in range(TRAIN_QUERIES):
+        pos = int(rng.integers(ENCODE_PASSAGES))
+        negs = rng.choice(ENCODE_PASSAGES - 1, TRAIN_NEGATIVES, replace=False)
+        negs = negs + (negs >= pos)
+        groups.append({
+            "query": rng.choice(toks[pos], int(rng.integers(6, 31))).tolist(),
+            "positive_pids": [str(pos)],
+            "negative_pids": [str(int(n)) for n in negs]})
+    write_jsonl(f"{root}/train.jsonl", groups)
+    q_lens = rng.integers(4, 21, ENCODE_QUERIES)
+    write_jsonl(f"{root}/queries.jsonl", ({"text_id": f"q{i}", "text": rng
+                                           .integers(ENCODE_REMOVE_DIMS,
+                                                     30522, n).tolist()}
+                                          for i, n in enumerate(q_lens)))
+    return toks, groups, lens
+
+
+def _train_loader(groups, toks, batch_size, torch, **kw):
+    """The loader ``train`` builds (the documented sampling: 8 passages a
+    query, 32 / 128 tokens, specials 101 / 102)."""
+    from dhr_tpu_torch.data import Corpus, SamplingConfig, TrainLoader
+
+    corpus = Corpus([str(i) for i in range(len(toks))],
+                    [t.tolist() for t in toks])
+    return TrainLoader(groups, SamplingConfig(
+        n_passages=8, q_max_len=32, p_max_len=128, seed=42, cls_id=101,
+        sep_id=102), batch_size=batch_size, corpus=corpus, **kw)
+
+
+def _grads(model):
+    return {n: p.grad.detach().float().cpu()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def _grad_rel_diff(got, want, worst=None):
+    """``(L2, max)``: the largest over tensors of ``|got - want|_2 /
+    |want|_2`` and of ``max |got - want| / max |want|``, the attention-key
+    biases left out (their gradient is zero up to float noise).  A fold
+    chosen differently at a near tie routes one element's gradient
+    elsewhere: that moves the max measure more than the L2 one.  ``worst``
+    (a dict) receives the three tensors of largest L2 difference."""
+    rel = {}
+    mx = 0.0
+    for n, w in want.items():
+        if "attention.key.bias" in n or not w.abs().max() > 0:
+            continue
+        d = got[n] - w
+        rel[n] = float(d.norm() / w.norm())
+        mx = max(mx, float(d.abs().max() / w.abs().max()))
+    if worst is not None:
+        worst.update(sorted(rel.items(), key=lambda kv: -kv[1])[:3])
+    return max(rel.values()), mx
+
+
+def _f32_train_config(torch):
+    cfg = _dhr_config(torch.float32)
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, hidden_dropout=0.0, attention_dropout=0.0))
+
+
+def _train_card_vs_cpu(tree, loader, torch):
+    """One plain step, f32, dropout 0, 2 queries x 8 passages, on the CPU
+    and on the card: loss, gradients, and the updated parameters where the
+    gradient is above 1e-2 of its tensor's scale, each within 1e-3 of the
+    lr plus 4 f32 ulps of the parameter (the update's two roundings run in
+    another order on the card).  Adam's first update is ``lr * g / (|g| +
+    eps)``: where ``|g|`` nears ``eps`` or the rounding noise it moves with
+    the last bits of ``g`` (counted, not gated)."""
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+    from dhr_tpu_torch.models.flax_params import flax_to_state_dict
+    from dhr_tpu_torch.train.optimizer import OptimizerConfig
+    from dhr_tpu_torch.train.state import TrainState
+    from dhr_tpu_torch.train.step import LossConfig, plain_loss, to_device
+
+    cfg = _f32_train_config(torch)
+    opt = OptimizerConfig(learning_rate=7e-6, warmup_steps=0,
+                          total_steps=100, freeze_word_embeddings=True)
+    batch = next(iter(loader.epoch(0)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = load_flax_params(BiEncoder(cfg), tree).to(dev)
+        state = TrainState.create(model, opt)
+        model.train()
+        loss, _ = plain_loss(model, cfg, LossConfig(), to_device(batch, dev))
+        loss.backward()
+        grads = _grads(model)
+        state.apply_gradients()
+        out[dev] = (loss.item(), grads, {n: p.detach().cpu() for n, p in
+                                         model.named_parameters()})
+        del model, state
+    torch.cuda.empty_cache()
+    init = flax_to_state_dict(tree)
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = out["cpu"], out["cuda"]
+    worst, upd_err, flips, n_upd = 0.0, 0.0, 0, 0
+    ulp = torch.finfo(torch.float32).eps
+    for n, g in g_cpu.items():
+        if "attention.key.bias" in n:
+            continue
+        firm = g.abs() > 1e-2 * g.abs().max()
+        d = (p_card[n] - p_cpu[n]).abs()
+        tol = 1e-3 * opt.learning_rate + 4 * ulp * init[n].abs()
+        if firm.any():
+            worst = max(worst, float((d / tol)[firm].max()))
+            upd_err = max(upd_err, float(d[firm].max()))
+        flips += int((d[~firm] > tol[~firm]).sum())
+        n_upd += g.numel()
+    l2, mx = _grad_rel_diff(g_card, g_cpu)
+    res = {"queries": 2, "passages": 16, "loss_cpu": l_cpu,
+           "loss_card": l_card, "loss_rel_diff": abs(l_card - l_cpu)
+           / abs(l_cpu), "grad_rel_l2_diff": l2, "grad_max_rel_diff": mx,
+           "update_max_abs_diff_over_lr": upd_err / opt.learning_rate,
+           "update_diff_over_tolerance_max": worst,
+           "update_elements_below_1e-2_scale_beyond_tolerance": flips,
+           "updated_elements": n_upd}
+    if not (res["loss_rel_diff"] < 1e-4 and l2 < 1e-3 and worst <= 1.0):
+        raise AssertionError(f"train step, card vs CPU f32: {res}")
+    return res
+
+
+def _packed_and_grad_cache_vs_plain(tree, groups, toks, torch):
+    """On the card, f32, dropout 0, batch 24: the packed step's and the
+    grad-cache step's (4 query / 8 passage chunks, and 1 / 1) gradients
+    against the plain step's, on the same examples.  Gated: the loss within
+    1e-4 and every tensor's gradient within 1e-3 (L2, relative); for
+    grad-cache at 4 / 8, whose chunks change the GEMM shapes and so the
+    rounding that decides near-tie folds, within 1e-2 (its 1 / 1 twin, the
+    same two passes at the plain shapes, holds 1e-3)."""
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+    from dhr_tpu_torch.train.step import (
+        LossConfig, grad_cache_backward, packed_loss, plain_loss, to_device)
+
+    cfg = _f32_train_config(torch)
+    loss_cfg = LossConfig()
+    plain = to_device(next(iter(_train_loader(groups, toks, 24, torch)
+                                .epoch(0))), "cuda")
+    packed = to_device(next(iter(_train_loader(
+        groups, toks, 24, torch, pack_passages=True).epoch(0))), "cuda")
+    model = load_flax_params(BiEncoder(cfg), tree).cuda().train()
+    res = {"batch": 24, "packed_rows": int(
+        packed["packed_passage"]["input_ids"].shape[0])}
+    runs = (("plain", lambda: plain_loss(model, cfg, loss_cfg, plain)[0],
+             None),
+            ("packed", lambda: packed_loss(model, cfg, loss_cfg, packed)[0],
+             1e-3),
+            ("grad_cache", (4, 8), 1e-2), ("grad_cache_1_1", (1, 1), 1e-3))
+    grads, losses = {}, {}
+    for name, fn, _ in runs:
+        model.zero_grad(set_to_none=True)
+        if isinstance(fn, tuple):
+            loss = grad_cache_backward(model, cfg, loss_cfg, plain, 0, 0, *fn)
+        else:
+            loss = fn()
+            loss.backward()
+        losses[name] = loss.item()
+        grads[name] = _grads(model)
+    for name, _, tol in runs[1:]:
+        worst = {}
+        l2, mx = _grad_rel_diff(grads[name], grads["plain"], worst)
+        res[name] = {"loss_rel_diff": abs(losses[name] - losses["plain"])
+                     / abs(losses["plain"]),
+                     "grad_rel_l2_diff": l2, "grad_max_rel_diff": mx,
+                     "worst_tensors_l2": worst, "tol_l2": tol}
+    for name, _, tol in runs[1:]:
+        if not (res[name]["loss_rel_diff"] < 1e-4
+                and res[name]["grad_rel_l2_diff"] < tol):
+            raise AssertionError(f"{name} step vs plain on the card: {res}")
+    del model, grads, plain, packed
+    torch.cuda.empty_cache()
+    return res
+
+
+def _metrics_losses(path):
+    with open(path) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def _eval_loss(model, batches, torch):
+    """Mean plain-step loss of ``batches`` in eval mode (no dropout)."""
+    from dhr_tpu_torch.train.step import LossConfig, plain_loss, to_device
+
+    model.eval()
+    with torch.no_grad():
+        return float(sum(plain_loss(model, model.cfg, LossConfig(),
+                                    to_device(b, "cuda"))[0].item()
+                         for b in batches) / len(batches))
+
+
+def _train_and_resume(root, tree, groups, toks, torch, np):
+    """``python -m dhr_tpu_torch train`` from the HF directory: 40 steps
+    (warmup 10, saves at 20), then a run cut at step 20 and resumed to 40;
+    the per-step losses of both runs must agree and be finite, and the
+    loss must fall: the eval-mode loss of the run's first 4 batches (96
+    queries) after the 40 steps below the one before (per-step train
+    losses, each of another batch, are reported)."""
+    common = ["train", "--model", "dhr", "--model-name-or-path",
+              f"{root}/init", "--add-pooler", "--projection-dim", "128",
+              "--dlr-out-dim", str(LEX_DIM), "--train-path",
+              f"{root}/train.jsonl", "--corpus-path", f"{root}/corpus.jsonl",
+              *TRAIN_FLAGS, "--warmup-steps", "10", "--save-steps",
+              str(TRAIN_STEPS // 2), "--log-steps", "1"]
+    t = {}
+    t["straight"] = _run_cli([*common, "--output-dir", f"{root}/a",
+                              "--max-steps", str(TRAIN_STEPS),
+                              "--metrics-path", f"{root}/a.jsonl"], "train")
+    for name, steps in (("cut", TRAIN_STEPS // 2), ("resumed", TRAIN_STEPS)):
+        t[name] = _run_cli([*common, "--output-dir", f"{root}/b",
+                            "--max-steps", str(steps), "--metrics-path",
+                            f"{root}/b.jsonl"], "train")
+    a, b = _metrics_losses(f"{root}/a.jsonl"), _metrics_losses(
+        f"{root}/b.jsonl")
+    rel = np.abs(np.subtract(a, b)) / np.abs(a)
+    first, last = float(np.mean(a[:10])), float(np.mean(a[-10:]))
+    res = {"steps": len(a), "losses": a, "resumed_losses": b,
+           "resume_max_rel_diff": float(rel.max()),
+           "resume_bit_equal_steps": int((np.asarray(a) == np.asarray(b))
+                                         .sum()),
+           "loss_first10_mean": first, "loss_last10_mean": last,
+           "cli_wall_s": {k: v["train_wall_s"] for k, v in t.items()},
+           "checkpoints": sorted(os.listdir(f"{root}/b"))}
+    if len(a) != TRAIN_STEPS or len(b) != TRAIN_STEPS:
+        raise AssertionError(f"train runs logged {len(a)} / {len(b)} steps")
+    if not np.isfinite(a).all() or not np.isfinite(b).all():
+        raise AssertionError("a train loss is not finite")
+    if rel.max() > 1e-3:
+        raise AssertionError(f"resumed losses differ: {rel.max()}")
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+
+    batches = [b for b, _ in zip(_train_loader(groups, toks, 24, torch)
+                                 .epoch(0), range(4))]
+    model = load_flax_params(BiEncoder(_dhr_config(torch.bfloat16)),
+                             tree).cuda()
+    res["eval_loss_before"] = _eval_loss(model, batches, torch)
+    snap = torch.load(f"{root}/a/step_{TRAIN_STEPS:08d}/state.pt",
+                      map_location="cuda", weights_only=True)
+    model.load_state_dict(snap["model"])
+    res["eval_loss_after"] = _eval_loss(model, batches, torch)
+    del model, snap
+    torch.cuda.empty_cache()
+    if not res["eval_loss_after"] < res["eval_loss_before"]:
+        raise AssertionError(f"the loss did not fall: {res}")
+    return res
+
+
+def _trained_on_the_kernels(root, torch, np):
+    """The export of the 40-step run, through ``encode`` (bf16, batch 256,
+    length-bucketed; the queries too), ``index --quantize`` and ``search``
+    at the bench point: K1 and K2 must launch.  Then ``encode --pack`` of
+    the same corpus against it."""
+    model = ["--model", "dhr", "--model-name-or-path", f"{root}/a/export",
+             "--bf16", "--add-pooler", "--projection-dim", "128",
+             "--dlr-out-dim", str(LEX_DIM), "--batch-size", "256"]
+    corpus = ["--input", f"{root}/corpus.jsonl"]
+    t_b = _run_cli(["encode", *model, *corpus, "--length-bucketing",
+                    "--output", f"{root}/corpus.npz"], "encode")
+    t_q = _run_cli(["encode", *model, "--input", f"{root}/queries.jsonl",
+                    "--output", f"{root}/q.npz", "--encode-is-qry"],
+                   "encode")
+    _run_cli(["index", "--inputs", f"{root}/corpus.npz", "--output",
+              f"{root}/index.npz", "--quantize"])
+    reset_launches()
+    t_s = _run_cli(["search", "--index-path", f"{root}/index.npz",
+                    "--query-path", f"{root}/q.npz", "--topk", "1000",
+                    "--query-batch", "128", "--theta", "0.3",
+                    "--max-important-dims", "48", "--agip-topk", "10000",
+                    "--rerank", "--output", f"{root}/run.trec"], "search")
+    launches = read_launches()
+    want = -(-ENCODE_QUERIES // 128)  # K1 once per staging chunk
+    if not (launches["partial_gip"] >= want and launches["rerank_gip"]
+            == want and launches["gip_candidates"] == 0):
+        raise AssertionError(f"trained index launches {launches}: K1 at "
+                             f"least and K2 exactly {want} times expected")
+    run = _read_run(f"{root}/run.trec")
+    if len(run) != ENCODE_QUERIES or any(
+            len(r) != 1000 or not np.isfinite([s for _, s in r]).all()
+            for r in run.values()):
+        raise AssertionError("the trained run lacks queries, rows or finite "
+                             "scores")
+    t_p = _run_cli(["encode", *model, *corpus, "--pack", "--pack-segments",
+                    "8", "--batch-size", "64", "--output",
+                    f"{root}/packed.npz"], "encode")
+    with np.load(f"{root}/corpus.npz") as a, \
+            np.load(f"{root}/packed.npz") as b:
+        va, vb = a["values"].astype(np.float32), b["values"].astype(
+            np.float32)
+        pack = {"values_max_rel_diff_bf16": float(np.abs(va - vb).max()
+                                                  / np.abs(va).max()),
+                "values_rel_l2_bf16": float(np.linalg.norm(va - vb)
+                                            / np.linalg.norm(va)),
+                "fold_agreement_bf16": float((a["indices"] == b["indices"])
+                                             .mean())}
+    if not (pack["values_rel_l2_bf16"] < 0.05
+            and pack["fold_agreement_bf16"] > 0.9):
+        raise AssertionError(f"encode --pack vs plain (bf16): {pack}")
+    return {"encode_passages_per_s_bucketed_b256": t_b["items_per_s"],
+            "encode_passages_per_s_packed_64rows_8seg": t_p["items_per_s"],
+            "queries_per_s_encode": t_q["items_per_s"],
+            "search_qps": t_s["qps"], "launches": launches,
+            "packed_vs_bucketed": pack}
+
+
+def _packed_encode_f32(tree, toks, torch, np):
+    """``Encoder.encode_corpus_packed`` against ``encode_corpus`` on the
+    card, f32, 2,048 passages: planes' relative difference, fold
+    agreement."""
+    from dhr_tpu_torch.data.collate import collate_encode, wrap_specials
+    from dhr_tpu_torch.encode import (
+        EncodeConfig, Encoder, packed_encode_batches)
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+
+    cfg = _dhr_config(torch.float32)
+    enc = Encoder(load_flax_params(BiEncoder(cfg), tree), cfg,
+                  EncodeConfig(batch_size=64))
+    lists = [t.tolist() for t in toks[:2048]]
+    ids = [str(i) for i in range(len(lists))]
+    plain = enc.encode_corpus(
+        collate_encode(ids[s:s + 64], [wrap_specials(t, 128, 101, 102)
+                                       for t in lists[s:s + 64]], 128)
+        for s in range(0, len(ids), 64))
+    batches, order = packed_encode_batches(ids, lists, 64, 128, 8, 101, 102)
+    packed = enc.encode_corpus_packed(batches)
+    inv = np.argsort(order)
+    va, vb = plain.values.astype(np.float32), packed.values[inv].astype(
+        np.float32)
+    res = {"passages": len(ids),
+           "values_max_rel_diff": float(np.abs(va - vb).max()
+                                        / np.abs(va).max()),
+           "fold_agreement": float((plain.indices == packed.indices[inv])
+                                   .mean())}
+    if list(packed.docids[inv]) != ids or res["values_max_rel_diff"] > 1e-3 \
+            or res["fold_agreement"] < 0.999:
+        raise AssertionError(f"packed encode vs plain, f32 card: {res}")
+    del enc
+    torch.cuda.empty_cache()
+    return res
+
+
+def _timed_batches(groups, toks, n, torch, packed=False):
+    """The first ``n`` batches of the documented loader; packed, at the
+    row count that the most packed of them needs, so that every batch has
+    one shape (none falls back to a row per passage)."""
+    def first(**kw):
+        loader = _train_loader(groups, toks, 24, torch, **kw)
+        return [b for b, _ in zip(loader.epoch(0), range(n))]
+
+    if not packed:
+        return first()
+    rows = max(int((b["packed_passage"]["segment_ids"] > 0).any(1).sum())
+               for b in first(pack_passages=True, pack_rows=192))
+    batches = first(pack_passages=True, pack_rows=rows)
+    if {b["packed_passage"]["input_ids"].shape[0] for b in batches} != {rows}:
+        raise AssertionError("packed timing batches differ in shape")
+    return batches
+
+
+def _plain_step_split(step_for, model, state, batch, torch):
+    """``make_train_step``'s own step by parts, by CUDA events at its phase
+    marks (``on_phase``) and at the transformer stack's calls (forward
+    hooks: the queries', then the passages'); the backward splits where
+    autograd reaches the passages' hidden states (a tensor hook): before
+    it, the loss and the passages' head (with whatever of the small query
+    tower autograd interleaves); after it, the transformers.  And the
+    host's time to enqueue that step.  Median of 5 after a warm-up."""
+    ev = {}
+
+    def mark(name):
+        ev[name] = torch.cuda.Event(enable_timing=True)
+        ev[name].record()
+
+    enc = model.encoder("passage")
+    stack = enc.backbone.encoder if enc.cfg.needs_mlm else enc.backbone
+    nth = 1 if enc.cfg.untie_encoder else 2  # the passages' call
+    calls = []
+
+    def pre(mod, args):
+        calls.append(None)
+        if len(calls) == nth:
+            mark("passage_in")
+
+    def post(mod, args, hidden):
+        if len(calls) == nth:
+            mark("passage_out")
+            hidden.register_hook(lambda g: mark("backward_transformers_in"))
+
+    hooks = [stack.register_forward_pre_hook(pre),
+             stack.register_forward_hook(post)]
+    step_fn = step_for(mark)
+    bounds = (("start", "passage_in", "forward_queries"),
+              ("passage_in", "passage_out", "forward_passage_transformer"),
+              ("passage_out", "forward", "forward_passage_head"),
+              ("forward", "loss", "loss"),
+              ("loss", "backward_transformers_in",
+               "backward_loss_and_passage_head"),
+              ("backward_transformers_in", "backward",
+               "backward_transformers"),
+              ("backward", "optimizer", "optimizer"))
+    parts = {k: [] for _, _, k in bounds}
+    host = []
+    for i in range(6):
+        ev.clear()
+        calls.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        step_fn(state, batch, 0)
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        if i:  # the first is a warm-up
+            for a, b, k in bounds:
+                parts[k].append(ev[a].elapsed_time(ev[b]))
+    for h in hooks:
+        h.remove()
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    return {"plain_step_split_ms": split,
+            "plain_step_device_ms": sum(split.values()),
+            "plain_step_host_enqueue_ms": statistics.median(host[1:])}
+
+
+def _train_timing(tree, groups, toks, torch):
+    """Steps/s, passages/s and tokens/s of the plain (padded to 128),
+    packed (one row count for all its batches) and grad-cache steps in
+    bf16 at batch 24 (dropout 0.1, the documented lr): wall time over 30
+    steps after 3 warm-up steps on batches of the timed shapes, and the
+    spread of the steps (CUDA events between steps, no host wait between
+    them); the host's time to issue a step of each kind, the card idle
+    before it (median of 5); one plain step of ``make_train_step`` split
+    into forward / loss / backward / optimizer by CUDA events
+    (:func:`_plain_step_split`); training FLOPs = 3x the forward FLOPs of
+    the padded shapes (``encode_flops_per_token`` at L = 128 for passages,
+    32 for queries); peak memory."""
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+    from dhr_tpu_torch.train.optimizer import OptimizerConfig
+    from dhr_tpu_torch.train.state import TrainState
+    from dhr_tpu_torch.train.step import (
+        LossConfig, make_grad_cache_train_step, make_packed_train_step,
+        make_train_step)
+
+    cfg = _dhr_config(torch.bfloat16)
+    loss_cfg = LossConfig()
+    model = load_flax_params(BiEncoder(cfg), tree).cuda()
+    state = TrainState.create(model, OptimizerConfig(
+        learning_rate=7e-6, warmup_steps=0, total_steps=1000,
+        freeze_word_embeddings=True))
+    n_warm, n_timed = 3, 30
+    q_flops = 24 * 32 * encode_flops_per_token(32)
+    out = {"batch": 24, "passages_per_step": 192, "dtype": "bf16",
+           "timed_steps": n_timed, "warm_up_steps": n_warm,
+           "peak_tflops_dense_bf16": H100_BF16_FLOPS_PER_S / 1e12}
+    modes = (
+        ("plain_padded128", make_train_step(model, cfg, loss_cfg), False),
+        ("packed", make_packed_train_step(model, cfg, loss_cfg), True),
+        ("grad_cache_4q_8p", make_grad_cache_train_step(model, cfg,
+                                                        loss_cfg, 4, 8),
+         False),
+    )
+    for name, step_fn, packed in modes:
+        batches = _timed_batches(groups, toks, n_warm + n_timed, torch,
+                                 packed)
+        timed = [b.get("packed_passage", b.get("passage"))
+                 for b in batches[n_warm:]]
+        p_tokens = sum(pp["input_ids"].size for pp in timed) / n_timed
+        real = sum(int((pp["segment_ids"] > 0).sum()) if "segment_ids" in pp
+                   else int(pp["attention_mask"].sum())
+                   for pp in timed) / n_timed
+        q_real = sum(int(b["query"]["attention_mask"].sum())
+                     for b in batches[n_warm:]) / n_timed
+        for b in batches[:n_warm]:
+            step_fn(state, b, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for b, e in zip(batches[n_warm:], ev[1:]):
+            loss = step_fn(state, b, 0)
+            e.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_timed
+        steps = sorted(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+        host = []  # the host's time to issue a step, the card idle before
+        for b in batches[n_warm:n_warm + 5]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(state, b, 0)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        flops = 3 * (q_flops + p_tokens * encode_flops_per_token(128))
+        out[name] = {
+            "steps_per_s": 1 / wall, "ms_per_step": wall * 1e3,
+            "step_ms_median": statistics.median(steps),
+            "step_ms_min": steps[0], "step_ms_max": steps[-1],
+            "step_ms_stdev": statistics.stdev(steps),
+            "host_ms_per_step_median": statistics.median(host),
+            "passages_per_s": 192 / wall,
+            "padded_tokens_per_s": (24 * 32 + p_tokens) / wall,
+            "passage_tokens_per_step": p_tokens,
+            "real_passage_tokens_per_step": real,
+            "real_tokens_per_s": (q_real + real) / wall,
+            "train_tflops_3x_forward": flops / wall / 1e12,
+            "share_of_bf16_peak": flops / wall / H100_BF16_FLOPS_PER_S,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "last_loss": loss.item()}
+        if packed:
+            out[name]["packed_rows"] = int(timed[0]["input_ids"].shape[0])
+        if not math.isfinite(out[name]["last_loss"]):
+            raise AssertionError(f"{name}: the loss is not finite")
+    out.update(_plain_step_split(
+        lambda mark: make_train_step(model, cfg, loss_cfg, on_phase=mark),
+        model, state, _timed_batches(groups, toks, 1, torch)[0], torch))
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_path(args, torch):
+    """The train slice at DistilBERT-base width (the DHR model of
+    ``encode_path``; its seeded random tree written as an HF directory so
+    that ``train --model-name-or-path`` goes through the import): the card
+    against the CPU, packed and grad-cache against plain, the documented
+    run (``docs/pipeline.md:25-30``) for 40 steps and its resume, the
+    trained export encoded, indexed and searched on K1 and K2, packed
+    encode, and the steps' speed."""
+    import tempfile
+
+    import numpy as np
+
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from dhr_tpu_torch.train.checkpoint import export_hf_checkpoint
+
+    cfg = _dhr_config(torch.float32)
+    tree = random_flax_params(cfg, torch.Generator().manual_seed(args.seed))
+    secs, out = {}, {}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        toks, groups, lens = _train_data(root, args.seed, np)
+        export_hf_checkpoint(f"{root}/init", load_flax_params(
+            BiEncoder(cfg), tree), cfg)
+        secs["setup"] = time.perf_counter() - t
+        steps = (
+            ("card_vs_cpu", lambda: _train_card_vs_cpu(
+                tree, _train_loader(groups, toks, 2, torch), torch)),
+            ("packed_and_grad_cache_vs_plain",
+             lambda: _packed_and_grad_cache_vs_plain(tree, groups, toks,
+                                                     torch)),
+            ("train_and_resume", lambda: _train_and_resume(
+                root, tree, groups, toks, torch, np)),
+            ("trained_on_kernels", lambda: _trained_on_the_kernels(
+                root, torch, np)),
+            ("packed_encode_f32", lambda: _packed_encode_f32(tree, toks,
+                                                             torch, np)),
+            ("timing", lambda: _train_timing(tree, groups, toks, torch)),
+        )
+        for name, fn in steps:
+            t = time.perf_counter()
+            out[name] = fn()
+            secs[name] = time.perf_counter() - t
+    emit({"phase": "train_path", "model": "distilbert-base DHR "
+          "(6x768, vocab 30522, remove_dims 570, 768 + 128 dims)",
+          "weights": f"random, seed {args.seed}, through an HF directory",
+          "data": {"queries": TRAIN_QUERIES, "negatives": TRAIN_NEGATIVES,
+                   "corpus": ENCODE_PASSAGES,
+                   "passage_len_mean": float(lens.mean() + 2)},
+          "flags": TRAIN_FLAGS, **out, "seconds": secs})
     torch.cuda.empty_cache()
 
 
@@ -1217,6 +1819,7 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build()
     phase_encode_path(args, torch)
+    phase_train_path(args, torch)
     index, queries, raw = small_world(args.seed + 1, torch)
     errs = (phase_k1(index, queries, torch),
             phase_k2(index, queries, args.seed, torch),

@@ -1,7 +1,12 @@
 """``python -m dhr_tpu_torch`` — the ported verbs of ``dhr_tpu``'s CLI.
 
+- ``prepare-corpus``  tokenize a raw corpus -> JSONL (needs the
+                  ``transformers`` package for ``--tokenizer``);
+- ``prepare-train``   MS MARCO tsvs -> train groups (the same);
+- ``train``       train a retriever on the GPU, checkpoints and an HF
+                  export under ``--output-dir``;
 - ``encode``      tokenized corpus / queries -> packed planes (``.npz``),
-                  on the GPU;
+                  on the GPU (``--pack``: several passages per row);
 - ``index``       merge shard files, optionally attach PQ codebooks
                   (``--pq-m``) and int8-quantize them;
 - ``search``      gip / ip / pq retrieval on the GPU -> TREC run file, or,
@@ -11,11 +16,11 @@
 - ``eval``        MRR / recall / nDCG of a run against qrels.
 
 Flag names follow ``python -m dhr_tpu``.  Flags of what is not ported yet
-are accepted by name and fail with a message saying so.  ``encode``,
-``search`` and the PQ build of ``index --pq-m`` run on the GPU; ``--device
-cpu`` runs them on the CPU (the plain PyTorch path) instead.  Every verb
-also accepts ``--config file.json`` whose keys are the long option names
-(flags given on the command line win).
+are accepted by name and fail with a message saying so.  ``train``,
+``encode``, ``search`` and the PQ build of ``index --pq-m`` run on the GPU;
+``--device cpu`` runs them on the CPU (the plain PyTorch path) instead.
+Every verb also accepts ``--config file.json`` whose keys are the long
+option names (flags given on the command line win).
 """
 
 from __future__ import annotations
@@ -34,10 +39,6 @@ logger = logging.getLogger("dhr_tpu_torch")
 _UNPORTED_SEARCH = {
     "--shard-over-devices": "multi-GPU sharding",
     "--candidate-recall": "approximate candidate recall targets",
-}
-_UNPORTED_ENCODE = {
-    "--pack": "token packing",
-    "--pack-segments": "token packing",
 }
 
 
@@ -74,7 +75,44 @@ def _apply_config_file(args: argparse.Namespace,
     return args
 
 
-# ----------------------------------------------------------------- encode --
+def _load_tokenizer(path: str):
+    """An HF tokenizer from a local directory; ``transformers`` is imported
+    here only, by the ``prepare-*`` verbs."""
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(path)
+
+
+# ---------------------------------------------------------------- prepare --
+
+
+def cmd_prepare_corpus(args):
+    from dhr_tpu_torch.data.tokenize import tokenize_corpus_file
+
+    n = tokenize_corpus_file(args.input, args.output,
+                             _load_tokenizer(args.tokenizer),
+                             max_len=args.max_len, schema=args.schema)
+    logger.info("tokenized %d docs -> %s", n, args.output)
+
+
+def cmd_prepare_train(args):
+    from dhr_tpu_torch.data.examples import write_jsonl
+    from dhr_tpu_torch.data.tokenize import (
+        build_train_groups,
+        read_negatives_tsv,
+        read_qrels_tsv,
+        read_queries_tsv,
+    )
+
+    groups = build_train_groups(
+        read_queries_tsv(args.queries), read_qrels_tsv(args.qrels),
+        read_negatives_tsv(args.negatives), _load_tokenizer(args.tokenizer),
+        q_max_len=args.q_max_len, n_negatives=args.n_negatives)
+    write_jsonl(args.output, groups)
+    logger.info("wrote train groups -> %s", args.output)
+
+
+# ------------------------------------------------------------------ train --
 
 
 def _check_special_ids(args, vocab_size: int) -> None:
@@ -171,6 +209,88 @@ def _load_init_params(args, model_cfg):
     return model
 
 
+def _build_teacher(args, student_cfg):
+    """The ColBERT teacher of TCT distillation, from ``--teacher-path``."""
+    teacher_cfg = dataclasses.replace(student_cfg, model_type="colbert",
+                                      add_pooler=True, untie_encoder=False)
+    t_args = argparse.Namespace(**vars(args))
+    t_args.model_name_or_path = args.teacher_path
+    t_args.model = "colbert"
+    return _load_init_params(t_args, teacher_cfg)
+
+
+def cmd_train(args):
+    import os
+
+    from dhr_tpu_torch.data import (
+        Corpus,
+        SamplingConfig,
+        load_train_groups,
+        read_jsonl,
+    )
+    from dhr_tpu_torch.device import resolve_device
+    from dhr_tpu_torch.train.checkpoint import export_hf_checkpoint
+    from dhr_tpu_torch.train.driver import RunConfig, run_training
+    from dhr_tpu_torch.train.optimizer import OptimizerConfig
+    from dhr_tpu_torch.train.step import LossConfig
+
+    device = resolve_device(args.device)
+    model_cfg = _model_cfg_from_args(args)
+    model = _load_init_params(args, model_cfg)
+    teacher = _build_teacher(args, model_cfg) if args.tct else None
+    groups = load_train_groups(args.train_path)
+    corpus = Corpus.load(args.corpus_path) if args.corpus_path else None
+    clusters = (list(read_jsonl(args.query_cluster_path))
+                if args.query_cluster_path else None)
+    steps_per_epoch = max(len(groups) // args.batch_size, 1)
+    t0 = time.perf_counter()
+    state = run_training(
+        model_cfg,
+        LossConfig(n_passages=args.train_n_passages,
+                   remove_dims=args.remove_dims, use_tct_teacher=args.tct),
+        OptimizerConfig(
+            learning_rate=args.learning_rate,
+            warmup_steps=args.warmup_steps,
+            total_steps=steps_per_epoch * args.num_epochs,
+            weight_decay=args.weight_decay,
+            freeze_word_embeddings=args.model in ("dhr", "dlr")),
+        RunConfig(
+            num_epochs=args.num_epochs, max_steps=args.max_steps,
+            batch_size=args.batch_size, save_steps=args.save_steps,
+            log_steps=args.log_steps, ckpt_dir=args.output_dir,
+            grad_cache=args.grad_cache, gc_q_chunks=args.gc_q_chunks,
+            gc_p_chunks=args.gc_p_chunks, seed=args.seed,
+            profile_dir=args.profile_dir, metrics_path=args.metrics_path,
+            rng_impl=args.rng_impl, pack_passages=args.pack_passages,
+            pack_segments=args.train_pack_segments,
+            pack_rows=args.pack_rows),
+        groups,
+        SamplingConfig(
+            n_passages=args.train_n_passages, q_max_len=args.q_max_len,
+            p_max_len=args.p_max_len, seed=args.seed,
+            cls_id=args.cls_token_id, sep_id=args.sep_token_id),
+        corpus=corpus, kd=args.kd, tasb_clusters=clusters, model=model,
+        teacher=teacher, device=device)
+    train_s = time.perf_counter() - t0
+    # the reference's save format (save_pretrained + sidecars), which both
+    # packages load; families without an MLM head export encoder-only
+    hf_config = None
+    if args.model_name_or_path:
+        cfg_path = os.path.join(args.model_name_or_path, "config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                hf_config = json.load(f)
+    export_hf_checkpoint(os.path.join(args.output_dir, "export"),
+                         state.model, model_cfg, hf_config=hf_config)
+    logger.info("training done; checkpoints in %s", args.output_dir)
+    print("DHR_TIMING " + json.dumps({
+        "verb": "train", "steps": state.step, "device": str(device),
+        "train_wall_s": train_s}), file=sys.stderr)
+
+
+# ----------------------------------------------------------------- encode --
+
+
 def cmd_encode(args):
     from dhr_tpu_torch.data import load_tokenized_corpus
     from dhr_tpu_torch.data.collate import collate_encode, wrap_specials
@@ -179,6 +299,7 @@ def cmd_encode(args):
         EncodeConfig,
         Encoder,
         bucketed_encode_batches,
+        packed_encode_batches,
     )
 
     device = resolve_device(args.device)
@@ -199,7 +320,20 @@ def cmd_encode(args):
     max_len = args.q_max_len if args.encode_is_qry else args.p_max_len
 
     order = None
-    if args.length_bucketing:
+    if args.pack:
+        # several documents per row, block-diagonal attention; corpus side
+        # only (queries are short and near-uniform)
+        if args.encode_is_qry:
+            raise SystemExit("--pack applies to corpus encode only")
+        if args.length_bucketing:
+            raise SystemExit("--pack and --length-bucketing are exclusive")
+        if model_cfg.model_type == "agg" and model_cfg.skip_mlm:
+            raise SystemExit("--pack is not supported for agg with "
+                             "--skip-mlm; use --length-bucketing")
+        batches, order = packed_encode_batches(
+            ids, texts, args.batch_size, max_len, args.pack_segments,
+            args.cls_token_id, args.sep_token_id)
+    elif args.length_bucketing:
         # sort-by-length batches padded to small bucket lengths: the same
         # reps, a fraction of the pad work; outputs restored below
         if model_cfg.model_type == "colbert":
@@ -233,7 +367,12 @@ def cmd_encode(args):
     t_enc0 = time.perf_counter()
     if model_cfg.model_type == "colbert":
         role = "query" if args.encode_is_qry else "passage"
-        reps, out_ids = enc.encode_tokens(batches, role)
+        if args.pack:
+            reps, out_ids = enc.encode_tokens_packed(batches, max_len)
+            inv = np.argsort(order)
+            reps, out_ids = reps[inv], [out_ids[i] for i in inv]
+        else:
+            reps, out_ids = enc.encode_tokens(batches, role)
         np.savez(args.output, token=reps)
         with open(args.output + ".ids.json", "w") as f:
             json.dump(list(map(str, out_ids)), f)
@@ -248,14 +387,16 @@ def cmd_encode(args):
             json.dump(list(map(str, qids_arr)), f)
         logger.info("encoded %d queries -> %s", len(qids_arr), args.output)
     else:
-        packed = enc.encode_corpus(batches)
+        packed = (enc.encode_corpus_packed(batches) if args.pack
+                  else enc.encode_corpus(batches))
         values, indices, docids = _restore(packed.values, packed.indices,
                                            packed.docids)
         packed = dataclasses.replace(packed, values=values, indices=indices,
                                      docids=docids)
         packed.save(args.output)
-        logger.info("encoded %d passages -> %s", packed.num_rows,
-                    args.output)
+        logger.info("encoded %d passages%s -> %s", packed.num_rows,
+                    f" (packed, <={args.pack_segments} docs/row)"
+                    if args.pack else "", args.output)
     enc_wall = time.perf_counter() - t_enc0
     print("DHR_TIMING " + json.dumps({
         "verb": "encode", "items": len(ids), "device": str(device),
@@ -462,6 +603,79 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m dhr_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("prepare-corpus")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--tokenizer", required=True,
+                   help="local HF tokenizer directory")
+    p.add_argument("--max-len", type=int, default=512)
+    p.add_argument("--schema", default="msmarco-passage")
+    _finish(p, cmd_prepare_corpus)
+
+    p = sub.add_parser("prepare-train")
+    p.add_argument("--queries", required=True)
+    p.add_argument("--qrels", required=True)
+    p.add_argument("--negatives", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--tokenizer", required=True,
+                   help="local HF tokenizer directory")
+    p.add_argument("--q-max-len", type=int, default=32)
+    p.add_argument("--n-negatives", type=int, default=200)
+    _finish(p, cmd_prepare_train)
+
+    p = sub.add_parser("train")
+    _add_model_args(p)
+    p.add_argument("--train-path", required=True)
+    p.add_argument("--corpus-path", default=None)
+    p.add_argument("--query-cluster-path", default=None)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--train-n-passages", type=int, default=8)
+    p.add_argument("--learning-rate", type=float, default=5e-6)
+    p.add_argument("--warmup-steps", type=int, default=2500)
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--num-epochs", type=int, default=1)
+    p.add_argument("--max-steps", type=int, default=None,
+                   help="stop after this many global steps (HF "
+                        "TrainingArguments.max_steps); default epoch-bounded")
+    p.add_argument("--save-steps", type=int, default=20000)
+    p.add_argument("--log-steps", type=int, default=100)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--kd", action="store_true")
+    p.add_argument("--tct", action="store_true",
+                   help="distill from an in-graph ColBERT teacher")
+    p.add_argument("--teacher-path", default=None,
+                   help="HF checkpoint dir for the ColBERT teacher")
+    p.add_argument("--pack-passages", action="store_true",
+                   help="token-pack the passage tower (several passages per "
+                        "p_max_len row, block-diagonal attention): cuts the "
+                        "pad work of sub-p_max_len passages "
+                        "(dense/dhr/dlr/agg-MLM/colbert; not with "
+                        "--grad-cache/--tct)")
+    p.add_argument("--train-pack-segments", type=int, default=4,
+                   help="max passages packed into one training row")
+    p.add_argument("--pack-rows", type=int, default=None,
+                   help="packed passage rows per step (default: auto-sized "
+                        "from the first batch's plan +12.5%% headroom)")
+    p.add_argument("--grad-cache", action="store_true")
+    p.add_argument("--gc-q-chunks", type=int, default=4,
+                   help="number of query chunks per grad-cache step (a "
+                        "chunk COUNT: size = batch / chunks)")
+    p.add_argument("--gc-p-chunks", type=int, default=8,
+                   help="number of passage chunks per grad-cache step")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (trace.json) here")
+    p.add_argument("--metrics-path", default=None,
+                   help="append per-log-interval train metrics JSONL here")
+    p.add_argument("--rng-impl", default="rbg",
+                   choices=["rbg", "threefry2x32"],
+                   help="the reference's dropout PRNG on the TPU; accepted "
+                        "for config compatibility, no effect here (dropout "
+                        "masks come from torch generators seeded per step)")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (cuda), 'cpu' runs "
+                        "on the CPU")
+    _finish(p, cmd_train)
+
     p = sub.add_parser("encode")
     _add_model_args(p)
     p.add_argument("--input", required=True)
@@ -473,11 +687,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sort by length and pad each batch to a small "
                         "bucket length instead of max_len (same reps, "
                         "less pad work on short-document corpora)")
+    p.add_argument("--pack", action="store_true",
+                   help="token-level packing: several documents share one "
+                        "p_max_len row under a block-diagonal attention mask "
+                        "(dense/dhr/dlr/agg-MLM/colbert corpus encode)")
+    p.add_argument("--pack-segments", type=int, default=8,
+                   help="max documents packed into one row")
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (cuda), 'cpu' runs "
                         "on the CPU")
-    for flag, what in _UNPORTED_ENCODE.items():
-        p.add_argument(flag, action=_Unported, what=what)
     _finish(p, cmd_encode)
 
     p = sub.add_parser("index")

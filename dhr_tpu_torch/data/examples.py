@@ -1,9 +1,17 @@
 """Readers and a writer for the pipeline's interchange JSONL files.
 
-Port of the encode path's part of ``dhr_tpu/data/examples.py``.  A
-tokenized corpus or query file holds one ``{"text_id": id, "text":
-[vocab ids]}`` row per line, ids without special tokens.  The reader is
-the Python one (the reference's C++ host parser is not ported yet).
+Port of ``dhr_tpu/data/examples.py`` (not ported: the loader of HF-hub
+datasets).  The formats:
+
+- tokenized corpus / queries: ``{"text_id": id, "text": [vocab ids]}``,
+  ids without special tokens;
+- train groups: ``{"query": [...], "positives": [...], "negatives": [...]}``
+  or the pid form ``positive_pids`` / ``negative_pids`` (+ ``bin_pairs``
+  for margin-KD) resolved against a :class:`Corpus`;
+- sparse vectors: ``{"id": docid, "vector": {token: weight}}``.
+
+The reader is the Python one (the reference's C++ host parser is not
+ported yet).
 """
 
 from __future__ import annotations
@@ -44,8 +52,42 @@ def load_tokenized_corpus(path: str) -> tuple[list[str], list[list[int]]]:
     return ids, texts
 
 
+def load_train_groups(path: str) -> list[dict]:
+    return list(read_jsonl(path))
+
+
+def load_sparse_vectors(path: str) -> Iterator[tuple[str, dict]]:
+    for row in read_jsonl(path):
+        yield str(row["id"]), row["vector"]
+
+
 def write_jsonl(path: str, rows: Iterable[dict]) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         for row in rows:
             f.write(json.dumps(row) + "\n")
+
+
+class Corpus:
+    """Random-access pid -> token-id list.  Pids index positionally when
+    they are integers in range, else through a docid map."""
+
+    def __init__(self, ids: list[str], texts: list[list[int]]):
+        self.ids = ids
+        self.texts = texts
+        self._by_id: dict[str, int] | None = None
+
+    @staticmethod
+    def load(path: str) -> "Corpus":
+        return Corpus(*load_tokenized_corpus(path))
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def text_by_pid(self, pid) -> list[int]:
+        try:
+            return self.texts[int(pid)]
+        except (ValueError, IndexError):
+            if self._by_id is None:
+                self._by_id = {d: i for i, d in enumerate(self.ids)}
+            return self.texts[self._by_id[str(pid)]]

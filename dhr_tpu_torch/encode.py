@@ -1,9 +1,8 @@
 """Corpus and query encoding: the model, densify / aggregate and packing on
 the device, the packed planes back to the host.
 
-Port of the plain-row path of ``dhr_tpu/encode.py`` (token packing is not
-ported yet).  Per batch, on the device: the transformer, the family's head,
-then the planes an index stores,
+Port of ``dhr_tpu/encode.py``.  Per batch, on the device: the
+transformer, the family's head, then the planes an index stores,
 
 - dense:   values (B, D) f16
 - agg:     values (B, agg_dim [+ projection_dim]) f16
@@ -16,12 +15,18 @@ container is :class:`dhr_tpu_torch.retrieval.index.PackedIndex`, the
 on-disk format the reference writes.  Batches are not padded to
 ``batch_size`` (the reference pads them for one compiled shape); the
 outputs are the same.
+
+Token packing (:func:`plan_packing`, :func:`collate_packed`,
+:func:`packed_encode_batches`) puts several documents in one row under
+block-diagonal attention, so pad work drops to the row-fill slack;
+:meth:`Encoder.encode_corpus_packed` and :meth:`Encoder.encode_tokens_packed`
+encode such batches.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from collections.abc import Iterable
+from collections.abc import Callable, Iterable
 
 import numpy as np
 import torch
@@ -103,47 +108,132 @@ class Encoder:
                                             is_query=role == "query")
             return self.planes(reps)
 
-    def _run_batches(self, role: str, batches: Iterable[dict]):
-        """``(values, indices or None, ids)`` of all batches.  Each batch's
-        planes start copying back before the next batch is queued and are
-        read after it, so the device does not wait on the host."""
+    def packed_planes(self, batch: dict):
+        """One packed batch -> its per-slot planes ``(values f16 (B*S, D),
+        fold indices uint8 or None)`` on the device."""
+        cfg = self.cfg
+        dev = self.device
+        t = {k: torch.as_tensor(np.asarray(batch[k])).to(dev,
+                                                         non_blocking=True)
+             for k in ("input_ids", "segment_ids", "position_ids",
+                       "seg_start")}
+        with torch.inference_mode():
+            vals, idxs, semantic = self.model.encode_passages_packed(
+                t["input_ids"], t["segment_ids"], t["position_ids"],
+                t["seg_start"], cfg.dlr_out_dim, self.encode_cfg.remove_dims)
+            if cfg.model_type == "agg" and semantic is not None:
+                vals = merge_reps(vals, semantic)
+            elif (cfg.model_type in ("dhr", "dlr") and semantic is not None
+                  and cfg.combine_cls):
+                vals = torch.cat([vals, semantic.to(vals.dtype)], -1)
+            vals = vals.reshape(-1, vals.shape[-1]).half()
+            if idxs is not None:
+                idxs = idxs.reshape(-1, idxs.shape[-1]).to(torch.uint8)
+            return vals, idxs
+
+    def _copy_back(self, tensors):
+        """Start copying ``tensors`` (None kept) to the host; returns
+        ``(event or None, host tensors)``: the event marks the copies done
+        on the card."""
+        host = [None if t is None else t.to("cpu", non_blocking=True)
+                for t in tensors]
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return done, host
+
+    def encode_corpus_packed(self, batches: Iterable[dict]) -> PackedIndex:
+        """Encode token-packed batches from :func:`packed_encode_batches`:
+        one row per document in plan order (empty slots are dropped)."""
+        if self.cfg.model_type not in ("dense", "dhr", "dlr", "agg"):
+            raise ValueError(
+                "packed plane encode supports dense/dhr/dlr/agg, not "
+                f"{self.cfg.model_type}"
+                + (" — colbert packs via encode_tokens_packed()"
+                   if self.cfg.model_type == "colbert" else ""))
+
+        def packed(batch):
+            planes = self.packed_planes(batch)
+            valid = np.zeros(np.shape(batch["seg_start"]), bool)
+            for r, sids in enumerate(batch["slot_ids"]):
+                valid[r, :len(sids)] = True
+            return (planes, valid.reshape(-1),
+                    [i for sids in batch["slot_ids"] for i in sids])
+
+        return self._index(*self._run_batches(batches, packed))
+
+    def encode_tokens_packed(self, batches: Iterable[dict], out_len: int):
+        """ColBERT reps from token-packed batches: ``(reps (N, out_len, D)
+        f16, ids)`` in plan order; each document is one contiguous slice
+        of its row, zero-padded to ``out_len``."""
+        if self.cfg.model_type != "colbert":
+            raise ValueError("packed token encode is colbert-only, not "
+                             f"{self.cfg.model_type}")
+        reps_out, ids_out = [], []
+        dev = self.device
+
+        for batch in batches:
+            t = [torch.as_tensor(np.asarray(batch[k])).to(dev)
+                 for k in ("input_ids", "segment_ids", "position_ids")]
+            with torch.inference_mode():
+                reps = self.model.encode_tokens_packed(*t).half().cpu()
+            reps = reps.numpy()
+            segment_ids = np.asarray(batch["segment_ids"])
+            seg_start = np.asarray(batch["seg_start"])
+            slot_ids = batch["slot_ids"]
+            out = np.zeros((sum(len(s) for s in slot_ids), out_len,
+                            reps.shape[-1]), np.float16)
+            d = 0
+            for r, sids in enumerate(slot_ids):
+                seg_len = np.bincount(segment_ids[r], minlength=len(sids) + 1)
+                for s, sid in enumerate(sids):
+                    start = int(seg_start[r, s])
+                    n = min(int(seg_len[s + 1]), out_len)
+                    out[d, :n] = reps[r, start:start + n]
+                    ids_out.append(sid)
+                    d += 1
+            reps_out.append(out)
+        return np.concatenate(reps_out, axis=0), ids_out
+
+    def _run_batches(self, batches: Iterable[dict], planes_of: Callable):
+        """``(values, indices or None, ids)`` of all batches, where
+        ``planes_of(batch)`` queues a batch's planes and returns ``(planes,
+        rows kept or None for all, ids)``.  Each batch's planes start
+        copying back before the next batch is queued and are read after
+        it, so the device does not wait on the host."""
         values_out, indices_out, ids_out = [], [], []
         pending = None
 
         def drain(pending):
-            done, vals, idxs = pending
+            keep, (done, (vals, idxs)) = pending
             if done is not None:
                 done.synchronize()
-            values_out.append(vals.numpy())
+            keep = slice(None) if keep is None else keep
+            values_out.append(vals.numpy()[keep])
             if idxs is not None:
-                indices_out.append(idxs.numpy())
+                indices_out.append(idxs.numpy()[keep])
 
         for batch in batches:
-            vals, idxs = self.encode_batch(batch["input_ids"],
-                                           batch["attention_mask"], role)
-            vals = vals.to("cpu", non_blocking=True)
-            idxs = None if idxs is None else idxs.to("cpu", non_blocking=True)
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
+            planes, keep, ids = planes_of(batch)
+            planes = self._copy_back(planes)
             if pending is not None:
                 drain(pending)
-            pending = (done, vals, idxs)
-            ids_out.extend(batch["ids"])
+            pending = (keep, planes)
+            ids_out.extend(ids)
         if pending is not None:
             drain(pending)
         values = np.concatenate(values_out, axis=0)
         indices = np.concatenate(indices_out, axis=0) if indices_out else None
         return values, indices, ids_out
 
-    def encode_corpus(self, batches: Iterable[dict]) -> PackedIndex:
-        """Encode ``{ids, input_ids, attention_mask}`` batches of passages."""
-        if self.cfg.model_type == "colbert":
-            raise ValueError(
-                "colbert emits (N, L, D) token reps, not packed planes; use "
-                "encode_tokens()")
-        values, indices, ids = self._run_batches("passage", batches)
+    def _plain(self, role: str) -> Callable:
+        """``planes_of`` of ``{ids, input_ids, attention_mask}`` batches."""
+        return lambda batch: (self.encode_batch(
+            batch["input_ids"], batch["attention_mask"], role), None,
+            batch["ids"])
+
+    def _index(self, values, indices, ids) -> PackedIndex:
         lex = self.lex_dim if self.lex_dim > 0 else values.shape[1]
         return PackedIndex(
             values=values,
@@ -152,6 +242,15 @@ class Encoder:
             lex_dim=lex,
         )
 
+    def encode_corpus(self, batches: Iterable[dict]) -> PackedIndex:
+        """Encode ``{ids, input_ids, attention_mask}`` batches of passages."""
+        if self.cfg.model_type == "colbert":
+            raise ValueError(
+                "colbert emits (N, L, D) token reps, not packed planes; use "
+                "encode_tokens()")
+        return self._index(*self._run_batches(batches,
+                                              self._plain("passage")))
+
     def encode_queries(self, batches: Iterable[dict]):
         """``(values, indices or None, qids)`` (the reference's query
         pickle)."""
@@ -159,12 +258,12 @@ class Encoder:
             raise ValueError(
                 "colbert emits (N, L, D) token reps, not packed planes; use "
                 "encode_tokens()")
-        return self._run_batches("query", batches)
+        return self._run_batches(batches, self._plain("query"))
 
     def encode_tokens(self, batches: Iterable[dict], role: str):
         """ColBERT token reps: ``(reps (N, L, D) f16, ids)``, padded to the
         batches' length with masked rows zeroed."""
-        reps, _, ids = self._run_batches(role, batches)
+        reps, _, ids = self._run_batches(batches, self._plain(role))
         return reps, ids
 
 
@@ -237,6 +336,99 @@ def bucketed_encode_batches(
                 [wrap_specials(toks[i], blen, cls_id, sep_id) for i in sel],
                 blen,
             )
+
+    return gen(), order
+
+
+def plan_packing(lengths, row_len: int, max_segments: int):
+    """First-fit-decreasing token packing over a length histogram.
+
+    Groups documents into rows of ``row_len`` tokens with at most
+    ``max_segments`` documents a row: open a row, repeatedly add the longest
+    remaining document that still fits.  Returns rows, each a list of
+    ORIGINAL item indices in slot order; every item appears once.  Lengths
+    are planned within [1, row_len]: an empty item still takes one token
+    (``wrap_specials`` emits ``[0]``), a longer one gets a row of its own
+    and is truncated at collation, like the plain path's cut.
+    """
+    import bisect
+
+    lengths = np.clip(np.asarray(lengths, np.int64), 1, row_len)
+    by_len: dict[int, list[int]] = {}
+    for i, n in enumerate(lengths.tolist()):
+        by_len.setdefault(n, []).append(i)
+    heads = {n: 0 for n in by_len}  # FIFO per length: input order kept
+    avail = sorted(by_len)  # distinct lengths with items left, ascending
+    rows = []
+    while avail:
+        cap = row_len
+        row = []
+        while len(row) < max_segments:
+            j = bisect.bisect_right(avail, cap) - 1
+            if j < 0:
+                break
+            n = avail[j]
+            q = by_len[n]
+            row.append(q[heads[n]])
+            heads[n] += 1
+            if heads[n] == len(q):
+                avail.pop(j)
+            cap -= n
+        rows.append(row)
+    return rows
+
+
+def collate_packed(rows, ids, toks, batch_rows: int, row_len: int,
+                   max_segments: int, cls_id: int | None,
+                   sep_id: int | None) -> dict:
+    """One packed batch from planner rows, fixed ``(batch_rows, row_len)``
+    and ``(batch_rows, max_segments)`` shapes: ``input_ids``,
+    ``segment_ids`` (1..S, 0 = pad), ``position_ids`` (restarting at 0 per
+    segment), ``seg_start`` (each slot's first position) and ``slot_ids``
+    (the document ids in each row's slots).  Rows past ``len(rows)`` stay
+    padded."""
+    from dhr_tpu_torch.data.collate import wrap_specials
+
+    input_ids = np.zeros((batch_rows, row_len), np.int32)
+    segment_ids = np.zeros((batch_rows, row_len), np.int32)
+    position_ids = np.zeros((batch_rows, row_len), np.int32)
+    seg_start = np.zeros((batch_rows, max_segments), np.int32)
+    slot_ids = []
+    for r, row in enumerate(rows):
+        off = 0
+        sids = []
+        for s, item in enumerate(row):
+            t = wrap_specials(toks[item], row_len - off, cls_id, sep_id)
+            n = len(t)
+            input_ids[r, off:off + n] = t
+            segment_ids[r, off:off + n] = s + 1
+            position_ids[r, off:off + n] = np.arange(n)
+            seg_start[r, s] = off
+            sids.append(ids[item])
+            off += n
+        slot_ids.append(sids)
+    while len(slot_ids) < batch_rows:
+        slot_ids.append([])
+    return {"input_ids": input_ids, "segment_ids": segment_ids,
+            "position_ids": position_ids, "seg_start": seg_start,
+            "slot_ids": slot_ids}
+
+
+def packed_encode_batches(ids, toks, batch_rows: int, row_len: int,
+                          max_segments: int, cls_id: int | None,
+                          sep_id: int | None):
+    """Token-packed encode batches over pre-tokenized texts (no specials;
+    each item planned at ``len(t) + 2``).  Returns ``(batches, order)``
+    like :func:`bucketed_encode_batches`: a generator of
+    :func:`collate_packed` batches and the document order they emit."""
+    rows = plan_packing([len(t) + 2 for t in toks], row_len, max_segments)
+    order = np.asarray([i for row in rows for i in row])
+
+    def gen():
+        for start in range(0, len(rows), batch_rows):
+            yield collate_packed(rows[start:start + batch_rows], ids, toks,
+                                 batch_rows, row_len, max_segments, cls_id,
+                                 sep_id)
 
     return gen(), order
 

@@ -1,9 +1,10 @@
 """The transformer encoder of every retriever family, in PyTorch.
 
-Port of ``dhr_tpu/models/transformer.py`` for plain rows (one document per
-row; the packed-row branch with block-diagonal attention is not ported
-yet).  A post-LN BERT / DistilBERT encoder with an optional MLM head whose
-vocabulary projection is tied to the word-embedding table.  Module and
+Port of ``dhr_tpu/models/transformer.py``.  A post-LN BERT / DistilBERT
+encoder with an optional MLM head whose vocabulary projection is tied to
+the word-embedding table.  Rows hold one document each, or, given
+``segment_ids`` / ``position_ids``, several (packed rows: block-diagonal
+attention, positions restarting per segment).  Module and
 parameter names mirror the reference's Flax tree, so
 ``dhr_tpu_torch.models.flax_params`` maps one onto the other by name.
 
@@ -18,9 +19,17 @@ Numerics follow the reference:
   sqrt(head_dim) taken in that dtype, biased by an additive key mask (-1e9
   cast to the dtype; pad query rows still get hidden states), softmaxed in
   f32 and cast back before ``P·V``;
-- GELU is exact (erf); the MLM bias is added in the compute dtype.
+- GELU is exact (erf); the MLM bias is added in the compute dtype;
+- dropout sits at the reference's four sites (embeddings, attention
+  probabilities, attention output, FFN output) and is active only in
+  training mode (the modules start in eval mode, as the reference's
+  ``deterministic=True`` default).  ``F.dropout`` takes no generator, so
+  :func:`dropout` draws its masks from the ``torch.Generator`` the caller
+  passes (``gen``): a train step seeds one per step, and the same seed
+  gives the same masks.
 
-The port runs inference only, so dropout is never applied.
+Training keeps the f32 parameters and computes through the per-call casts;
+:func:`compute_copy` is for inference only (a copy passes no gradient back).
 """
 
 from __future__ import annotations
@@ -71,6 +80,36 @@ class EncoderConfig:
         )
 
 
+def dropout(x: torch.Tensor, p: float, training: bool,
+            gen: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability ``1 - p``
+    and scale it by ``1 / (1 - p)`` in ``x``'s dtype; the identity outside
+    training or at ``p == 0``.  The mask comes from ``gen`` (the default
+    generator when None)."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def attention_bias(attention_mask: torch.Tensor | None,
+                   segment_ids: torch.Tensor | None,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The additive attention bias, -1e9 cast to ``dtype`` where masked.
+
+    Plain rows: ``(B, 1, 1, L)``, a key mask.  Packed rows: ``(B, 1, L, L)``,
+    block-diagonal: token q attends to k iff both lie in the same nonzero
+    segment.  Pad rows (segment 0) see only -1e9, which the max-subtracted
+    softmax turns into uniform junk that downstream masks drop.
+    """
+    if segment_ids is not None:
+        allowed = ((segment_ids[:, :, None] == segment_ids[:, None, :])
+                   & (segment_ids[:, None, :] > 0))[:, None]
+    else:
+        allowed = attention_mask[:, None, None, :] > 0
+    return torch.where(allowed, 0.0, -1e9).to(dtype)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in its input's dtype."""
 
@@ -105,18 +144,22 @@ class Embeddings(nn.Module):
                                            cfg.hidden_size)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: torch.Tensor | None = None,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         dt = self.cfg.dtype
         L = input_ids.shape[-1]
         if L > self.cfg.max_position_embeddings:
             raise ValueError(f"rows of {L} tokens exceed the model's "
                              f"{self.cfg.max_position_embeddings} positions")
-        pos = torch.arange(L, device=input_ids.device)
+        if position_ids is None:
+            position_ids = torch.arange(L, device=input_ids.device)[None]
         x = (F.embedding(input_ids, self.word.weight.to(dt))
-             + F.embedding(pos, self.position.weight.to(dt))[None])
+             + F.embedding(position_ids, self.position.weight.to(dt)))
         if self.cfg.type_vocab_size > 0:  # token type 0 everywhere
             x = x + self.token_type.weight[0].to(dt)
-        return self.layer_norm(x)
+        return dropout(self.layer_norm(x), self.cfg.hidden_dropout,
+                       self.training, gen)
 
 
 class SelfAttention(nn.Module):
@@ -125,10 +168,12 @@ class SelfAttention(nn.Module):
         H = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.head_dim = H // cfg.num_heads
+        self.attention_dropout = cfg.attention_dropout
         self.query, self.key, self.value, self.out = (
             Dense(H, H) for _ in range(4))
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                gen: torch.Generator | None = None):
         B, L, H = x.shape
 
         def heads(t):  # (B, L, H) -> (B, heads, L, head_dim)
@@ -138,6 +183,7 @@ class SelfAttention(nn.Module):
         scale = float(torch.tensor(float(self.head_dim), dtype=x.dtype).sqrt())
         scores = torch.matmul(q, k.transpose(-1, -2)) / scale + mask_bias
         probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(x.dtype)
+        probs = dropout(probs, self.attention_dropout, self.training, gen)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, H)
         return self.out(ctx)
 
@@ -151,10 +197,14 @@ class EncoderLayer(nn.Module):
         self.ffn_in = Dense(H, cfg.intermediate_size)
         self.ffn_out = Dense(cfg.intermediate_size, H)
         self.ffn_layer_norm = LayerNorm(H, eps)
+        self.hidden_dropout = cfg.hidden_dropout
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor):
-        x = self.attn_layer_norm(x + self.attention(x, mask_bias))
-        h = self.ffn_out(F.gelu(self.ffn_in(x)))
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                gen: torch.Generator | None = None):
+        p, on = self.hidden_dropout, self.training
+        attn = dropout(self.attention(x, mask_bias, gen), p, on, gen)
+        x = self.attn_layer_norm(x + attn)
+        h = dropout(self.ffn_out(F.gelu(self.ffn_in(x))), p, on, gen)
         return self.ffn_layer_norm(x + h)
 
 
@@ -167,15 +217,19 @@ class TransformerEncoder(nn.Module):
         self.embeddings = Embeddings(cfg)
         self.layers = nn.ModuleList(EncoderLayer(cfg)
                                     for _ in range(cfg.num_layers))
+        self.eval()  # deterministic until a train step asks for training
 
     def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
-        x = self.embeddings(input_ids)
-        # additive key bias: 0 where attended, -1e9 where masked
-        bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
-                           -1e9).to(self.cfg.dtype)
+                attention_mask: torch.Tensor | None,
+                position_ids: torch.Tensor | None = None,
+                segment_ids: torch.Tensor | None = None,
+                gen: torch.Generator | None = None) -> torch.Tensor:
+        """``segment_ids`` (1..S, 0 = pad) with ``position_ids`` restarting
+        per segment encode packed rows; ``attention_mask`` is then unused."""
+        x = self.embeddings(input_ids, position_ids, gen)
+        bias = attention_bias(attention_mask, segment_ids, self.cfg.dtype)
         for layer in self.layers:
-            x = layer(x, bias)
+            x = layer(x, bias, gen)
         return x
 
     @property
@@ -215,14 +269,17 @@ class EncoderWithMLM(nn.Module):
         self.tie_word_embeddings = tie_word_embeddings
         self.encoder = TransformerEncoder(cfg)
         self.mlm = MLMHead(cfg, tied=tie_word_embeddings)
+        self.eval()
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         shared = (self.encoder.word_embedding_table
                   if self.tie_word_embeddings else None)
         return self.mlm(hidden, shared)
 
-    def forward(self, input_ids, attention_mask):
-        hidden = self.encoder(input_ids, attention_mask)
+    def forward(self, input_ids, attention_mask, position_ids=None,
+                segment_ids=None, gen=None):
+        hidden = self.encoder(input_ids, attention_mask, position_ids,
+                              segment_ids, gen)
         return hidden, self.logits(hidden)
 
 
@@ -232,7 +289,8 @@ def compute_copy(module: nn.Module, dtype: torch.dtype,
     bias parameters are stored in ``dtype``, so the per-call casts of the
     forward pass become no-ops.  The results are the same: the reference
     casts these parameters to the compute dtype before use; LayerNorm keeps
-    its f32 parameters."""
+    its f32 parameters.  For inference: training goes through the f32
+    parameters themselves, which a copy would not update."""
     out = copy.deepcopy(module).to(device)
     if dtype == torch.float32:
         return out

@@ -402,12 +402,14 @@ def test_encode_verb_rejects_what_is_not_ported(verb_world, tmp_path):
     *_, corpus, _, common, _ = verb_world
     base = ["encode", *common, "--input", corpus, "--device", "cpu",
             "--output", str(tmp_path / "x.npz")]
-    for flag in (["--pack"], ["--pack-segments", "4"]):
-        with pytest.raises(SystemExit):
+    # token packing is ported; what it does not combine with fails by name
+    for flag in (["--pack", "--encode-is-qry"],
+                 ["--pack", "--pack-segments", "4", "--length-bucketing"]):
+        with pytest.raises(SystemExit, match="--pack"):
             main(base + flag)
     cfg = tmp_path / "pack.json"
-    cfg.write_text(json.dumps({"pack": True}))
-    with pytest.raises(SystemExit):
+    cfg.write_text(json.dumps({"pack": True, "length_bucketing": True}))
+    with pytest.raises(SystemExit, match="exclusive"):
         main(base + ["--config", str(cfg)])
     with pytest.raises(SystemExit, match="out of range"):
         main(base + ["--cls-token-id", str(V)])

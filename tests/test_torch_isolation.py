@@ -31,6 +31,10 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert "dhr_tpu_torch.cli.main" in names and "dhr_tpu_torch.ops._build" in names
 assert "dhr_tpu_torch.models.hf_io" in names and "dhr_tpu_torch.encode" in names
+new = {"dhr_tpu_torch.train." + m for m in (
+    "loss", "optimizer", "state", "step", "checkpoint", "driver")}
+new |= {"dhr_tpu_torch.data." + m for m in ("sampling", "loader", "tokenize")}
+assert new <= set(names), new - set(names)
 assert not bad, bad
 """
 
