@@ -32,6 +32,20 @@ and the loss must fall), the trained export through ``encode`` -> ``index
 plain, and the steps' speed (steps/s, passages/s, tokens/s, TFLOP/s, the
 split of a step, peak memory).
 
+``densify_path`` comes next: the DLR paper's BM25 -> DLR front end on the
+port's C++ host runtime (262,144 synthetic whole-word passages of MS MARCO
+length, Zipf words over 2^18 terms, so the fold planes are int16):
+``simple_analyzer``, ``TermDictionary``, ``native.bm25_csr``, the vectors as
+JSONL, then ``densify`` -> ``index --quantize`` -> ``search`` with 1,024
+BM25 queries on K1 and K2, against the brute force on the same planes and
+the CPU's plain path.  After the main and fused paths, ``serve_path`` runs
+the resident service: the ``serve`` verb as a process on the densified
+index (serve_client, reloads, 503 shedding, token refusal, SIGINT), a
+free-first reload's device memory, the service at 8,841,823 rows with
+closed-loop client processes at concurrency 1 / 8 / 64 / 256 (and once
+over the fused searcher), and ``/search_text`` through the DistilBERT-base
+query encoder; served results must equal ``search_run``.
+
 It checks each path's kernel launch counts and its staged-vs-exact ranking
 agreement.  On a 204,803-row slice it also holds the other search modes
 (row-chunked ip, pq, two-tier escalation) on the card against the same
@@ -40,8 +54,9 @@ row-major) and pq (m=64) with rerank.
 
 Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line come before the
-last line, ``{"ok": true, "device": {...}}``.  Any failure raises and exits
-non-zero before the last line.  Without CUDA, or outside a checkout, it
+last line, ``{"ok": true, "device": {...}}``; the kernels line counts the
+launches of the main, fused, densify and serve paths.  Any failure raises
+and exits non-zero before the last line.  Without CUDA, or outside a checkout, it
 exits non-zero at once.
 """
 
@@ -55,6 +70,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 MSMARCO_PASSAGES = 8_841_823
@@ -77,6 +93,21 @@ TRAIN_STEPS = 40
 TRAIN_FLAGS = ["--train-n-passages", "8", "--batch-size", "24",
                "--learning-rate", "7e-6", "--p-max-len", "128",
                "--q-max-len", "32", "--bf16"]
+# densify_path: synthetic whole-word passages of MS MARCO length over a
+# vocabulary of 2^18 terms (folds well past 127: int16 planes)
+DENSIFY_PASSAGES = 262_144
+DENSIFY_VOCAB = 1 << 18
+DENSIFY_QUERIES = 1_024
+DENSIFY_SEARCH = ["--theta", "0.1", "--rerank", "--agip-topk", "10000"]
+# serve_path: single-query requests per concurrency level, the levels whose
+# responses are held against search_run, client processes at most (threads
+# share a process past that), the 503 flood and the /search_text queries
+SERVE_LEVELS = {1: 128, 8: 512, 64: 1_024, 256: 2_048}
+SERVE_CHECKED_LEVELS = (1, 64)
+SERVE_CLIENT_PROCS = 16
+SERVE_FLOOD = 256
+SERVE_FLOOD_QUERIES = 32
+SERVE_TEXT_QUERIES = 256
 
 
 def emit(obj) -> None:
@@ -132,7 +163,7 @@ def phase_build():
     from dhr_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    reports = _build.build(["partial_gip", "rerank_gip", "gip_candidates"])
+    reports = _build.build(list(_build.KERNELS))
     ptxas = {}
     for n, r in reports.items():
         regs = [int(w) for ln in r.splitlines() if "registers" in ln
@@ -1787,6 +1818,829 @@ def phase_timing(searcher, batch, launches, errs, torch):
     ]
 
 
+# --------------------------------------------------------------------------
+# densify_path: an existing sparse model's vectors (BM25) -> DLR planes
+# --------------------------------------------------------------------------
+
+
+def _zipf_ranks(rng, n, vocab, np):
+    """``n`` word ranks in [0, vocab), P(r) proportional to 1 / (r + 1)."""
+    cdf = np.cumsum(1.0 / np.arange(1, vocab + 1))
+    return np.minimum(np.searchsorted(cdf, rng.random(n) * cdf[-1]),
+                      vocab - 1)
+
+
+def _ranking_check(got_ids, got_s, want_ids, want_s, rel):
+    """``(scores equal rank by rank within rel, ids exact, ids equal apart
+    from order inside runs of scores within rel of each other)``; the run
+    that reaches the cut is compared by its count only (which of its rows
+    a top-k keeps is the ordering's choice)."""
+    import numpy as np
+
+    got_s, want_s = np.asarray(got_s), np.asarray(want_s)
+    if got_s.shape != want_s.shape or not np.allclose(got_s, want_s,
+                                                      rtol=rel, atol=0):
+        return False, False, False
+    exact = list(got_ids) == list(want_ids)
+    n, start, ties = len(want_s), 0, True
+    for i in range(1, n + 1):
+        if i == n or abs(want_s[i] - want_s[start]) > rel * abs(
+                want_s[start]):
+            if i < n and set(got_ids[start:i]) != set(want_ids[start:i]):
+                ties = False
+            start = i
+    return True, exact, ties
+
+
+def _compare_runs(got, want, qids, rel):
+    """``_ranking_check`` counted over ``qids`` of two runs ``{qid:
+    [(docid, score), ...]}``."""
+    checks = [_ranking_check([d for d, _ in got[q]], [s for _, s in got[q]],
+                             [d for d, _ in want[q]], [s for _, s in want[q]],
+                             rel) for q in qids]
+    return {"queries": len(qids), "rel_tol": rel,
+            "scores_equal": sum(c[0] for c in checks),
+            "ids_exact": sum(c[1] for c in checks),
+            "ids_equal_up_to_ties": sum(c[2] for c in checks)}
+
+
+def phase_densify_path(args, root, torch):
+    """The DLR paper's BM25 -> DLR path on the port's C++ host runtime:
+    synthetic whole-word passages (Zipf words over 2^18 terms, MS MARCO
+    lengths) analyzed by ``simple_analyzer``, a ``TermDictionary``, BM25 by
+    ``native.bm25_csr``, the vectors as JSONL, then the CLI: ``densify
+    --weight-model bm25`` (int16 folds) -> ``index --quantize`` ->
+    ``search`` with 1,024 BM25 queries (``densify_query_rows``) on K1 and
+    K2, against the brute force on the same planes and against the CPU's
+    plain path on 8 queries.  Returns the files ``serve_path`` serves and
+    the launches of the search."""
+    import numpy as np
+
+    from dhr_tpu_torch import native
+    from dhr_tpu_torch.densify_offline import (
+        BM25Vectorizer, DensifyConfig, TermDictionary, bm25_query_vectors,
+        densify_query_rows, simple_analyzer)
+    from dhr_tpu_torch.retrieval import (
+        DeviceIndex, PackedIndex, SearchConfig, Searcher)
+
+    if not native.available():
+        raise AssertionError("the C++ host runtime did not build (g++ of "
+                             "dhr_tpu_torch/native_src/dhr_native.cpp)")
+    so = native.so_path()
+    checkout = os.path.dirname(os.path.abspath(__file__))
+    if not so.startswith(checkout):
+        raise AssertionError(f"native runtime loaded from {so}")
+    rng = np.random.default_rng(args.seed + 7)
+    n, secs, rates = DENSIFY_PASSAGES, {}, {}
+    t = time.perf_counter()
+    words = np.asarray([f"w{r:x}" for r in range(DENSIFY_VOCAB)])
+    lens = np.clip(rng.lognormal(np.log(50.0), 0.45, n), 8, 200).astype(int)
+    flat = words[_zipf_ranks(rng, int(lens.sum()), DENSIFY_VOCAB, np)]
+    texts = [" ".join(w).capitalize() + "."
+             for w in np.split(flat, np.cumsum(lens)[:-1])]
+    del flat
+    secs["corpus"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    terms = [simple_analyzer(x) for x in texts]
+    secs["analyze"] = time.perf_counter() - t
+    rates["analyze_docs_per_s"] = n / secs["analyze"]
+    t = time.perf_counter()
+    dic = TermDictionary()
+    for ts in terms:
+        dic.add_document(ts)
+    dic.build(reserve=DensifyConfig(model="bm25").omission)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum([len(ts) for ts in terms], out=offsets[1:])
+    tokens = np.fromiter((dic.term_id(w) for ts in terms for w in ts),
+                         np.int32, int(offsets[-1]))
+    secs["dictionary"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tids, ws, off, _ = native.bm25_csr(tokens, offsets, dic.vocab_size)
+    secs["bm25_cpp"] = time.perf_counter() - t
+    rates["bm25_cpp_docs_per_s"] = n / secs["bm25_cpp"]
+    vec = BM25Vectorizer(dic)
+    for d in range(4):  # the C++ weights are the Python vectorizer's
+        want = vec.doc_vector(terms[d])
+        got = dict(zip(tids[off[d]:off[d + 1]].tolist(),
+                       ws[off[d]:off[d + 1]].tolist()))
+        if sorted(got) != sorted(want) or not np.allclose(
+                [got[k] for k in want], list(want.values()), rtol=1e-6):
+            raise AssertionError(f"bm25_csr differs from BM25Vectorizer "
+                                 f"on passage {d}")
+    del terms
+    cfg = DensifyConfig(model="bm25")
+    vocab = cfg.padded_vocab(dic.vocab_size)
+    t = time.perf_counter()
+    _, folds, collisions = native.densify_csr(tids, ws, off, cfg.omission,
+                                              cfg.out_dim, vocab)
+    secs["densify_cpp"] = time.perf_counter() - t
+    rates["densify_cpp_docs_per_s"] = n / secs["densify_cpp"]
+
+    t = time.perf_counter()
+    vec_path = f"{root}/bm25_vectors.jsonl"
+    with open(vec_path, "w") as f:
+        for d in range(n):
+            a, b = off[d], off[d + 1]
+            f.write('{"id": "p%d", "vector": {%s}}\n' % (d, ", ".join(
+                '"%d": %.6g' % tw for tw in zip(tids[a:b].tolist(),
+                                                ws[a:b].tolist()))))
+    secs["write_jsonl"] = time.perf_counter() - t
+    del tokens, tids, ws, off
+
+    dens, idx = f"{root}/densified.npz", f"{root}/densified_int8.npz"
+    t = time.perf_counter()
+    t_dens = _run_cli(["densify", "--input", vec_path, "--output", dens,
+                       "--weight-model", "bm25", "--vocab-size",
+                       str(dic.vocab_size)], "densify")
+    secs["cli_densify"] = time.perf_counter() - t
+    rates["cli_densify_docs_per_s"] = t_dens["docs_per_s"]
+    t = time.perf_counter()
+    _run_cli(["index", "--inputs", dens, "--output", idx, "--quantize"])
+    secs["cli_index"] = time.perf_counter() - t
+    packed = PackedIndex.load(idx)
+    if (packed.indices.dtype != np.int16 or packed.values.dtype != np.int8
+            or packed.values.shape != (n, LEX_DIM)
+            or packed.lex_dim != LEX_DIM):
+        raise AssertionError(f"densified index planes {packed.values.dtype}"
+                             f" {packed.values.shape} / "
+                             f"{packed.indices.dtype}")
+    max_fold = int(packed.indices.max())
+    if not 127 < max_fold < (vocab - cfg.omission) // LEX_DIM:
+        raise AssertionError(f"max fold {max_fold}: expected int16 folds")
+    if t_dens["collisions"] != collisions or not np.array_equal(
+            packed.indices, folds):
+        raise AssertionError("the densify verb's folds or collisions differ "
+                             "from native.densify_csr's")
+    del folds
+    half = f"{root}/densified_half.npz"
+    packed.slice_rows(0, n // 2).save(half)
+
+    qrng = np.random.default_rng(args.seed + 8)
+    q_lens = qrng.integers(2, 9, DENSIFY_QUERIES)
+    q_words = words[(_zipf_ranks(qrng, int(q_lens.sum()), DENSIFY_VOCAB, np)
+                     + 50) % DENSIFY_VOCAB]
+    q_texts = [" ".join(w) for w in np.split(q_words,
+                                             np.cumsum(q_lens)[:-1])]
+    qv, qi, qids = densify_query_rows(bm25_query_vectors(
+        [(f"q{i}", x) for i, x in enumerate(q_texts)], vec), cfg,
+        dic.vocab_size)
+    q_path = f"{root}/bm25_queries.npz"
+    np.savez(q_path, values=qv, indices=qi)
+    with open(q_path + ".qids.json", "w") as f:
+        json.dump(qids, f)
+    np.savez(f"{root}/q8.npz", values=qv[:8].astype(np.float32),
+             indices=qi[:8].astype(np.int32))
+    with open(f"{root}/q8.qids.json", "w") as f:
+        json.dump(qids[:8], f)
+
+    search = ["search", "--index-path", idx, "--query-path", q_path,
+              "--topk", "1000", "--query-batch", "128"]
+    reset_launches()
+    t = time.perf_counter()
+    t_s = _run_cli([*search, *DENSIFY_SEARCH, "--output",
+                    f"{root}/bm25.trec"], "search")
+    secs["cli_search"] = time.perf_counter() - t
+    launches = read_launches()
+    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
+        raise AssertionError(f"densify path launches {launches}: K1 and K2 "
+                             "must launch on the int16 planes")
+    _run_cli([*search, "--brute-force", "--exact-candidates",
+              "--no-candidate-bf16", "--output", f"{root}/bm25_exact.trec"],
+             "search")
+    run = _read_run(f"{root}/bm25.trec")
+    exact = _read_run(f"{root}/bm25_exact.trec")
+    if len(run) != DENSIFY_QUERIES or any(
+            len(r) != 1000 or not np.isfinite([s for _, s in r]).all()
+            for r in run.values()):
+        raise AssertionError("the BM25 run lacks queries, rows or finite "
+                             "scores")
+    vs_exact = _compare_runs(run, exact, qids, 1e-5)
+    vs_exact["agreement_informative_only"] = agreement(
+        [np.array([d for d, _ in run[q]]) for q in qids],
+        [np.array([d for d, _ in exact[q]]) for q in qids])
+
+    cpu = Searcher(DeviceIndex.from_packed(packed, device="cpu"),
+                   SearchConfig(topk=1000, theta=0.1, rerank=True,
+                                agip_topk=10000, query_batch=128),
+                   device="cpu")
+    r8, s8 = cpu.search_run(qids[:8], qv[:8], qi[:8])
+    vs_cpu = _compare_runs(run, {q: list(zip(r8[q], s8[q])) for q in r8},
+                           qids[:8], 1e-5)
+    del cpu
+    emit({"phase": "densify_path", "passages": n,
+          "words": int(lens.sum()), "passage_words_mean": float(lens.mean()),
+          "vocab_terms": dic.vocab_size - cfg.omission,
+          "padded_vocab": vocab, "max_fold": max_fold,
+          "fold_dtype": str(packed.indices.dtype),
+          "slice_collisions": collisions,
+          "native_so": so, "rates": rates,
+          "index_file_bytes": os.path.getsize(idx),
+          "index_plane_bytes": packed.values.nbytes + packed.indices.nbytes,
+          "queries": DENSIFY_QUERIES,
+          "query_terms_mean": float((qv != 0).sum(axis=1).mean()),
+          "search_flags": DENSIFY_SEARCH, "search_qps": t_s["qps"],
+          "launches": launches, "vs_brute_force": vs_exact,
+          "vs_cpu_plain_8_queries": vs_cpu, "seconds": secs})
+    if vs_exact["scores_equal"] != DENSIFY_QUERIES:
+        raise AssertionError(f"staged vs brute force scores: {vs_exact}")
+    if vs_cpu["scores_equal"] != 8 or vs_cpu["ids_equal_up_to_ties"] != 8:
+        raise AssertionError(f"card vs CPU plain: {vs_cpu}")
+    return {"index": idx, "half": half, "rows": n, "q8": f"{root}/q8.npz",
+            "queries": (qv, qi, qids)}, launches
+
+
+# --------------------------------------------------------------------------
+# serve_path: the resident service, as the verb and in-process at full size
+# --------------------------------------------------------------------------
+
+
+def _http(port, path, payload=None, headers=None, timeout=300):
+    """``(status, body dict, Retry-After)`` of a GET (no payload) or of a
+    POST of a dict or of JSON bytes."""
+    import urllib.error
+    import urllib.request
+
+    data = None
+    if payload is not None:
+        data = payload if isinstance(payload, bytes) else json.dumps(
+            payload).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), None
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get("Retry-After")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _client_proc(port, path, bodies, n_threads, keep, barrier, out):
+    """One load-generating process: ``n_threads`` closed-loop threads send
+    ``bodies`` (``(qid, JSON bytes)``) in turn; puts ``[(qid, seconds,
+    status, response or None)]`` on ``out``."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    lock, nxt, done = threading.Lock(), [0], []
+
+    def worker():
+        while True:
+            with lock:
+                k = nxt[0]
+                nxt[0] += 1
+            if k >= len(bodies):
+                return
+            qid, body = bodies[k]
+            req = urllib.request.Request(
+                url, data=body, headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    code, data = r.status, r.read()
+            except urllib.error.HTTPError as e:
+                code, data = e.code, e.read()
+            dt = time.perf_counter() - t0
+            resp = json.loads(data)
+            done.append((qid, dt, code, resp if keep else None))
+
+    threads = [threading.Thread(target=worker) for _ in range(n_threads)]
+    barrier.wait()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    out.put(done)
+
+
+def _closed_loop(port, path, bodies, concurrency, n_requests, keep=False):
+    """``n_requests`` requests cycling over ``bodies``, ``concurrency`` in
+    flight, from ``min(concurrency, SERVE_CLIENT_PROCS)`` spawned client
+    processes (threads share a process only past that count).  Returns
+    ``(wall seconds, [(qid, seconds, status, response)])``; the clock
+    starts when every client is ready."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    n_procs = min(concurrency, SERVE_CLIENT_PROCS)
+    reqs = [bodies[k % len(bodies)] for k in range(n_requests)]
+    barrier = ctx.Barrier(n_procs + 1)
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_client_proc, daemon=True, args=(
+        port, path, reqs[p::n_procs], concurrency // n_procs, keep, barrier,
+        out)) for p in range(n_procs)]
+    for p in procs:
+        p.start()
+    try:
+        barrier.wait(timeout=300)
+        t0 = time.perf_counter()
+        done = [r for _ in procs for r in out.get(timeout=900)]
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return wall, done
+
+
+class _Server:
+    """A threaded HTTP server over a ``SearchService`` in this process."""
+
+    def __init__(self, service):
+        import threading
+
+        from dhr_tpu_torch.serve import _ThreadingServer, make_handler
+
+        self.service = service
+        self.httpd = _ThreadingServer(("127.0.0.1", 0),
+                                      make_handler(service))
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+        if self.service.batcher is not None:
+            self.service.batcher.pause()  # parks the worker, drops searchers
+
+
+def _batcher_counts(batcher):
+    return (batcher.batches_run, batcher.queries_run,
+            batcher.small_batches_run)
+
+
+def _level_report(wall, done, counts_before, batcher):
+    import numpy as np
+
+    lat = np.asarray([d[1] for d in done]) * 1e3
+    b0, q0, s0 = counts_before
+    batches = batcher.batches_run - b0
+    return {"requests": len(done), "qps": len(done) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "max_ms": float(lat.max()), "wall_s": wall,
+            "errors": sum(d[2] != 200 for d in done),
+            "micro_batches": batches,
+            "mean_pool": (batcher.queries_run - q0) / max(batches, 1),
+            "low_latency_share": (batcher.small_batches_run - s0)
+            / max(batches, 1)}
+
+
+def _served_equal(done, want_r, want_s):
+    """Served responses against direct ``search_run`` results: ids exact,
+    scores within 1e-6 relative; returns the count checked."""
+    import numpy as np
+
+    for qid, _, code, resp in done:
+        if code != 200:
+            raise AssertionError(f"{qid}: HTTP {code} {resp}")
+        if resp["results"][qid] != want_r[qid] or not np.allclose(
+                resp["scores"][qid], want_s[qid], rtol=1e-6, atol=0):
+            raise AssertionError(f"served {qid} differs from search_run")
+    return len(done)
+
+
+def _serve_verb(root, checkout, paths, want8):
+    """``python -m dhr_tpu_torch serve`` on the densified index as a
+    process: serve_client stats / search, reloads (to the first half, then
+    free_first back), 503 shedding past --max-pending, token refusal and a
+    clean stop on SIGINT."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    port, token = _free_port(), "chip-smoke-token"
+    log_path = f"{root}/serve_verb.log"
+    cmd = [sys.executable, "-m", "dhr_tpu_torch", "serve", "--index-path",
+           paths["index"], "--host", "127.0.0.1", "--port", str(port),
+           *DENSIFY_SEARCH, "--topk", "1000", "--query-batch", "128",
+           "--micro-batch-ms", "2", "--low-latency-batch", "8",
+           "--max-pending", "64", "--allow-reload", "--reload-token", token]
+    client = [sys.executable, os.path.join(checkout, "tools",
+                                           "serve_client.py")]
+    out, t0 = {"flags": cmd[6:]}, time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=checkout, stdout=log,
+                                stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError("serve exited during start-up")
+            try:
+                if _http(port, "/healthz", timeout=5)[1]["status"] == "ok":
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("serve did not come up in 300 s")
+            time.sleep(0.2)
+        out["start_s"] = time.perf_counter() - t0
+
+        def tool(*argv):
+            res = subprocess.run(client + [*argv, "--port", str(port)],
+                                 capture_output=True, text=True, timeout=300,
+                                 check=True)
+            return json.loads(res.stdout)
+
+        search8 = ("search", "--values-npz", paths["q8"], "--qids-json",
+                   paths["q8"][:-len(".npz")] + ".qids.json")
+        out["stats_at_start"] = tool("stats")
+        if out["stats_at_start"]["rows"] != paths["rows"]:
+            raise AssertionError(f"stats {out['stats_at_start']}")
+        for name, want_rows, body in (
+                ("full", paths["rows"], None),
+                ("half", paths["rows"] // 2, {"index_path": paths["half"]}),
+                ("full_free_first", paths["rows"],
+                 {"index_path": paths["index"], "free_first": True})):
+            if body is not None:
+                code, resp, _ = _http(port, "/admin/reload", body,
+                                      {"X-Reload-Token": token})
+                if code != 200 or resp["rows"] != want_rows:
+                    raise AssertionError(f"reload {name}: {code} {resp}")
+            got = tool(*search8)
+            want_r, want_s = want8["half" if name == "half" else "full"]
+            for q, ids in want_r.items():
+                if got["results"][q] != ids or not np.allclose(
+                        got["scores"][q], want_s[q], rtol=1e-6, atol=0):
+                    raise AssertionError(f"served {name} {q} differs from "
+                                         "a direct search of that index")
+            out[f"rows_after_{name}"] = want_rows
+        for headers in ({}, {"X-Reload-Token": "wrong"}):
+            code, _, _ = _http(port, "/admin/reload",
+                               {"index_path": paths["half"]}, headers)
+            if code != 403:
+                raise AssertionError(f"reload with {headers}: HTTP {code}")
+        out["bad_token_refused"] = True
+
+        qv, qi, qids = paths["queries"]
+        m = SERVE_FLOOD_QUERIES
+        flood_body = json.dumps({
+            "values": qv[:m].astype(np.float32).tolist(),
+            "indices": qi[:m].astype(np.int32).tolist(),
+            "qids": qids[:m]}).encode()
+        codes, lock = [], threading.Lock()
+
+        def flood():
+            code, _, retry = _http(port, "/search", flood_body)
+            with lock:
+                codes.append((code, retry))
+
+        threads = [threading.Thread(target=flood)
+                   for _ in range(SERVE_FLOOD)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        stats = tool("stats")
+        ok = sum(c == 200 for c, _ in codes)
+        shed = [r for c, r in codes if c == 503]
+        out["flood"] = {"requests": SERVE_FLOOD, "queries_each": m,
+                        "ok": ok, "shed_503": len(shed),
+                        "retry_after": sorted(set(shed)),
+                        "rejects_in_stats": stats["rejects"],
+                        "seconds": time.perf_counter() - t}
+        if not (shed and ok and ok + len(shed) == SERVE_FLOOD
+                and set(shed) == {"1"} and stats["rejects"] == len(shed)):
+            raise AssertionError(f"flood past --max-pending: {out['flood']}")
+        out["stats_at_end"] = stats
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0 or "interrupted; stopping" not in text:
+        raise AssertionError(f"serve did not stop cleanly (rc {rc}):\n"
+                             + text[-3000:])
+    out["exit_code_on_sigint"] = rc
+    return out
+
+
+def _densified_service(path, cfg, loader):
+    """A micro-batching service (low-latency route at 8) over the index at
+    ``path`` on the card, and the bytes of its device planes; built in a
+    frame of its own so that nothing but the service holds the planes."""
+    from dhr_tpu_torch.retrieval import DeviceIndex, PackedIndex, Searcher
+    from dhr_tpu_torch.serve import SearchService
+
+    index = DeviceIndex.from_packed(PackedIndex.load(path), device="cuda")
+    nbytes = sum(t.untyped_storage().nbytes() for t in (
+        index.values, index.values_T, index.indices, index.indices_T,
+        index.value_scales))
+    small = Searcher(index, dataclasses.replace(cfg, query_batch=8))
+    return SearchService(Searcher(index, cfg), micro_batch_ms=2.0,
+                         small_searcher=small, index_loader=loader), nbytes
+
+
+def _free_first_memory(paths, torch):
+    """A free-first reload in this process: ``torch.cuda.memory_allocated``
+    before it, inside the loader (the old planes released, the new ones not
+    loaded yet) and after it."""
+    import gc
+
+    from dhr_tpu_torch.retrieval import DeviceIndex, PackedIndex, SearchConfig
+
+    marks = {}
+
+    def loader(path):
+        torch.cuda.synchronize()
+        marks["between"] = torch.cuda.memory_allocated()
+        return DeviceIndex.from_packed(PackedIndex.load(path), device="cuda")
+
+    cfg = SearchConfig(topk=1000, theta=0.1, rerank=True, agip_topk=10000,
+                       query_batch=128)
+    service, full_bytes = _densified_service(paths["index"], cfg, loader)
+    qv, qi, qids = paths["queries"]
+    service.search({"values": qv[:4].astype("float32").tolist(),
+                    "indices": qi[:4].astype("int32").tolist(),
+                    "qids": qids[:4]})
+    torch.cuda.synchronize()
+    marks["before"] = torch.cuda.memory_allocated()
+    resp = service.reload({"index_path": paths["half"], "free_first": True})
+    torch.cuda.synchronize()
+    marks["after"] = torch.cuda.memory_allocated()
+    service.batcher.pause()
+    del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"full_index_device_bytes": full_bytes, **marks,
+           "freed_before_load": marks["before"] - marks["between"],
+           "loaded": marks["after"] - marks["between"], "reload": resp}
+    if out["freed_before_load"] < 0.95 * full_bytes:
+        raise AssertionError(f"free_first freed {out['freed_before_load']} "
+                             f"of {full_bytes} bytes before loading")
+    return out
+
+
+class HashTokenizer:
+    """Whole words hashed into the wordpiece ids [570, 30522): the query
+    side of ``/search_text`` without a tokenizer file."""
+
+    def encode(self, text, add_special_tokens=False, max_length=None,
+               truncation=True):
+        import zlib
+
+        ids = [ENCODE_REMOVE_DIMS + zlib.crc32(w.encode())
+               % (30522 - ENCODE_REMOVE_DIMS) for w in text.lower().split()]
+        return ids[:max_length] if truncation and max_length else ids
+
+
+def _host_costs(small, bodies, qv, qf):
+    """Median ms of the host's parts of one single-query request, on one
+    thread without contention: the search alone, ``search_run`` (the
+    search and its result dicts), the request's JSON parse and arrays, the
+    response's JSON, and ``SearchService.search`` without HTTP or a
+    batching window."""
+    import numpy as np
+
+    from dhr_tpu_torch.serve import SearchService
+
+    direct = SearchService(small)
+    parts = {"search": [], "search_run": [], "request_json": [],
+             "response_json": [], "service_search": []}
+    for i, (qid, body) in enumerate(bodies[:64]):
+        t0 = time.perf_counter()
+        small.search(qv[i:i + 1], qf[i:i + 1])
+        t1 = time.perf_counter()
+        r, sc = small.search_run([qid], qv[i:i + 1], qf[i:i + 1])
+        t2 = time.perf_counter()
+        payload = json.loads(body)
+        np.asarray(payload["values"], np.float32)
+        np.asarray(payload["indices"], np.int32)
+        t3 = time.perf_counter()
+        json.dumps({"results": r, "scores": sc}).encode()
+        t4 = time.perf_counter()
+        direct.search(payload)
+        t5 = time.perf_counter()
+        for k, a, b in (("search", t0, t1), ("search_run", t1, t2),
+                        ("request_json", t2, t3), ("response_json", t3, t4),
+                        ("service_search", t4, t5)):
+            parts[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def _serve_full_size(searcher, qv, qf, out):
+    """(b): the service over the main path's searcher and a low-latency
+    searcher at batch 8 over the same DeviceIndex; closed-loop client
+    processes at each concurrency; then the same over a fused-candidates
+    searcher at concurrency 64.  Fills ``out``; returns the launches."""
+    import numpy as np
+
+    from dhr_tpu_torch.retrieval import Searcher
+    from dhr_tpu_torch.serve import SearchService
+
+    n_q = qv.shape[0]
+    qids = [f"q{i}" for i in range(n_q)]
+    bodies = [(q, json.dumps({"values": qv[i:i + 1].tolist(),
+                              "indices": qf[i:i + 1].tolist(),
+                              "qids": [q]}).encode())
+              for i, q in enumerate(qids)]
+    cfg = searcher.config
+    small = Searcher(searcher.index, dataclasses.replace(cfg, query_batch=8))
+    want_r, want_s = searcher.search_run(qids, qv, qf)
+    direct, lone = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        searcher.search(qv, qf)
+        direct.append(n_q / (time.perf_counter() - t0))
+    for i in range(32):
+        t0 = time.perf_counter()
+        small.search_run([qids[i]], qv[i:i + 1], qf[i:i + 1])
+        lone.append((time.perf_counter() - t0) * 1e3)
+    out["direct"] = {"search_qps_median": float(np.median(direct)),
+                     "search_qps": direct, "query_batch": cfg.query_batch,
+                     "low_latency_batch": 8,
+                     "lone_query_search_run_ms_median":
+                     float(np.median(lone))}
+    out["host_costs_ms"] = _host_costs(small, bodies, qv, qf)
+    service = SearchService(searcher, micro_batch_ms=2.0,
+                            small_searcher=small)
+    server = _Server(service)
+    levels = {}
+    try:
+        _closed_loop(server.port, "/search", bodies, 8, 64)  # warm-up
+        reset_launches()
+        for conc, n_req in SERVE_LEVELS.items():
+            keep = conc in SERVE_CHECKED_LEVELS
+            before = _batcher_counts(service.batcher)
+            wall, done = _closed_loop(server.port, "/search", bodies, conc,
+                                      n_req, keep=keep)
+            lv = levels[str(conc)] = _level_report(wall, done, before,
+                                                   service.batcher)
+            lv["client_processes"] = min(conc, SERVE_CLIENT_PROCS)
+            if lv["errors"]:
+                raise AssertionError(f"errors at concurrency {conc}: {lv}")
+            if keep:
+                lv["checked_vs_search_run"] = _served_equal(done, want_r,
+                                                            want_s)
+        # the same load with the interpreter handing its lock over every
+        # 0.5 ms instead of 5: how much of the host's cost is waiting for it
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            before = _batcher_counts(service.batcher)
+            wall, done = _closed_loop(server.port, "/search", bodies, 64,
+                                      SERVE_LEVELS[64])
+            levels["64_switch_interval_0.5ms"] = _level_report(
+                wall, done, before, service.batcher)
+        finally:
+            sys.setswitchinterval(interval)
+        launches = read_launches()
+    finally:
+        server.close()
+    out["levels"] = levels
+    out["launches_search"] = launches
+    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
+        raise AssertionError(f"served search launches {launches}")
+
+    fcfg = dataclasses.replace(cfg, fused_candidates=True, candidate_block=8)
+    fused = Searcher(searcher.index, fcfg)
+    fsmall = Searcher(searcher.index,
+                      dataclasses.replace(fcfg, query_batch=8))
+    if not (fused._fused and fsmall._fused):
+        raise AssertionError("the fused service did not engage K3")
+    fwant_r, fwant_s = fused.search_run(qids, qv, qf)
+    service = SearchService(fused, micro_batch_ms=2.0, small_searcher=fsmall)
+    server = _Server(service)
+    try:
+        reset_launches()
+        before = _batcher_counts(service.batcher)
+        wall, done = _closed_loop(server.port, "/search", bodies, 64, n_q,
+                                  keep=True)
+        fused_launches = read_launches()
+        lv = _level_report(wall, done, before, service.batcher)
+        lv["checked_vs_search_run"] = _served_equal(done, fwant_r, fwant_s)
+    finally:
+        server.close()
+    lv["launches"] = fused_launches
+    out["fused_service_c64"] = lv
+    if not (fused_launches["gip_candidates"] > 0
+            and fused_launches["rerank_gip"] > 0
+            and fused_launches["partial_gip"] == 0):
+        raise AssertionError(f"fused service launches {fused_launches}")
+    return {k: launches[k] + fused_launches[k] for k in launches}, small
+
+
+def _serve_text(args, searcher, small, out, torch):
+    """(c): ``/search_text`` through the DistilBERT-base DHR query encoder
+    (the random tree of ``encode_path``) at concurrency 8; each response
+    against encoding that text alone plus ``search_run``."""
+    import numpy as np
+
+    from dhr_tpu_torch.encode import EncodeConfig, Encoder, make_query_encoder
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from dhr_tpu_torch.serve import SearchService
+
+    mcfg = _dhr_config(torch.bfloat16)
+    tree = random_flax_params(_dhr_config(torch.float32),
+                              torch.Generator().manual_seed(args.seed))
+    enc = Encoder(load_flax_params(BiEncoder(mcfg), tree), mcfg,
+                  EncodeConfig(batch_size=8, remove_dims=ENCODE_REMOVE_DIMS))
+    del tree
+    qenc = make_query_encoder(enc, HashTokenizer(), 32, 101, 102)
+    rng = np.random.default_rng(args.seed + 9)
+    vocab = [f"term{i}" for i in range(5000)]
+    texts = [" ".join(rng.choice(vocab, int(rng.integers(3, 12))))
+             for _ in range(SERVE_TEXT_QUERIES)]
+    tids = [f"t{i}" for i in range(len(texts))]
+    planes = [qenc([x]) for x in texts]  # one text a call, as served
+    tv = np.concatenate([p[0] for p in planes])
+    ti = np.concatenate([p[1] for p in planes])
+    if tv.shape != (len(texts), LEX_DIM + 128) or ti.shape != (
+            len(texts), LEX_DIM):
+        raise AssertionError(f"query planes {tv.shape} / {ti.shape}")
+    want_r, want_s = searcher.search_run(tids, tv, ti)
+    bodies = [(q, json.dumps({"queries": [x], "qids": [q]}).encode())
+              for q, x in zip(tids, texts)]
+    service = SearchService(searcher, micro_batch_ms=2.0,
+                            small_searcher=small, query_encoder=qenc)
+    server = _Server(service)
+    try:
+        _closed_loop(server.port, "/search_text", bodies, 8, 32)  # warm-up
+        reset_launches()
+        before = _batcher_counts(service.batcher)
+        wall, done = _closed_loop(server.port, "/search_text", bodies, 8,
+                                  len(bodies), keep=True)
+        launches = read_launches()
+        lv = _level_report(wall, done, before, service.batcher)
+        lv["checked_vs_encode_and_search_run"] = _served_equal(
+            done, want_r, want_s)
+    finally:
+        server.close()
+    lv["launches"] = launches
+    lv["encoder"] = ("distilbert-base DHR, bf16, random tree of seed "
+                     f"{args.seed}, hashing word tokenizer, q_max_len 32")
+    out["search_text_c8"] = lv
+    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
+        raise AssertionError(f"/search_text launches {launches}")
+    return launches
+
+
+def phase_serve_path(args, root, paths, searcher, main_queries, smi, torch):
+    """The serve slice: (a) the ``serve`` verb as a process on the
+    densified index; (a2) a free-first reload's device memory; (b) the
+    service in this process at 8,841,823 rows (``_serve_full_size``); (c)
+    ``/search_text`` (``_serve_text``).  Returns the kernel launches of (b)
+    and (c)."""
+    from dhr_tpu_torch.retrieval import (
+        DeviceIndex, PackedIndex, SearchConfig, Searcher)
+
+    checkout = os.path.dirname(os.path.abspath(__file__))
+    secs, out = {}, {"phase": "serve_path", "card": smi}
+    t = time.perf_counter()
+    dcfg = SearchConfig(topk=1000, theta=0.1, rerank=True, agip_topk=10000,
+                        query_batch=8)
+    qv8, qi8, qids8 = (x[:8] for x in paths["queries"])
+    want8 = {}
+    for name in ("index", "half"):
+        direct = Searcher(DeviceIndex.from_packed(
+            PackedIndex.load(paths[name]), device="cuda"), dcfg)
+        want8["full" if name == "index" else name] = direct.search_run(
+            qids8, qv8, qi8)
+        del direct
+    torch.cuda.empty_cache()
+    out["verb"] = _serve_verb(root, checkout, paths, want8)
+    secs["verb"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out["free_first_memory"] = _free_first_memory(paths, torch)
+    secs["free_first_memory"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    qv, qf = (x.cpu().numpy() for x in main_queries[:2])
+    launches, small = _serve_full_size(searcher, qv, qf, out)
+    secs["full_size"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    text = _serve_text(args, searcher, small, out, torch)
+    secs["search_text"] = time.perf_counter() - t
+    out["seconds"] = secs
+    emit(out)
+    torch.cuda.empty_cache()
+    return {k: launches[k] + text[k] for k in launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=MSMARCO_PASSAGES,
@@ -1820,19 +2674,26 @@ def main() -> int:
     phase_build()
     phase_encode_path(args, torch)
     phase_train_path(args, torch)
-    index, queries, raw = small_world(args.seed + 1, torch)
-    errs = (phase_k1(index, queries, torch),
-            phase_k2(index, queries, args.seed, torch),
-            phase_k3(index, queries, torch))
-    phase_search_vs_plain(index, raw, torch)
-    phase_modes(index, raw, torch)
-    del index, queries, raw
-    torch.cuda.empty_cache()
-    searcher, batch, launches, main_queries = phase_main(args, torch)
-    launches["gip_candidates"] = phase_fused(searcher, main_queries,
-                                             torch)["gip_candidates"]
-    phase_modes_full(searcher, main_queries, torch)
-    del main_queries
+    with tempfile.TemporaryDirectory() as root:
+        paths, densify_launches = phase_densify_path(args, root, torch)
+        index, queries, raw = small_world(args.seed + 1, torch)
+        errs = (phase_k1(index, queries, torch),
+                phase_k2(index, queries, args.seed, torch),
+                phase_k3(index, queries, torch))
+        phase_search_vs_plain(index, raw, torch)
+        phase_modes(index, raw, torch)
+        del index, queries, raw
+        torch.cuda.empty_cache()
+        searcher, batch, launches, main_queries = phase_main(args, torch)
+        launches["gip_candidates"] = phase_fused(searcher, main_queries,
+                                                 torch)["gip_candidates"]
+        phase_modes_full(searcher, main_queries, torch)
+        serve_launches = phase_serve_path(args, root, paths, searcher,
+                                          main_queries, smi, torch)
+        del main_queries, paths
+    # the kernels line counts every path: main, fused, densify and serve
+    for k in launches:
+        launches[k] += densify_launches[k] + serve_launches[k]
     kernels = phase_timing(searcher, batch, launches, errs, torch)
     print(smi, flush=True)
     emit({"kernels": kernels})

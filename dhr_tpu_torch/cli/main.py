@@ -2,6 +2,8 @@
 
 - ``prepare-corpus``  tokenize a raw corpus -> JSONL (needs the
                   ``transformers`` package for ``--tokenizer``);
+- ``densify``     sparse vectors (BM25, DeepImpact, uniCOIL, SPLADE) JSONL
+                  -> packed ``(value, fold)`` planes (``.npz``), on the host;
 - ``prepare-train``   MS MARCO tsvs -> train groups (the same);
 - ``train``       train a retriever on the GPU, checkpoints and an HF
                   export under ``--output-dir``;
@@ -12,12 +14,18 @@
 - ``search``      gip / ip / pq retrieval on the GPU -> TREC run file, or,
                   with ``--escalate-calibrate`` / ``--pool-calibrate``, a
                   calibration report as JSON;
+- ``serve``       the resident HTTP search service over an index on the
+                  GPU (micro-batching, a low-latency route, text queries
+                  with ``--query-encoder``, reload, 503 shedding);
 - ``merge-runs``  merge per-shard TREC runs;
-- ``eval``        MRR / recall / nDCG of a run against qrels.
+- ``eval``        MRR / recall / nDCG of a run against qrels;
+- ``info``        the environment as JSON: torch, CUDA, the device, the
+                  kernels' build and the C++ host runtime.
 
 Flag names follow ``python -m dhr_tpu``.  Flags of what is not ported yet
 are accepted by name and fail with a message saying so.  ``train``,
-``encode``, ``search`` and the PQ build of ``index --pq-m`` run on the GPU;
+``encode``, ``search``, ``serve`` and the PQ build of ``index --pq-m`` run
+on the GPU;
 ``--device cpu`` runs them on the CPU (the plain PyTorch path) instead.
 Every verb also accepts ``--config file.json`` whose keys are the long
 option names (flags given on the command line win).
@@ -77,7 +85,7 @@ def _apply_config_file(args: argparse.Namespace,
 
 def _load_tokenizer(path: str):
     """An HF tokenizer from a local directory; ``transformers`` is imported
-    here only, by the ``prepare-*`` verbs."""
+    here only, by the ``prepare-*`` verbs and ``serve --query-encoder``."""
     from transformers import AutoTokenizer
 
     return AutoTokenizer.from_pretrained(path)
@@ -405,6 +413,27 @@ def cmd_encode(args):
     }), file=sys.stderr)
 
 
+# ---------------------------------------------------------------- densify --
+
+
+def cmd_densify(args):
+    from dhr_tpu_torch.data.examples import load_sparse_vectors
+    from dhr_tpu_torch.densify_offline import DensifyConfig, densify_corpus
+
+    cfg = DensifyConfig(model=args.weight_model, out_dim=args.dim)
+    t0 = time.perf_counter()
+    index = densify_corpus(load_sparse_vectors(args.input), cfg,
+                           args.vocab_size, batch_size=args.batch_size)
+    wall = time.perf_counter() - t0
+    index.save(args.output)
+    logger.info("densified %d docs (%d slice collisions) -> %s",
+                index.num_rows, index.collisions, args.output)
+    print("DHR_TIMING " + json.dumps({
+        "verb": "densify", "docs": index.num_rows,
+        "collisions": index.collisions, "densify_wall_s": wall,
+        "docs_per_s": index.num_rows / max(wall, 1e-9)}), file=sys.stderr)
+
+
 # ------------------------------------------------------------- retrieval --
 
 
@@ -457,33 +486,20 @@ def _report(report: dict, output: str | None) -> None:
             json.dump(report, f)
 
 
-def cmd_search(args):
+def _value_dtype(args):
     import torch
 
-    from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
-    from dhr_tpu_torch.retrieval.searcher import (
-        SearchConfig,
-        Searcher,
-        calibrate_pool,
-    )
-    from dhr_tpu_torch.retrieval.trec import write_run
-
-    packed = PackedIndex.load(args.index_path)
-    if args.total_shard > 1:
-        per = packed.num_rows // args.total_shard
-        start = per * args.shard
-        stop = packed.num_rows if args.shard == args.total_shard - 1 \
-            else start + per
-        packed = packed.slice_rows(start, stop)
-    qv, qi, qids = _load_queries(args.query_path)
-    value_dtype = None if args.value_dtype is None else {
+    return None if args.value_dtype is None else {
         "bf16": torch.bfloat16, "f16": torch.float16,
         "f32": torch.float32}[args.value_dtype]
-    index = DeviceIndex.from_packed(packed, value_dtype=value_dtype,
-                                    layout=_resolve_layout(args),
-                                    device=args.device)
+
+
+def _search_config(args):
+    """The ``SearchConfig`` of the ``search`` / ``serve`` flags."""
+    from dhr_tpu_torch.retrieval.searcher import SearchConfig
+
     slices = args.candidate_slices
-    cfg = SearchConfig(
+    return SearchConfig(
         topk=args.topk,
         mode="pq" if args.pqip else ("ip" if args.ip else "gip"),
         theta=0.0 if args.brute_force else args.theta,
@@ -502,6 +518,25 @@ def cmd_search(args):
         escalate_margin=args.escalate_margin,
         row_chunk=args.row_chunk,
     )
+
+
+def cmd_search(args):
+    from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
+    from dhr_tpu_torch.retrieval.searcher import Searcher, calibrate_pool
+    from dhr_tpu_torch.retrieval.trec import write_run
+
+    packed = PackedIndex.load(args.index_path)
+    if args.total_shard > 1:
+        per = packed.num_rows // args.total_shard
+        start = per * args.shard
+        stop = packed.num_rows if args.shard == args.total_shard - 1 \
+            else start + per
+        packed = packed.slice_rows(start, stop)
+    qv, qi, qids = _load_queries(args.query_path)
+    index = DeviceIndex.from_packed(packed, value_dtype=_value_dtype(args),
+                                    layout=_resolve_layout(args),
+                                    device=args.device)
+    cfg = _search_config(args)
     if args.pool_calibrate:
         _report(calibrate_pool(
             index, cfg, qv, qi,
@@ -519,6 +554,99 @@ def cmd_search(args):
     logger.info("wrote %s (%d queries)", args.output, len(results))
     print("DHR_TIMING " + json.dumps(
         {"verb": "search", **searcher.last_timing}), file=sys.stderr)
+
+
+def cmd_serve(args):
+    from dhr_tpu_torch.device import resolve_device
+    from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
+    from dhr_tpu_torch.retrieval.searcher import Searcher
+    from dhr_tpu_torch.serve import SearchService, serve_service
+
+    device = resolve_device(args.device)
+    query_encoder = None
+    if args.query_encoder:
+        # resident text -> vector encoder for the /search_text endpoint
+        from dhr_tpu_torch.encode import (
+            EncodeConfig,
+            Encoder,
+            make_query_encoder,
+        )
+
+        tok_dir = args.tokenizer or args.model_name_or_path
+        if not tok_dir:
+            raise SystemExit("--query-encoder needs --tokenizer DIR (a local "
+                             "HF tokenizer) or --model-name-or-path")
+        model_cfg = _model_cfg_from_args(args)
+        enc = Encoder(
+            _load_init_params(args, model_cfg), model_cfg,
+            EncodeConfig(batch_size=args.query_batch,
+                         remove_dims=args.remove_dims),
+            device=device)
+        query_encoder = make_query_encoder(
+            enc, _load_tokenizer(tok_dir), args.q_max_len, args.cls_token_id,
+            args.sep_token_id)
+
+    def index_loader(path):
+        # the boot index's layout knobs, so a reload is exactly "the same
+        # service over new data"
+        return DeviceIndex.from_packed(
+            PackedIndex.load(path), value_dtype=_value_dtype(args),
+            layout=_resolve_layout(args), device=device)
+
+    searcher = Searcher(index_loader(args.index_path), _search_config(args),
+                        device=device)
+    small = None
+    if args.micro_batch_ms > 0 and args.low_latency_batch > 0:
+        # the SAME DeviceIndex: no second copy of the planes
+        small = Searcher(searcher.index, dataclasses.replace(
+            searcher.config, query_batch=args.low_latency_batch),
+            device=device)
+    service = SearchService(
+        searcher, micro_batch_ms=args.micro_batch_ms,
+        small_searcher=small, query_encoder=query_encoder,
+        max_pending=args.max_pending,
+        index_loader=index_loader if args.allow_reload else None,
+        reload_token=args.reload_token)
+    # this frame lives for the whole serve loop: drop its searcher
+    # references so a free_first reload can free the planes
+    threaded = args.micro_batch_ms > 0
+    del searcher, small
+    serve_service(service, host=args.host, port=args.port,
+                  threaded=threaded)
+
+
+def cmd_info(args):
+    """Environment and device diagnostics, one JSON object on stdout: what
+    torch sees, whether the CUDA kernels are built, and whether the C++ host
+    runtime or the pure-Python fallbacks are active."""
+    import platform
+
+    import torch
+
+    import dhr_tpu_torch
+    from dhr_tpu_torch import native
+    from dhr_tpu_torch.ops import _build
+
+    cuda = torch.cuda.is_available()
+    n = torch.cuda.device_count() if cuda else 0
+    kernels = {name: _build._library_path(name).exists()
+               for name in _build.KERNELS}
+    out = {
+        "dhr_tpu_torch": dhr_tpu_torch.__version__,
+        "python": platform.python_version(),
+        "torch": torch.__version__,
+        "torch_cuda": torch.version.cuda,
+        "cuda_available": cuda,
+        "device_count": n,
+        "devices": [torch.cuda.get_device_name(i) for i in range(n)],
+        "capabilities": [list(torch.cuda.get_device_capability(i))
+                         for i in range(n)],
+        "kernel_build_dir": str(_build.build_dir()),
+        "kernels_built": kernels,
+        "native_runtime": native.available(),
+        "native_so": native.so_path(),
+    }
+    print(json.dumps(out, indent=1))
 
 
 def cmd_merge_runs(args):
@@ -698,6 +826,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the CPU")
     _finish(p, cmd_encode)
 
+    p = sub.add_parser("densify")
+    p.add_argument("--input", required=True,
+                   help='JSONL of {"id": docid, "vector": {term_id: weight}}')
+    p.add_argument("--output", required=True)
+    p.add_argument("--weight-model", default="bm25",
+                   choices=["bm25", "deepimpact", "unicoil", "splade"])
+    p.add_argument("--dim", type=int, default=768)
+    p.add_argument("--vocab-size", type=int, required=True)
+    p.add_argument("--batch-size", type=int, default=256)
+    _finish(p, cmd_densify)
+
     p = sub.add_parser("index")
     p.add_argument("--inputs", required=True, help="glob of shard files")
     p.add_argument("--output", required=True)
@@ -792,6 +931,77 @@ def build_parser() -> argparse.ArgumentParser:
     for flag, what in _UNPORTED_SEARCH.items():
         p.add_argument(flag, action=_Unported, what=what)
     _finish(p, cmd_search)
+
+    p = sub.add_parser("serve")
+    _add_model_args(p)
+    p.add_argument("--index-path", required=True)
+    p.add_argument("--query-encoder", action="store_true",
+                   help="load the model and serve POST /search_text (raw "
+                        "query strings -> rankings); needs --tokenizer (a "
+                        "local HF tokenizer directory, read with the "
+                        "transformers package) or --model-name-or-path")
+    p.add_argument("--tokenizer", default=None)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--topk", type=int, default=1000)
+    p.add_argument("--theta", type=float, default=0.3)
+    p.add_argument("--brute-force", action="store_true")
+    p.add_argument("--IP", dest="ip", action="store_true")
+    p.add_argument("--PQIP", dest="pqip", action="store_true",
+                   help="PQ-code (ADC) candidates; needs 'index --pq-m'")
+    p.add_argument("--rerank", action="store_true")
+    p.add_argument("--agip-topk", type=int, default=10000)
+    p.add_argument("--value-dtype", default=None,
+                   choices=["bf16", "f16", "f32"],
+                   help="device value plane dtype for float indexes "
+                        "(default bf16; int8 indexes stay int8)")
+    p.add_argument("--lamda", type=float, default=1.0)
+    p.add_argument("--max-important-dims", type=int, default=128)
+    p.add_argument("--query-batch", type=int, default=64)
+    p.add_argument("--exact-candidates", action="store_true")
+    p.add_argument("--no-candidate-bf16", action="store_true")
+    p.add_argument("--candidate-slices", default="auto",
+                   help="stratified candidate selection (see 'search')")
+    p.add_argument("--fused-candidates", default="off",
+                   choices=["off", "on", "auto"],
+                   help="fused candidate block reduction (see 'search')")
+    p.add_argument("--candidate-block", type=int, default=8)
+    p.add_argument("--escalate-pool", type=int, default=0,
+                   help="two-tier escalation (see 'search')")
+    p.add_argument("--escalate-margin", type=float, default=0.0)
+    p.add_argument("--layout", default="auto",
+                   choices=["auto", "both", "row", "dim"],
+                   help="device plane layout (see 'search --layout')")
+    p.add_argument("--row-chunk", type=int, default=0,
+                   help="row-chunked ip stage 1 (see 'search --row-chunk')")
+    p.add_argument("--micro-batch-ms", type=float, default=0.0,
+                   help="> 0: threaded server + one worker that pools "
+                        "concurrent requests into one search batch, "
+                        "waiting at most this window for stragglers")
+    p.add_argument("--max-pending", type=int, default=0,
+                   help="> 0 (with --micro-batch-ms): bound the ingress "
+                        "queue; excess requests get HTTP 503 + Retry-After")
+    p.add_argument("--low-latency-batch", type=int, default=0,
+                   help="> 0 (with --micro-batch-ms): a second searcher at "
+                        "this batch over the same device index; pools that "
+                        "fit it run there")
+    p.add_argument("--reload-token", default=None,
+                   help="require this value in the X-Reload-Token header "
+                        "on /admin/reload; ALWAYS set it when binding a "
+                        "non-loopback --host")
+    p.add_argument("--allow-reload", action="store_true",
+                   help='enable POST /admin/reload {"index_path": ..., '
+                        '"free_first": false}: load a new index and swap it '
+                        "in without a restart")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (cuda), 'cpu' runs "
+                        "the plain PyTorch path")
+    for flag, what in _UNPORTED_SEARCH.items():
+        p.add_argument(flag, action=_Unported, what=what)
+    _finish(p, cmd_serve)
+
+    p = sub.add_parser("info")
+    _finish(p, cmd_info)
 
     p = sub.add_parser("merge-runs")
     p.add_argument("--inputs", required=True, help="glob of TREC runs")

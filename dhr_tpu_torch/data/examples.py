@@ -10,8 +10,9 @@ datasets).  The formats:
   for margin-KD) resolved against a :class:`Corpus`;
 - sparse vectors: ``{"id": docid, "vector": {token: weight}}``.
 
-The reader is the Python one (the reference's C++ host parser is not
-ported yet).
+The tokenized-corpus reader runs the C++ single-pass parser of
+:mod:`dhr_tpu_torch.native` when it is built; the Python json reader is the
+fallback and the semantic reference.
 """
 
 from __future__ import annotations
@@ -44,7 +45,22 @@ def read_jsonl(path: str) -> Iterator[dict]:
 
 def load_tokenized_corpus(path: str) -> tuple[list[str], list[list[int]]]:
     """``{"text_id", "text"}`` rows -> (ids, token lists); an empty text
-    becomes ``[0]``."""
+    becomes ``[0]``.  Parsed by the C++ runtime when it is built."""
+    from dhr_tpu_torch import native
+
+    if not native.available():
+        return read_tokenized_corpus(path)
+    all_ids, all_texts = [], []
+    for p in _expand(path):
+        ids, tokens, offsets = native.load_tokenized_corpus_native(p)
+        all_ids.extend(ids)
+        all_texts.extend(tokens[offsets[i]: offsets[i + 1]].tolist() or [0]
+                         for i in range(len(ids)))
+    return all_ids, all_texts
+
+
+def read_tokenized_corpus(path: str) -> tuple[list[str], list[list[int]]]:
+    """:func:`load_tokenized_corpus` by Python's json reader."""
     ids, texts = [], []
     for row in read_jsonl(path):
         ids.append(str(row["text_id"]))

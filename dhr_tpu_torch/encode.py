@@ -349,10 +349,19 @@ def plan_packing(lengths, row_len: int, max_segments: int):
     ORIGINAL item indices in slot order; every item appears once.  Lengths
     are planned within [1, row_len]: an empty item still takes one token
     (``wrap_specials`` emits ``[0]``), a longer one gets a row of its own
-    and is truncated at collation, like the plain path's cut.
+    and is truncated at collation, like the plain path's cut.  The C++
+    runtime's twin (:func:`dhr_tpu_torch.native.plan_packing_native`, the
+    same plan item for item) runs when it is built.
     """
     import bisect
 
+    from dhr_tpu_torch import native
+
+    planned = native.plan_packing_native(lengths, row_len, max_segments)
+    if planned is not None:
+        items, offsets = planned
+        return [items[offsets[r]:offsets[r + 1]].tolist()
+                for r in range(len(offsets) - 1)]
     lengths = np.clip(np.asarray(lengths, np.int64), 1, row_len)
     by_len: dict[int, list[int]] = {}
     for i, n in enumerate(lengths.tolist()):

@@ -2,7 +2,7 @@
 the CUDA kernels K1 / K2 / K3."""
 
 from dhr_tpu_torch.ops.aggregate import aggregate, cal_remove_dim, merge_reps
-from dhr_tpu_torch.ops.densify import densify, undensify
+from dhr_tpu_torch.ops.densify import densify, densify_sparse_rows, undensify
 from dhr_tpu_torch.ops.gip import (
     gip_scores_masked,
     gip_scores_pairwise,
@@ -24,7 +24,8 @@ from dhr_tpu_torch.ops.topk import blockwise_topk, merge_topk
 
 __all__ = [
     "aggregate", "blockwise_topk", "cal_remove_dim",
-    "decode_packed_candidates", "densify", "gip_candidates",
+    "decode_packed_candidates", "densify", "densify_sparse_rows",
+    "gip_candidates",
     "gip_scores_masked", "gip_scores_pairwise", "gip_scores_subindex",
     "ip_scores", "merge_reps", "merge_topk", "pad_indices_for_cls",
     "partial_gip", "partial_gip_candidates", "partial_gip_scores",

@@ -1,7 +1,6 @@
 """Densification: vocabulary-space lexical vectors -> (value, fold) pairs.
 
-Port of ``dhr_tpu/ops/densify.py`` (``densify_sparse_rows``, the offline
-path's host twin, is not ported yet).  Drop the first ``remove_dims``
+Port of ``dhr_tpu/ops/densify.py``.  Drop the first ``remove_dims``
 vocabulary slots, reshape the rest row-major into ``(k, out_dim)`` and
 max-pool over the fold axis, remembering which fold won:
 
@@ -10,11 +9,13 @@ max-pool over the fold axis, remembering which fold won:
     indices[j] = argmax_i x[i, j]          (the first maximum wins on ties)
 
 ``torch.max`` along a dim returns the first maximal index on the CPU and on
-CUDA alike, as ``jnp.argmax`` does.
+CUDA alike, as ``jnp.argmax`` does.  :func:`densify_sparse_rows` is the
+host (NumPy) twin for one sparse row, the offline pipeline's fallback.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # BERT / DistilBERT wordpiece: the first 570 ids are special tokens and
@@ -61,3 +62,35 @@ def undensify(values: torch.Tensor, indices: torch.Tensor, vocab_size: int,
     folded.scatter_(-2, indices[..., None, :].long(), values[..., None, :])
     flat = folded.reshape(*lead, k * out_dim)
     return torch.nn.functional.pad(flat, (remove_dims, 0))
+
+
+def densify_sparse_rows(token_ids, weights, out_dim: int, remove_dims: int,
+                        vocab_size: int):
+    """One sparse row ``(token_ids, weights)`` -> ``(values f32 (out_dim,),
+    indices i32 (out_dim,), n_collisions)`` on the host: each slice keeps
+    its largest weight and that weight's fold, the lowest fold on ties;
+    ids below ``remove_dims`` are dropped.  A collision is a token beyond
+    the first landing on a slice."""
+    k = (vocab_size - remove_dims) // out_dim
+    values = np.zeros((out_dim,), dtype=np.float32)
+    indices = np.zeros((out_dim,), dtype=np.int32)
+    occupied = np.zeros((out_dim,), dtype=bool)
+    token_ids = np.asarray(token_ids)
+    weights = np.asarray(weights)
+    keep = token_ids >= remove_dims
+    token_ids = token_ids[keep]
+    weights = weights[keep]
+    u = token_ids - remove_dims
+    slices = u % out_dim
+    folds = u // out_dim
+    collisions = len(slices) - len(np.unique(slices)) if len(slices) else 0
+    # fold order, so the first (lowest-fold) maximum wins as in densify()
+    for j in np.argsort(folds, kind="stable"):
+        s, f, w = slices[j], folds[j], weights[j]
+        if not occupied[s] or w > values[s]:
+            values[s] = w
+            indices[s] = f
+            occupied[s] = True
+    if folds.max(initial=0) >= k:
+        raise ValueError(f"token id beyond vocab_size={vocab_size}")
+    return values, indices, collisions

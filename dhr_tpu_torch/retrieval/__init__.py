@@ -1,5 +1,5 @@
-"""Index planes, the searcher, pool calibration, the synthetic corpus and
-TREC I/O."""
+"""Index planes, the searcher, pool calibration, index diagnostics, the
+synthetic corpus and TREC I/O."""
 
 from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
 from dhr_tpu_torch.retrieval.searcher import (
@@ -7,6 +7,7 @@ from dhr_tpu_torch.retrieval.searcher import (
     Searcher,
     calibrate_pool,
 )
+from dhr_tpu_torch.retrieval.stats import avg_important_dims, index_stats
 from dhr_tpu_torch.retrieval.trec import (
     merge_runs,
     read_qrels,
@@ -15,6 +16,7 @@ from dhr_tpu_torch.retrieval.trec import (
 )
 
 __all__ = [
-    "DeviceIndex", "PackedIndex", "SearchConfig", "Searcher", "calibrate_pool",
-    "merge_runs", "read_qrels", "read_run", "write_run",
+    "DeviceIndex", "PackedIndex", "SearchConfig", "Searcher",
+    "avg_important_dims", "calibrate_pool", "index_stats", "merge_runs",
+    "read_qrels", "read_run", "write_run",
 ]

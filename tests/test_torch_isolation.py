@@ -34,6 +34,10 @@ assert "dhr_tpu_torch.models.hf_io" in names and "dhr_tpu_torch.encode" in names
 new = {"dhr_tpu_torch.train." + m for m in (
     "loss", "optimizer", "state", "step", "checkpoint", "driver")}
 new |= {"dhr_tpu_torch.data." + m for m in ("sampling", "loader", "tokenize")}
+new |= {"dhr_tpu_torch.serve", "dhr_tpu_torch.native",
+        "dhr_tpu_torch.retrieval.stats"}
+new |= {"dhr_tpu_torch.densify_offline." + m for m in (
+    "bm25", "corpus", "query")}
 assert new <= set(names), new - set(names)
 assert not bad, bad
 """
@@ -125,3 +129,41 @@ def test_encoder_and_encode_verb_default_to_the_gpu(tmp_path, monkeypatch):
     assert not (tmp_path / "e.npz").exists()
     main(args + ["--device", "cpu"])
     assert PackedIndex.load(str(tmp_path / "e.npz")).values.shape == (1, 192)
+
+
+def test_serve_and_unicoil_encoder_default_to_the_gpu(tmp_path,
+                                                      monkeypatch):
+    """Without CUDA the serve verb and the uniCOIL query encoder raise
+    unless the CPU is asked for; neither drops to the CPU quietly."""
+    from dhr_tpu_torch import serve as serve_mod
+    from dhr_tpu_torch.cli.main import main
+    from dhr_tpu_torch.densify_offline import make_unicoil_query_encoder
+    from dhr_tpu_torch.models import BiEncoder, EncoderConfig, RetrieverConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RetrieverConfig(model_type="agg", skip_mlm=True, agg_dim=48,
+                          encoder=EncoderConfig.tiny(dtype=torch.float32))
+    model = BiEncoder(cfg)
+
+    class Tok:
+        def encode(self, text, **kw):
+            return [100 + len(w) for w in text.split()]
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_unicoil_query_encoder(model, Tok())
+    enc = make_unicoil_query_encoder(model, Tok(), cls_id=1, device="cpu")
+    assert isinstance(enc("two words"), dict)
+
+    _packed().save(str(tmp_path / "idx.npz"))
+    served = []
+    monkeypatch.setattr(serve_mod, "serve_service",
+                        lambda service, **kw: served.append(service))
+    args = ["serve", "--index-path", str(tmp_path / "idx.npz"), "--topk",
+            "3", "--port", "0"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(args)
+    assert not served
+    main(args + ["--device", "cpu"])
+    (service,) = served
+    assert service.searcher.device.type == "cpu"
+    assert service.searcher.index.device.type == "cpu"
