@@ -38,7 +38,14 @@ length, Zipf words over 2^18 terms, so the fold planes are int16):
 ``simple_analyzer``, ``TermDictionary``, ``native.bm25_csr``, the vectors as
 JSONL, then ``densify`` -> ``index --quantize`` -> ``search`` with 1,024
 BM25 queries on K1 and K2, against the brute force on the same planes and
-the CPU's plain path.  After the main and fused paths, ``serve_path`` runs
+the CPU's plain path.  ``eval_path`` then runs the evaluation verbs at
+DistilBERT-base width: ColBERT ``encode`` and ``colbert-score
+--full-ranking`` over the encode corpus (card against the CPU, host slabs
+against the resident plane, ``--pairs`` against the run; q/s and TFLOP/s),
+``rerank-eval`` over 64 x 1,000 candidate pairs, and ``evaluate_beir`` over
+a SciFact-shaped BEIR directory at theta 0 (K1) and theta 0.3 with rerank
+(K1 and K2), each held against the brute force on the same planes, with no
+self-hit left.  After the main and fused paths, ``serve_path`` runs
 the resident service: the ``serve`` verb as a process on the densified
 index (serve_client, reloads, 503 shedding, token refusal, SIGINT), a
 free-first reload's device memory, the service at 8,841,823 rows with
@@ -55,9 +62,9 @@ row-major) and pq (m=64) with rerank.
 Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line come before the
 last line, ``{"ok": true, "device": {...}}``; the kernels line counts the
-launches of the main, fused, densify and serve paths.  Any failure raises
-and exits non-zero before the last line.  Without CUDA, or outside a checkout, it
-exits non-zero at once.
+launches of the main, fused, densify, eval and serve paths.  Any failure
+raises and exits non-zero before the last line.  Without CUDA, or outside a
+checkout, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -108,6 +115,15 @@ SERVE_CLIENT_PROCS = 16
 SERVE_FLOOD = 256
 SERVE_FLOOD_QUERIES = 32
 SERVE_TEXT_QUERIES = 256
+# eval_path: rerank-eval's queries x candidates (the reference's
+# EvalDataset holds ~1,000 candidates a query) and the SciFact-shaped BEIR
+# directory (Thakur et al., 2021, Table 1), 10 of its query ids also
+# document ids
+EVAL_RERANK_QUERIES = 64
+EVAL_RERANK_CANDIDATES = 1_000
+BEIR_DOCS = 5_183
+BEIR_QUERIES = 300
+BEIR_SELF_HITS = 10
 
 
 def emit(obj) -> None:
@@ -272,19 +288,22 @@ def _timing_line(stderr_text: str, verb: str) -> dict:
     raise AssertionError(f"no DHR_TIMING line of {verb}")
 
 
-def _run_cli(argv, verb=None):
+def _run_cli(argv, verb=None, stdout=False):
     """``python -m dhr_tpu_torch <argv>`` in this process; the DHR_TIMING
-    line of ``verb`` when given."""
+    line of ``verb`` when given, and with ``stdout`` the JSON the verb
+    printed (kept off this script's standard output)."""
     import contextlib
     import io
 
     from dhr_tpu_torch.cli.main import main as cli
 
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
+    err, out = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(
+            out if stdout else sys.stdout):
         cli(argv)
     sys.stderr.write(err.getvalue())
-    return _timing_line(err.getvalue(), verb) if verb else None
+    timing = _timing_line(err.getvalue(), verb) if verb else None
+    return (timing, json.loads(out.getvalue())) if stdout else timing
 
 
 def _read_run(path):
@@ -296,20 +315,30 @@ def _read_run(path):
     return out
 
 
-def _encode_user_path(root, seed, torch, np):
-    """encode (corpus, bf16, batch 32) -> encode --encode-is-qry -> index
-    --quantize -> search at the bench point, through the CLI; K1 and K2
-    must launch.  Then the exact brute force for the agreement."""
+def _encode_corpus(root, seed, np):
+    """encode_path's synthetic corpus (65,536 passages, ids "0"...) and
+    1,024 queries (4-20 ids, "q0"...), written as tokenized JSONL under
+    ``root``: ``(corpus path, queries path, passage token arrays, passage
+    lengths, query token arrays)``."""
     from dhr_tpu_torch.data.examples import write_jsonl
 
     rng = np.random.default_rng(seed + 4)
     toks, lens = _passage_tokens(rng, ENCODE_PASSAGES, np)
+    q_toks = [rng.integers(ENCODE_REMOVE_DIMS, 30522, n)
+              for n in rng.integers(4, 21, ENCODE_QUERIES)]
     corpus, queries = f"{root}/corpus.jsonl", f"{root}/queries.jsonl"
     write_jsonl(corpus, ({"text_id": str(i), "text": t.tolist()}
                          for i, t in enumerate(toks)))
-    q_lens = rng.integers(4, 21, ENCODE_QUERIES)
-    write_jsonl(queries, ({"text_id": f"q{i}", "text": rng.integers(
-        ENCODE_REMOVE_DIMS, 30522, n).tolist()} for i, n in enumerate(q_lens)))
+    write_jsonl(queries, ({"text_id": f"q{i}", "text": t.tolist()}
+                          for i, t in enumerate(q_toks)))
+    return corpus, queries, toks, lens, q_toks
+
+
+def _encode_user_path(root, seed, torch, np):
+    """encode (corpus, bf16, batch 32) -> encode --encode-is-qry -> index
+    --quantize -> search at the bench point, through the CLI; K1 and K2
+    must launch.  Then the exact brute force for the agreement."""
+    corpus, queries, toks, lens, _ = _encode_corpus(root, seed, np)
     model = ["--model", "dhr", "--add-pooler", "--projection-dim", "128",
              "--dlr-out-dim", str(LEX_DIM), "--batch-size", "32"]
     search = ["search", "--index-path", f"{root}/index.npz", "--query-path",
@@ -2051,6 +2080,480 @@ def phase_densify_path(args, root, torch):
 
 
 # --------------------------------------------------------------------------
+# eval_path: ColBERT full ranking, rerank-eval and BEIR at DistilBERT-base
+# --------------------------------------------------------------------------
+
+
+def _colbert_config(dtype):
+    from dhr_tpu_torch.models import EncoderConfig, RetrieverConfig
+
+    return RetrieverConfig(
+        model_type="colbert", add_pooler=True, projection_dim=128,
+        encoder=dataclasses.replace(EncoderConfig.distilbert_base(),
+                                    dtype=dtype))
+
+
+def _rel_diff(got, want, torch):
+    """max |got - want| over max |want| (f32)."""
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _colbert_card_vs_cpu(seed, toks, q_toks, torch):
+    """f32 token reps of 8 passages (128) and 8 queries (32) on the card
+    and on the CPU (the same random tree), and ``maxsim_listwise`` over
+    each device's reps; within 1e-5 of scale."""
+    from dhr_tpu_torch.data.collate import pad_token_batch
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from dhr_tpu_torch.models.transformer import compute_copy
+    from dhr_tpu_torch.retrieval.colbert import maxsim_listwise
+
+    cfg = _colbert_config(torch.float32)
+    model = load_flax_params(BiEncoder(cfg), random_flax_params(
+        cfg, torch.Generator().manual_seed(seed + 9)))
+    sides = {"passage": (pad_token_batch([t.tolist() for t in toks[:8]],
+                                         128, 0, 101, 102), False),
+             "query": (pad_token_batch([t.tolist() for t in q_toks[:8]],
+                                       32, 0, 101, 102), True)}
+    reps = {}
+    for dev in ("cpu", "cuda"):
+        m = compute_copy(model, torch.float32, torch.device(dev)).eval()
+        for role, (b, is_q) in sides.items():
+            with torch.inference_mode():
+                r = m.encoder_q(torch.from_numpy(b["input_ids"]).to(dev),
+                                torch.from_numpy(b["attention_mask"]).to(dev),
+                                is_query=is_q)
+            reps[dev, role] = torch.cat([r.token_cls, r.token], 1)
+        reps[dev, "maxsim"] = maxsim_listwise(reps[dev, "query"],
+                                              reps[dev, "passage"])
+        del m
+    out = {k: _rel_diff(reps["cuda", k].cpu(), reps["cpu", k], torch)
+           for k in ("passage", "query", "maxsim")}
+    if max(out.values()) > 1e-5:
+        raise AssertionError(f"colbert card vs CPU f32: {out}")
+    return {"max_rel_diff_of_scale": out, "shapes": {
+        k: list(reps["cpu", k].shape) for k in ("query", "passage",
+                                                "maxsim")}}
+
+
+def _colbert_path(root, toks, q_toks, seed, torch, np):
+    """(a): ``encode --model colbert`` over encode_path's corpus and
+    queries, ``colbert-score --full-ranking --topk 1000`` on the card, and
+    its checks: the CPU's plain ``full_ranking`` on 4 queries, a run forced
+    into host slabs (``--plane-budget-gb 0.25``) on 128 queries and
+    ``colbert-score --pairs`` over 64 queries' retrieved pairs."""
+    from dhr_tpu_torch.retrieval.colbert import full_ranking, maxsim_topk
+
+    secs = {}
+    t = time.perf_counter()
+    out = {"card_vs_cpu_f32": _colbert_card_vs_cpu(seed, toks, q_toks,
+                                                   torch)}
+    secs["card_vs_cpu"] = time.perf_counter() - t
+    model = ["--model", "colbert", "--add-pooler", "--projection-dim", "128",
+             "--batch-size", "256"]
+    t = time.perf_counter()
+    t_p = _run_cli(["encode", *model, "--input", f"{root}/corpus.jsonl",
+                    "--output", f"{root}/p_reps"], "encode")
+    t_q = _run_cli(["encode", *model, "--input", f"{root}/queries.jsonl",
+                    "--output", f"{root}/q_reps", "--encode-is-qry"],
+                   "encode")
+    secs["cli_encode"] = time.perf_counter() - t
+    with np.load(f"{root}/p_reps.npz") as z:
+        p_reps = z["token"]
+    with np.load(f"{root}/q_reps.npz") as z:
+        q_reps = z["token"]
+    if (p_reps.shape != (ENCODE_PASSAGES, 128, 128)
+            or q_reps.shape != (ENCODE_QUERIES, 32, 128)
+            or p_reps.dtype != np.float16 or q_reps.dtype != np.float16):
+        raise AssertionError(f"token reps {p_reps.shape} {p_reps.dtype} / "
+                             f"{q_reps.shape} {q_reps.dtype}")
+    score = ["colbert-score", "--passage-reps", f"{root}/p_reps"]
+    t = time.perf_counter()
+    t_full = _run_cli([*score, "--query-reps", f"{root}/q_reps",
+                       "--full-ranking", "--topk", "1000", "--output",
+                       f"{root}/colbert.trec"], "colbert-score")
+    secs["cli_full_ranking"] = time.perf_counter() - t
+    run = _read_run(f"{root}/colbert.trec")
+    qids = [f"q{i}" for i in range(ENCODE_QUERIES)]
+    if sorted(run) != sorted(qids) or any(
+            len(run[q]) != 1000
+            or not np.isfinite([s for _, s in run[q]]).all() for q in qids):
+        raise AssertionError("the ColBERT run lacks queries, rows or finite "
+                             "scores")
+
+    t = time.perf_counter()
+    cpu_s, cpu_r = full_ranking(q_reps[:4], p_reps, topk=1000, device="cpu")
+    cpu_run = {q: [(str(r), float(s)) for r, s in zip(rr, ss)]
+               for q, rr, ss in zip(qids, cpu_r, cpu_s)}
+    out["vs_cpu_plain_4_queries"] = _compare_runs(run, cpu_run, qids[:4],
+                                                  1e-5)
+    secs["cpu_plain_4"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    np.savez(f"{root}/q128.npz", token=q_reps[:128])
+    with open(f"{root}/q128.npz.ids.json", "w") as f:
+        json.dump(qids[:128], f)
+    t_slab = _run_cli([*score, "--query-reps", f"{root}/q128.npz",
+                       "--full-ranking", "--topk", "1000",
+                       "--plane-budget-gb", "0.25", "--output",
+                       f"{root}/slabs.trec"], "colbert-score")
+    out["slabs_vs_resident_128_queries"] = _compare_runs(
+        _read_run(f"{root}/slabs.trec"), run, qids[:128], 1e-6)
+    secs["cli_slabs_128"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with open(f"{root}/pairs.tsv", "w") as f:
+        for q in qids[:64]:
+            f.writelines(f"{q}\t{d}\n" for d, _ in run[q])
+    t_pairs = _run_cli([*score, "--query-reps", f"{root}/q_reps", "--pairs",
+                        f"{root}/pairs.tsv", "--output",
+                        f"{root}/pairs_scores.tsv"], "colbert-score")
+    with open(f"{root}/pairs_scores.tsv") as f:
+        got = np.asarray([float(line.split("\t")[2]) for line in f])
+    want = np.asarray([s for q in qids[:64] for _, s in run[q]])
+    out["pairs_vs_run_64_queries"] = {
+        "pairs": int(got.size),
+        "max_rel_diff_of_scale": float(np.abs(got - want).max()
+                                       / np.abs(want).max()),
+        "max_rel_diff": float((np.abs(got - want) / np.abs(want)).max())}
+    secs["cli_pairs_64"] = time.perf_counter() - t
+
+    # one 16-query pass over one 512-passage slab on the card, alone, and
+    # its parts: the slab's f32 cast, the GEMM of every position pair, the
+    # max and sum over that block, the merge with 1,000 kept scores
+    q16 = torch.from_numpy(q_reps[:16]).cuda()
+    slab = torch.from_numpy(p_reps[:512]).cuda()
+    with torch.inference_mode():
+        slab_ms = cuda_ms(lambda: maxsim_topk(q16, slab, 1000, 512), 20,
+                          torch)
+        qf, pf = q16.float().reshape(-1, 128), slab.float().reshape(-1, 128)
+        sim = (qf @ pf.T).view(16, 32, 512, 128)
+        kept = torch.cat([torch.randn(16, 1000, device="cuda"),
+                          sim[:, 1:, :, 1:].amax(-1).sum(1)], dim=1)
+        pass_split = {
+            "cast_f32": cuda_ms(lambda: slab.float(), 20, torch),
+            "gemm": cuda_ms(lambda: qf @ pf.T, 20, torch),
+            "max_sum": cuda_ms(
+                lambda: sim[:, 1:, :, 1:].amax(-1).sum(1), 20, torch),
+            "merge_sort": cuda_ms(lambda: torch.sort(
+                kept, dim=1, descending=True, stable=True), 20, torch),
+            "similarity_block_gb": sim.numel() * 4 / 1e9}
+    del q16, slab, qf, pf, sim, kept
+    pair_flops = 2 * 31 * 127 * 128
+    flops = pair_flops * ENCODE_QUERIES * ENCODE_PASSAGES
+    out.update({
+        "passages": ENCODE_PASSAGES, "queries": ENCODE_QUERIES,
+        "plane_gb": p_reps.nbytes / 1e9, "topk": 1000,
+        "encode_passages_per_s_cli_b256": t_p["items_per_s"],
+        "encode_queries_per_s_cli_b256": t_q["items_per_s"],
+        "full_ranking_qps": t_full["qps"],
+        "full_ranking_wall_s": t_full["rank_wall_s"],
+        "full_ranking_tflops": flops / t_full["rank_wall_s"] / 1e12,
+        "share_of_f32_peak": flops / t_full["rank_wall_s"] / F32_FLOPS_PER_S,
+        "flop_bound_s": flops / F32_FLOPS_PER_S,
+        "slab_pass_ms_16x512": slab_ms, "slab_pass_split_ms": pass_split,
+        "slab_pass_tflops": pair_flops * 16 * 512 / slab_ms / 1e9,
+        "slabs_qps_128": t_slab["qps"], "pairs_per_s": t_pairs["pairs_per_s"],
+        "flop_per_pair": pair_flops, "seconds": secs})
+    vc = out["vs_cpu_plain_4_queries"]
+    if vc["scores_equal"] != 4 or vc["ids_equal_up_to_ties"] != 4:
+        raise AssertionError(f"ColBERT card vs CPU plain: {vc}")
+    sv = out["slabs_vs_resident_128_queries"]
+    if sv["scores_equal"] != 128 or sv["ids_exact"] != 128:
+        raise AssertionError(f"ColBERT slabs vs resident: {sv}")
+    if out["pairs_vs_run_64_queries"]["max_rel_diff_of_scale"] > 1e-6:
+        raise AssertionError(f"colbert-score --pairs vs the run: "
+                             f"{out['pairs_vs_run_64_queries']}")
+    return out
+
+
+def _rerank_eval_path(root, seed, toks, q_toks, torch, np):
+    """(b): ``make_pair_scorer`` on the card against the CPU in f32 (dhr on
+    32 pairs, colbert on 8), then the ``rerank-eval`` verb (DHR
+    DistilBERT-base, bf16) over 64 queries x 1,000 candidates of the
+    corpus, 1-3 of them relevant."""
+    from dhr_tpu_torch.data.collate import pad_token_batch
+    from dhr_tpu_torch.data.examples import write_jsonl
+    from dhr_tpu_torch.eval.rerank import make_pair_scorer
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+
+    secs, out = {}, {}
+    t = time.perf_counter()
+    for name, cfg, tree_seed, n in (
+            ("dhr", _dhr_config(torch.float32), seed, 32),
+            ("colbert", _colbert_config(torch.float32), seed + 9, 8)):
+        model = load_flax_params(BiEncoder(cfg), random_flax_params(
+            cfg, torch.Generator().manual_seed(tree_seed)))
+        q = pad_token_batch([t.tolist() for t in q_toks[:n]], 32, 0, 101,
+                            102)
+        p = pad_token_batch([t.tolist() for t in toks[:n]], 128, 0, 101, 102)
+        got = make_pair_scorer(model, cfg, ENCODE_REMOVE_DIMS,
+                               device="cuda")(q, p).cpu()
+        want = make_pair_scorer(model, cfg, ENCODE_REMOVE_DIMS,
+                                device="cpu")(q, p)
+        out[f"{name}_card_vs_cpu_f32_{n}_pairs"] = _rel_diff(got, want,
+                                                             torch)
+        del model
+    secs["card_vs_cpu"] = time.perf_counter() - t
+    if max(out.values()) > 1e-5:
+        raise AssertionError(f"pair scorer card vs CPU f32: {out}")
+
+    rng = np.random.default_rng(seed + 11)
+    rows, n_rel = [], []
+    for i in range(EVAL_RERANK_QUERIES):
+        cand = rng.choice(ENCODE_PASSAGES, EVAL_RERANK_CANDIDATES,
+                          replace=False)
+        n_rel.append(int(rng.integers(1, 4)))
+        rows.extend({"qry_text_id": f"q{i}", "qry_text": q_toks[i].tolist(),
+                     "psg_text_id": str(d), "psg_text": toks[d].tolist(),
+                     "rel": int(j < n_rel[-1])} for j, d in enumerate(cand))
+    write_jsonl(f"{root}/rerank_eval.jsonl", rows)
+    t = time.perf_counter()
+    timing, metrics = _run_cli([
+        "rerank-eval", "--model", "dhr", "--add-pooler", "--projection-dim",
+        "128", "--dlr-out-dim", str(LEX_DIM), "--batch-size", "256",
+        "--input", f"{root}/rerank_eval.jsonl"], "rerank-eval", stdout=True)
+    secs["cli_rerank_eval"] = time.perf_counter() - t
+    if metrics.get("num_queries") != EVAL_RERANK_QUERIES or not all(
+            np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"rerank-eval metrics {metrics}")
+    out.update({"queries": EVAL_RERANK_QUERIES,
+                "candidates_per_query": EVAL_RERANK_CANDIDATES,
+                "relevant_per_query_mean": float(np.mean(n_rel)),
+                "pairs": len(rows), "batch": 256,
+                "pairs_per_s": len(rows) / timing["rerank_wall_s"],
+                "wall_s": timing["rerank_wall_s"],
+                "metrics_random_weights": metrics, "seconds": secs})
+    return out
+
+
+def _beir_dataset(root, seed, np):
+    """A local BEIR directory shaped like SciFact (Thakur et al., 2021,
+    Table 1): 5,183 titled documents of ~214 words (lognormal), 300 test
+    queries of ~12 words, ~1.1 relevant documents a query in
+    ``qrels/test.tsv`` (header row), numeric ids, and 10 queries whose id
+    is a document's (the self-hit filter's case).  Words are Zipf over
+    30,000 terms; each query takes half its words from a relevant
+    document."""
+    rng = np.random.default_rng(seed + 12)
+    d = f"{root}/scifact_like"
+    os.makedirs(f"{d}/qrels")
+    words = np.asarray([f"w{r:x}" for r in range(30_000)])
+    ids = rng.choice(10**7, BEIR_DOCS + BEIR_QUERIES, replace=False)
+    doc_ids = [str(x) for x in ids[:BEIR_DOCS]]
+    sigma = 0.5
+    lens = np.clip(rng.lognormal(np.log(214.0) - sigma**2 / 2, sigma,
+                                 BEIR_DOCS), 20, 1000).astype(int)
+    texts = []
+    with open(f"{d}/corpus.jsonl", "w") as f:
+        for i, n in enumerate(lens):
+            body = words[_zipf_ranks(rng, int(n), len(words), np)]
+            title = words[_zipf_ranks(rng, int(rng.integers(6, 18)),
+                                      len(words), np)]
+            texts.append(body)
+            f.write(json.dumps({"_id": doc_ids[i], "title": " ".join(title),
+                                "text": " ".join(body)}) + "\n")
+    q_ids = [str(x) for x in ids[BEIR_DOCS:]]
+    selves = rng.choice(BEIR_DOCS, BEIR_SELF_HITS, replace=False)
+    for j, s in enumerate(selves):
+        q_ids[j] = doc_ids[s]
+    qrels = []
+    with open(f"{d}/queries.jsonl", "w") as f:
+        for j, q in enumerate(q_ids):
+            rel = [r for r in rng.choice(BEIR_DOCS, 1 + int(rng.random()
+                                                            < 0.1),
+                                         replace=False) if doc_ids[r] != q]
+            rel = rel or [(int(selves[j]) + 1) % BEIR_DOCS]
+            n = int(np.clip(rng.normal(12, 3), 4, 30))
+            own = rng.choice(texts[rel[0]], n // 2)
+            other = words[_zipf_ranks(rng, n - n // 2, len(words), np)]
+            f.write(json.dumps({"_id": q, "text": " ".join(
+                np.concatenate([own, other]))}) + "\n")
+            qrels.extend((q, doc_ids[r]) for r in rel)
+    with open(f"{d}/qrels/test.tsv", "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n")
+        f.writelines(f"{q}\t{doc}\t1\n" for q, doc in qrels)
+    return d, {"documents": BEIR_DOCS, "doc_words_mean": float(lens.mean()),
+               "queries": BEIR_QUERIES, "self_id_queries": BEIR_SELF_HITS,
+               "relevant_per_query": len(qrels) / BEIR_QUERIES}
+
+
+class _BeirCapture:
+    """Records, inside ``with``, what ``evaluate_beir`` searched
+    (``Searcher.search_run``: the index, queries and unfiltered results)
+    and the run it scored (the argument of its ``ndcg_at_k``)."""
+
+    def __enter__(self):
+        from dhr_tpu_torch.eval import beir
+        from dhr_tpu_torch.retrieval.searcher import Searcher
+
+        self.search_run, self.ndcg = Searcher.search_run, beir.ndcg_at_k
+        cap = self
+
+        def search_run(searcher, qids, qv, qi=None):
+            cap.searched = (searcher.index, qids, qv, qi)
+            cap.results = cap.search_run(searcher, qids, qv, qi)
+            return cap.results
+
+        def ndcg(qrels, run, k=10):
+            cap.run = run
+            return cap.ndcg(qrels, run, k)
+
+        Searcher.search_run, beir.ndcg_at_k = search_run, ndcg
+        return self
+
+    def __exit__(self, *exc):
+        from dhr_tpu_torch.eval import beir
+        from dhr_tpu_torch.retrieval.searcher import Searcher
+
+        Searcher.search_run, beir.ndcg_at_k = self.search_run, self.ndcg
+
+
+def _vs_brute_force(cap, torch, np, rel=1e-5):
+    """The captured search's results against ``gip_scores_masked`` over the
+    same device planes and queries, per query at a tolerance of ``rel``
+    times its largest exact score: each returned document's score equals
+    its exact score, and rank by rank the exact score of the returned
+    document equals the exact top-k's (the ranking equals the exact one up
+    to ties, chains of near-ties included)."""
+    from dhr_tpu_torch.ops.gip import gip_scores_masked, pad_indices_for_cls
+
+    index, qids, qv, qi = cap.searched
+    cls = index.dim - index.lex_dim
+    with torch.inference_mode():
+        exact = gip_scores_masked(
+            torch.as_tensor(qv, device=index.device).float(),
+            pad_indices_for_cls(
+                torch.as_tensor(qi, device=index.device).int(), cls),
+            index.values, pad_indices_for_cls(index.indices, cls)).cpu()
+    best = torch.topk(exact, min(1000, exact.shape[1]), dim=1)
+    exact, best_s, best_r = (x.numpy() for x in (exact, *best))
+    row = {str(d): r for r, d in enumerate(index.docids)}
+    results, scores = cap.results
+    out = {"queries": len(qids), "rel_tol_of_scale": rel,
+           "scores_match_exact": 0, "ranks_equal_up_to_ties": 0,
+           "ids_exact": 0, "max_score_diff_of_scale": 0.0,
+           "max_rank_diff_of_scale": 0.0}
+    for b, q in enumerate(map(str, qids)):
+        rows = np.asarray([row[d] for d in results[q]])
+        got = np.asarray(scores[q], np.float32)
+        scale = float(np.abs(best_s[b]).max())
+        d_score = float(np.abs(got - exact[b, rows]).max()) / scale
+        d_rank = float(np.abs(exact[b, rows] - best_s[b]).max()) / scale
+        out["scores_match_exact"] += d_score <= rel
+        out["ranks_equal_up_to_ties"] += (rows.size == best_r.shape[1]
+                                          and d_rank <= rel)
+        out["ids_exact"] += np.array_equal(rows, best_r[b])
+        out["max_score_diff_of_scale"] = max(
+            out["max_score_diff_of_scale"], d_score)
+        out["max_rank_diff_of_scale"] = max(
+            out["max_rank_diff_of_scale"], d_rank)
+    return out
+
+
+def _beir_path(root, seed, torch, np):
+    """(c): ``evaluate_beir`` (what the ``beir`` verb calls) over the
+    SciFact-shaped directory with the DHR DistilBERT-base ``Encoder`` (bf16,
+    batch 32, lengths 512 / 512, length bucketing) and the hashing word
+    tokenizer: theta 0 (K1 over all 896 dims) and theta 0.3 with rerank
+    (K1 + K2, a pool of every row), each against the brute force on the
+    same planes.  Returns the report and the launches of both runs."""
+    from dhr_tpu_torch.encode import EncodeConfig, Encoder
+    from dhr_tpu_torch.eval.beir import evaluate_beir
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from dhr_tpu_torch.retrieval.searcher import SearchConfig
+    from dhr_tpu_torch.utils import profiling
+
+    t = time.perf_counter()
+    d, shape = _beir_dataset(root, seed, np)
+    out = {"dataset": shape,
+           "seconds_write_dataset": time.perf_counter() - t}
+    cfg = _dhr_config(torch.bfloat16)
+    enc = Encoder(load_flax_params(BiEncoder(cfg), random_flax_params(
+        _dhr_config(torch.float32), torch.Generator().manual_seed(seed))),
+        cfg, EncodeConfig(batch_size=32, remove_dims=ENCODE_REMOVE_DIMS))
+    n_batches = -(-BEIR_QUERIES // 64)
+    launches = {k: 0 for k in _counters()}
+    for name, search in (
+            ("theta0", SearchConfig(topk=1000, query_batch=64)),
+            ("theta0.3_rerank", SearchConfig(topk=1000, theta=0.3,
+                                             rerank=True, agip_topk=10000,
+                                             query_batch=64))):
+        profiling.reset()
+        t = time.perf_counter()
+        reset_launches()
+        with _BeirCapture() as cap:
+            metrics = evaluate_beir(enc, search, d, HashTokenizer(),
+                                    cls_id=101, sep_id=102,
+                                    length_bucketing=True)
+        got = read_launches()
+        wall = time.perf_counter() - t
+        split = {k.split(".")[1]: v["total_s"]
+                 for k, v in profiling.report().items()}
+        split["encode"] -= split["tokenize"]  # tokenize runs inside encode
+        results, _ = cap.results
+        vs = _vs_brute_force(cap, torch, np)
+        self_after = sum(q in cap.run[q] for q in cap.run)
+        out[name] = {"metrics_random_weights": metrics, "launches": got,
+                     "wall_s": wall, "split_s": split,
+                     "self_hits_before_filter": sum(
+                         q in results[q] for q in results),
+                     "self_hits_after_filter": self_after,
+                     "vs_brute_force": vs}
+        want_k2 = n_batches if search.rerank else 0
+        if got["partial_gip"] < n_batches or got["rerank_gip"] != want_k2 \
+                or got["gip_candidates"]:
+            raise AssertionError(f"BEIR {name} launches {got}: K1 >= "
+                                 f"{n_batches}, K2 {want_k2}, K3 0")
+        if self_after or metrics["num_queries"] != BEIR_QUERIES:
+            raise AssertionError(f"BEIR {name}: {self_after} self-hits "
+                                 f"after the filter, {metrics}")
+        if vs["scores_match_exact"] != BEIR_QUERIES \
+                or vs["ranks_equal_up_to_ties"] != BEIR_QUERIES:
+            raise AssertionError(f"BEIR {name} vs brute force: {vs}")
+        for k in launches:
+            launches[k] += got[k]
+    return out, launches
+
+
+def phase_eval_path(args, root, torch):
+    """The eval slice at DistilBERT-base width, random weights: (a) ColBERT
+    full-ranking retrieval and ``colbert-score``; (b) ``rerank-eval``; (c)
+    BEIR through ``evaluate_beir``.  Returns the K1 / K2 / K3 launches of
+    (c), the part of the path that runs the kernels."""
+    import numpy as np
+
+    root = f"{root}/eval"
+    os.makedirs(root)
+    secs = {}
+    t = time.perf_counter()
+    _, _, toks, _, q_toks = _encode_corpus(root, args.seed, np)
+    secs["write_corpus"] = time.perf_counter() - t
+    t = time.perf_counter()
+    colbert = _colbert_path(root, toks, q_toks, args.seed, torch, np)
+    secs["colbert"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rerank = _rerank_eval_path(root, args.seed, toks, q_toks, torch, np)
+    secs["rerank_eval"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    beir, launches = _beir_path(root, args.seed, torch, np)
+    secs["beir"] = time.perf_counter() - t
+    emit({"phase": "eval_path", "model": "distilbert-base (6x768, vocab "
+          "30522): ColBERT (projection 128) and DHR (768 + 128 dims)",
+          "weights": f"random: seed {args.seed} (DHR), {args.seed + 9} "
+          "(ColBERT card vs CPU), the CLI verbs' own seed 0",
+          "colbert": colbert, "rerank_eval": rerank, "beir": beir,
+          "launches": launches, "seconds": secs})
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
 # serve_path: the resident service, as the verb and in-process at full size
 # --------------------------------------------------------------------------
 
@@ -2676,6 +3179,7 @@ def main() -> int:
     phase_train_path(args, torch)
     with tempfile.TemporaryDirectory() as root:
         paths, densify_launches = phase_densify_path(args, root, torch)
+        eval_launches = phase_eval_path(args, root, torch)
         index, queries, raw = small_world(args.seed + 1, torch)
         errs = (phase_k1(index, queries, torch),
                 phase_k2(index, queries, args.seed, torch),
@@ -2691,9 +3195,11 @@ def main() -> int:
         serve_launches = phase_serve_path(args, root, paths, searcher,
                                           main_queries, smi, torch)
         del main_queries, paths
-    # the kernels line counts every path: main, fused, densify and serve
+    # the kernels line counts every path: main, fused, densify, eval and
+    # serve
     for k in launches:
-        launches[k] += densify_launches[k] + serve_launches[k]
+        launches[k] += (densify_launches[k] + eval_launches[k]
+                        + serve_launches[k])
     kernels = phase_timing(searcher, batch, launches, errs, torch)
     print(smi, flush=True)
     emit({"kernels": kernels})

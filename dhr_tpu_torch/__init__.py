@@ -12,9 +12,12 @@ Subpackages mirror ``dhr_tpu``:
   argmax; ``rerank_gip``: the exact candidate rerank), each beside its
   plain PyTorch version.
 - ``retrieval``: packed index I/O, device planes, the searcher, pool
-  calibration, the synthetic corpus generator and TREC I/O.
-- ``eval``: ranking metrics (NumPy).
-- ``cli``: the ``index``, ``search``, ``merge-runs`` and ``eval`` verbs.
+  calibration, the synthetic corpus generator, ColBERT MaxSim retrieval
+  and TREC I/O.
+- ``eval``: ranking metrics (NumPy), rerank evaluation of candidate lists
+  and the BEIR harness.
+- ``utils``: format converters, phase timing and profiler traces.
+- ``cli``: the verbs of ``python -m dhr_tpu_torch``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of falling back.

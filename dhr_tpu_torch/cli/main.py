@@ -19,13 +19,23 @@
                   with ``--query-encoder``, reload, 503 shedding);
 - ``merge-runs``  merge per-shard TREC runs;
 - ``eval``        MRR / recall / nDCG of a run against qrels;
+- ``rerank-eval`` score candidate lists (the EvalDataset JSONL) with a
+                  model on the GPU, MAP / RPrec / NDCG / MRR;
+- ``colbert-score``   MaxSim scores of (qid, pid) pairs over saved ColBERT
+                  token reps, or (``--full-ranking``) exact MaxSim
+                  retrieval of every query against every passage -> TREC;
+- ``beir-preprocess``  a local BEIR dataset -> tokenized corpus / query
+                  JSONL and qrels TSV (needs ``transformers``);
+- ``beir``        BEIR zero-shot evaluation of local datasets: encode,
+                  search and NDCG / Recall / R_cap on the GPU (the
+                  tokenizer needs ``transformers``; nothing is fetched);
 - ``info``        the environment as JSON: torch, CUDA, the device, the
                   kernels' build and the C++ host runtime.
 
 Flag names follow ``python -m dhr_tpu``.  Flags of what is not ported yet
 are accepted by name and fail with a message saying so.  ``train``,
-``encode``, ``search``, ``serve`` and the PQ build of ``index --pq-m`` run
-on the GPU;
+``encode``, ``search``, ``serve``, ``rerank-eval``, ``colbert-score``,
+``beir`` and the PQ build of ``index --pq-m`` run on the GPU;
 ``--device cpu`` runs them on the CPU (the plain PyTorch path) instead.
 Every verb also accepts ``--config file.json`` whose keys are the long
 option names (flags given on the command line win).
@@ -85,7 +95,8 @@ def _apply_config_file(args: argparse.Namespace,
 
 def _load_tokenizer(path: str):
     """An HF tokenizer from a local directory; ``transformers`` is imported
-    here only, by the ``prepare-*`` verbs and ``serve --query-encoder``."""
+    here only, by the ``prepare-*`` and ``beir*`` verbs and ``serve
+    --query-encoder``."""
     from transformers import AutoTokenizer
 
     return AutoTokenizer.from_pretrained(path)
@@ -689,6 +700,249 @@ def cmd_eval(args):
     print(json.dumps(out, indent=1))
 
 
+# ------------------------------------------------------------ evaluation --
+
+
+def cmd_rerank_eval(args):
+    """Candidate-list rerank evaluation (reference driver/eval.py).
+
+    Input JSONL rows: {"qry_text_id", "qry_text": [ids], "psg_text_id",
+    "psg_text": [ids], "rel"}, the EvalDataset schema (reference
+    data.py:251-283)."""
+    from dhr_tpu_torch.data.examples import read_jsonl
+    from dhr_tpu_torch.device import resolve_device
+    from dhr_tpu_torch.eval.rerank import evaluate_rerank, make_pair_scorer
+
+    device = resolve_device(args.device)
+    model_cfg = _model_cfg_from_args(args)
+    scorer = make_pair_scorer(_load_init_params(args, model_cfg), model_cfg,
+                              remove_dims=args.remove_dims,
+                              device=device)
+
+    def rows():
+        for r in read_jsonl(args.input):
+            yield (str(r["qry_text_id"]), r["qry_text"],
+                   str(r["psg_text_id"]), r["psg_text"], int(r["rel"]))
+
+    t0 = time.perf_counter()
+    out = evaluate_rerank(
+        scorer, rows(), q_max_len=args.q_max_len, p_max_len=args.p_max_len,
+        batch_size=args.batch_size, max_queries=args.max_queries,
+        cls_id=args.cls_token_id, sep_id=args.sep_token_id,
+        reference_compat=args.reference_ndcg,
+    )
+    wall = time.perf_counter() - t0
+    print(json.dumps(out, indent=1))
+    print("DHR_TIMING " + json.dumps({
+        "verb": "rerank-eval", "device": str(device),
+        "rerank_wall_s": wall}), file=sys.stderr)
+
+
+def _load_token_reps(path: str):
+    """``(reps, ids)`` from ``encode --model colbert`` (either package):
+    the npz's ``token`` array and ``<path>.ids.json``."""
+    with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+        reps = z["token"]
+    with open(path + ".ids.json") as f:
+        ids = json.load(f)
+    return reps, ids
+
+
+def cmd_colbert_score(args):
+    """Offline MaxSim scoring of saved ColBERT token reps.
+
+    Reads ``encode --model colbert`` outputs and a ``qid<TAB>pid[...]``
+    file of candidate pairs; writes ``qid<TAB>pid<TAB>score`` rows (teacher
+    scores for KD binning) or, with ``--trec``, a rerank run.  With
+    ``--full-ranking`` it is an exact MaxSim retriever instead (every query
+    against the whole passage plane, on the device) writing a TREC run; the
+    reference's ColBERT scores candidate pairs only
+    (ColBERT/modeling.py:340-442)."""
+    from dhr_tpu_torch.device import resolve_device
+    from dhr_tpu_torch.retrieval.colbert import full_ranking, score_pairs
+    from dhr_tpu_torch.retrieval.trec import write_run
+
+    device = resolve_device(args.device)
+    q_reps, qids = _load_token_reps(args.query_reps)
+    p_reps, pids = _load_token_reps(args.passage_reps)
+    t0 = time.perf_counter()
+    if args.full_ranking:
+        # conflicting pair-scoring flags fail or warn instead of being
+        # ignored: full ranking always writes a TREC run and reads neither
+        # --pairs nor --batch-size
+        if args.pairs:
+            raise SystemExit(
+                "--pairs conflicts with --full-ranking (full ranking "
+                "scores every query against the whole passage plane)")
+        if args.trec:
+            logger.warning(
+                "--trec is implied by --full-ranking (always a TREC run)")
+        if args.batch_size is not None:
+            logger.warning(
+                "--batch-size only applies to pair scoring; use "
+                "--query-batch / --passage-chunk with --full-ranking")
+        scores, rows = full_ranking(
+            q_reps, p_reps, topk=args.topk, q_batch=args.query_batch,
+            p_chunk=args.passage_chunk,
+            max_plane_bytes=int(args.plane_budget_gb * (1 << 30)),
+            device=device)
+        wall = time.perf_counter() - t0
+        results = {str(q): [str(pids[int(r)]) for r in rr]
+                   for q, rr in zip(qids, rows)}
+        score_map = {str(q): [float(s) for s in ss]
+                     for q, ss in zip(qids, scores)}
+        write_run(args.output, results, score_map, run_name=args.run_name)
+        logger.info("full-ranked %d queries over %d passages -> %s",
+                    len(qids), len(pids), args.output)
+        print("DHR_TIMING " + json.dumps({
+            "verb": "colbert-score", "mode": "full-ranking",
+            "queries": len(qids), "passages": len(pids),
+            "device": str(device), "rank_wall_s": wall,
+            "qps": len(qids) / max(wall, 1e-9)}), file=sys.stderr)
+        return
+    if not args.pairs:
+        raise SystemExit("colbert-score needs --pairs or --full-ranking")
+    pairs = []
+    with open(args.pairs) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                pairs.append((parts[0], parts[1]))
+    scores = score_pairs(q_reps, qids, p_reps, pids, pairs,
+                         batch_size=args.batch_size or 256, device=device)
+    wall = time.perf_counter() - t0
+    if args.trec:
+        from collections import defaultdict
+
+        by_q = defaultdict(list)
+        for (qid, pid), s in zip(pairs, scores):
+            by_q[qid].append((pid, float(s)))
+        results, score_map = {}, {}
+        for qid, rows in by_q.items():
+            rows.sort(key=lambda x: -x[1])
+            results[qid] = [p for p, _ in rows]
+            score_map[qid] = [s for _, s in rows]
+        write_run(args.output, results, score_map, run_name=args.run_name)
+    else:
+        with open(args.output, "w") as f:
+            for (qid, pid), s in zip(pairs, scores):
+                f.write(f"{qid}\t{pid}\t{s}\n")
+    logger.info("scored %d pairs -> %s", len(pairs), args.output)
+    print("DHR_TIMING " + json.dumps({
+        "verb": "colbert-score", "mode": "pairs", "pairs": len(pairs),
+        "device": str(device), "score_wall_s": wall,
+        "pairs_per_s": len(pairs) / max(wall, 1e-9)}), file=sys.stderr)
+
+
+def cmd_beir_preprocess(args):
+    """A BEIR dataset directory -> the pipeline's interchange formats (the
+    reference's tevatron/datasets/beir/preprocess.py role): tokenized corpus
+    and query JSONL and a qrels TSV, for encode / search / eval."""
+    import os
+
+    from dhr_tpu_torch.data.examples import write_jsonl
+    from dhr_tpu_torch.eval.beir import download_beir_dataset, load_beir_dir
+
+    dataset_dir = args.dataset_dir
+    if not dataset_dir:
+        if not args.dataset:
+            raise SystemExit("pass --dataset-dir DIR or --dataset NAME")
+        dataset_dir = download_beir_dataset(args.dataset, args.download_dir)
+    tok = _load_tokenizer(args.tokenizer)
+    corpus, queries, qrels = load_beir_dir(dataset_dir, args.split)
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    def tokenize(text, max_len):
+        ids = tok.encode(text, add_special_tokens=False,
+                         max_length=max_len, truncation=True)
+        return ids or [0]
+
+    write_jsonl(f"{args.output_dir}/corpus.jsonl",
+                ({"text_id": d, "text": tokenize(t, args.p_max_len)}
+                 for d, t in corpus.items()))
+    write_jsonl(f"{args.output_dir}/queries.jsonl",
+                ({"text_id": q, "text": tokenize(t, args.q_max_len)}
+                 for q, t in queries.items()))
+    with open(f"{args.output_dir}/qrels.tsv", "w") as f:
+        for qid, docs in qrels.items():
+            for docid, rel in docs.items():
+                f.write(f"{qid}\t0\t{docid}\t{rel}\n")
+    logger.info("wrote corpus/queries/qrels to %s", args.output_dir)
+
+
+def cmd_beir(args):
+    """BEIR zero-shot evaluation: one local directory, or named datasets
+    (``all``: the 13-dataset suite the reference's README averages over)
+    from directories or zips under ``--download-dir``."""
+    from dhr_tpu_torch.device import resolve_device
+    from dhr_tpu_torch.encode import EncodeConfig, Encoder
+    from dhr_tpu_torch.eval.beir import (
+        BEIR_13,
+        download_beir_dataset,
+        evaluate_beir,
+    )
+    from dhr_tpu_torch.retrieval.searcher import SearchConfig
+
+    if not args.dataset_dir and not args.datasets:
+        raise SystemExit("pass --dataset-dir DIR or --datasets name[,name...]")
+    model_cfg = _model_cfg_from_args(args)
+    if args.pack:
+        if args.length_bucketing:
+            raise SystemExit("--pack and --length-bucketing are exclusive")
+        if model_cfg.model_type not in ("dense", "dhr", "dlr", "agg") or (
+                model_cfg.model_type == "agg" and model_cfg.skip_mlm):
+            raise SystemExit(
+                f"--pack is not supported for {model_cfg.model_type}"
+                f"{' with --skip-mlm' if model_cfg.model_type == 'agg' else ''}"
+                "; use --length-bucketing")
+    tok_dir = args.tokenizer or args.model_name_or_path
+    if not tok_dir:
+        raise SystemExit("beir needs --tokenizer DIR (a local HF tokenizer) "
+                         "or --model-name-or-path")
+    device = resolve_device(args.device)
+    enc = Encoder(_load_init_params(args, model_cfg), model_cfg,
+                  EncodeConfig(batch_size=args.batch_size,
+                               remove_dims=args.remove_dims),
+                  device=device)
+    tok = _load_tokenizer(tok_dir)
+    search_cfg = SearchConfig(
+        topk=args.topk, mode="ip" if args.ip else "gip", theta=args.theta,
+        rerank=args.rerank, agip_topk=args.agip_topk,
+        query_batch=args.query_batch)
+
+    def run_one(dataset_dir):
+        return evaluate_beir(
+            enc, search_cfg, dataset_dir, tok, split=args.split,
+            q_max_len=args.q_max_len, p_max_len=args.p_max_len,
+            cls_id=args.cls_token_id, sep_id=args.sep_token_id,
+            device=device, length_bucketing=args.length_bucketing,
+            pack=args.pack, pack_segments=args.pack_segments)
+
+    if args.dataset_dir:
+        print(json.dumps(run_one(args.dataset_dir), indent=1))
+        return
+    names = (list(BEIR_13) if args.datasets == "all"
+             else [d.strip() for d in args.datasets.split(",") if d.strip()])
+    table = {}
+    for name in names:
+        try:
+            table[name] = run_one(download_beir_dataset(name,
+                                                        args.download_dir))
+            logger.info("%s: %s", name, table[name])
+        except RuntimeError as e:
+            table[name] = {"error": str(e)}
+            logger.error("%s failed: %s", name, e)
+    done = [v for v in table.values() if "NDCG@10" in v]
+    print(json.dumps({
+        "datasets": table,
+        "avg_NDCG@10": (sum(v["NDCG@10"] for v in done) / len(done)
+                        if done else None),
+        "avg_R_cap@100": (sum(v["R_cap@100"] for v in done) / len(done)
+                          if done else None),
+        "num_completed": len(done),
+    }, indent=1))
+
+
 def _finish(p: argparse.ArgumentParser, fn) -> None:
     """Every verb takes ``--config``; ``_subparser`` gives the config rule
     the verb's own defaults."""
@@ -1019,6 +1273,105 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fail when a qrels query has no positive judgment "
                         "instead of counting it as recall 0")
     _finish(p, cmd_eval)
+
+    p = sub.add_parser("rerank-eval")
+    _add_model_args(p)
+    p.add_argument("--input", required=True,
+                   help="EvalDataset JSONL: qry_text_id, qry_text, "
+                        "psg_text_id, psg_text, rel")
+    p.add_argument("--max-queries", type=int, default=None)
+    p.add_argument("--reference-ndcg", action="store_true",
+                   help="reference-exact NDCG (binary grading, max(0.3, "
+                        "norm) floor; tevatron/utils/metrics.py:36-53)")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (cuda), 'cpu' runs "
+                        "on the CPU")
+    _finish(p, cmd_rerank_eval)
+
+    p = sub.add_parser("colbert-score")
+    p.add_argument("--query-reps", required=True,
+                   help="npz from 'encode --model colbert --encode-is-qry'")
+    p.add_argument("--passage-reps", required=True,
+                   help="npz from 'encode --model colbert'")
+    p.add_argument("--pairs", default=None,
+                   help="TSV of qid<TAB>pid candidate pairs (omit with "
+                        "--full-ranking)")
+    p.add_argument("--full-ranking", action="store_true",
+                   help="exact MaxSim retrieval of every query against the "
+                        "whole passage plane (streamed top-k; writes a TREC "
+                        "run)")
+    p.add_argument("--topk", type=int, default=1000,
+                   help="results per query with --full-ranking")
+    p.add_argument("--query-batch", type=int, default=16,
+                   help="queries per device pass with --full-ranking")
+    p.add_argument("--passage-chunk", type=int, default=512,
+                   help="passages per streamed slab with --full-ranking")
+    p.add_argument("--plane-budget-gb", type=float, default=4.0,
+                   help="with --full-ranking: the largest token-rep plane "
+                        "kept on the device; a larger one streams in "
+                        "passage slabs, merged exactly on the host")
+    p.add_argument("--output", required=True)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="pairs per device pass for pair scoring (default "
+                        "256; not used with --full-ranking)")
+    p.add_argument("--trec", action="store_true",
+                   help="write a TREC run instead of a scores TSV")
+    p.add_argument("--run-name", default="dhr_tpu")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (cuda), 'cpu' runs "
+                        "on the CPU")
+    _finish(p, cmd_colbert_score)
+
+    p = sub.add_parser("beir-preprocess")
+    p.add_argument("--dataset-dir", default=None,
+                   help="unzipped BEIR dataset directory")
+    p.add_argument("--dataset", default=None,
+                   help="BEIR dataset name under --download-dir (a directory "
+                        "or <name>.zip there; nothing is downloaded)")
+    p.add_argument("--download-dir", default="./beir_download")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--tokenizer", required=True,
+                   help="local HF tokenizer directory")
+    p.add_argument("--split", default="test")
+    p.add_argument("--q-max-len", type=int, default=512)
+    p.add_argument("--p-max-len", type=int, default=512)
+    p.add_argument("--device", default=None,
+                   help="accepted like the other eval verbs' (one config "
+                        "file serves them all); tokenization runs on the "
+                        "host")
+    _finish(p, cmd_beir_preprocess)
+
+    p = sub.add_parser("beir")
+    _add_model_args(p)
+    p.add_argument("--dataset-dir", default=None,
+                   help="unzipped BEIR dataset directory")
+    p.add_argument("--datasets", default=None,
+                   help="comma-separated BEIR dataset names under "
+                        "--download-dir (directories or <name>.zip), or "
+                        "'all' for the 13-dataset suite")
+    p.add_argument("--download-dir", default="./beir_download")
+    p.add_argument("--tokenizer", default=None,
+                   help="local HF tokenizer directory (default: "
+                        "--model-name-or-path)")
+    p.add_argument("--split", default="test")
+    p.add_argument("--topk", type=int, default=1000)
+    p.add_argument("--theta", type=float, default=0.0)
+    p.add_argument("--IP", dest="ip", action="store_true")
+    p.add_argument("--rerank", action="store_true")
+    p.add_argument("--agip-topk", type=int, default=10000)
+    p.add_argument("--query-batch", type=int, default=64)
+    p.add_argument("--length-bucketing", action="store_true",
+                   help="bucketed variable-length encode batches (fewer pad "
+                        "positions; BEIR results are keyed by id)")
+    p.add_argument("--pack", action="store_true",
+                   help="token-level packing of the corpus encode "
+                        "(dense/dhr/dlr/agg-MLM)")
+    p.add_argument("--pack-segments", type=int, default=8,
+                   help="max documents packed into one row")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (cuda), 'cpu' runs "
+                        "on the CPU")
+    _finish(p, cmd_beir)
     return ap
 
 

@@ -1,6 +1,13 @@
 """Index planes, the searcher, pool calibration, index diagnostics, the
-synthetic corpus and TREC I/O."""
+synthetic corpus, ColBERT MaxSim retrieval and TREC I/O."""
 
+from dhr_tpu_torch.retrieval.colbert import (
+    full_ranking,
+    maxsim_listwise,
+    maxsim_pairwise,
+    maxsim_topk,
+    score_pairs,
+)
 from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
 from dhr_tpu_torch.retrieval.searcher import (
     SearchConfig,
@@ -17,6 +24,7 @@ from dhr_tpu_torch.retrieval.trec import (
 
 __all__ = [
     "DeviceIndex", "PackedIndex", "SearchConfig", "Searcher",
-    "avg_important_dims", "calibrate_pool", "index_stats", "merge_runs",
-    "read_qrels", "read_run", "write_run",
+    "avg_important_dims", "calibrate_pool", "full_ranking", "index_stats",
+    "maxsim_listwise", "maxsim_pairwise", "maxsim_topk", "merge_runs",
+    "read_qrels", "read_run", "score_pairs", "write_run",
 ]

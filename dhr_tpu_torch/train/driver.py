@@ -14,10 +14,10 @@ step would make the host wait for every step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
-import os
 import time
 
 import torch
@@ -39,6 +39,7 @@ from dhr_tpu_torch.train.step import (
     make_packed_train_step,
     make_train_step,
 )
+from dhr_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
 
@@ -158,15 +159,9 @@ def run_training(
         losses.clear()
         t0 = time.time()
 
-    profiler = None
+    profiling = contextlib.ExitStack()
     if run_cfg.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        os.makedirs(run_cfg.profile_dir, exist_ok=True)
-        profiler = profile(activities=acts)
-        profiler.start()
+        profiling.enter_context(trace(run_cfg.profile_dir))
     ckptr = AsyncCheckpointer()
     spe = loader.steps_per_epoch()
     start_epoch = min(start_step // spe, run_cfg.num_epochs) if spe else 0
@@ -218,10 +213,7 @@ def run_training(
                 logger.exception("emergency checkpoint also failed")
         raise
     finally:
-        if profiler is not None:
-            profiler.stop()
-            profiler.export_chrome_trace(
-                os.path.join(run_cfg.profile_dir, "trace.json"))
+        profiling.close()
         if metrics_f is not None:
             metrics_f.close()
     try:

@@ -38,6 +38,9 @@ new |= {"dhr_tpu_torch.serve", "dhr_tpu_torch.native",
         "dhr_tpu_torch.retrieval.stats"}
 new |= {"dhr_tpu_torch.densify_offline." + m for m in (
     "bm25", "corpus", "query")}
+new |= {"dhr_tpu_torch.retrieval.colbert", "dhr_tpu_torch.eval.rerank",
+        "dhr_tpu_torch.eval.beir", "dhr_tpu_torch.utils.convert",
+        "dhr_tpu_torch.utils.profiling"}
 assert new <= set(names), new - set(names)
 assert not bad, bad
 """
@@ -167,3 +170,39 @@ def test_serve_and_unicoil_encoder_default_to_the_gpu(tmp_path,
     (service,) = served
     assert service.searcher.device.type == "cpu"
     assert service.searcher.index.device.type == "cpu"
+
+
+def test_eval_slice_defaults_to_the_gpu(tmp_path, monkeypatch):
+    """Without CUDA, MaxSim retrieval, the pair scorer and the
+    ``colbert-score`` verb raise unless the CPU is asked for."""
+    import json
+
+    from dhr_tpu_torch.cli.main import main
+    from dhr_tpu_torch.eval.rerank import make_pair_scorer
+    from dhr_tpu_torch.models import BiEncoder, EncoderConfig, RetrieverConfig
+    from dhr_tpu_torch.retrieval.colbert import full_ranking, score_pairs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 3, 4)).astype(np.float16)
+    p = rng.standard_normal((5, 6, 4)).astype(np.float16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        full_ranking(q, p, topk=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        score_pairs(q, ["a", "b"], p, list("vwxyz"), [("a", "v")])
+    assert full_ranking(q, p, topk=3, device="cpu")[1].shape == (2, 3)
+    cfg = RetrieverConfig(model_type="colbert", projection_dim=8,
+                          encoder=EncoderConfig.tiny(dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pair_scorer(BiEncoder(cfg), cfg)
+    for name, reps, ids in (("q", q, ["a", "b"]), ("p", p, list("vwxyz"))):
+        np.savez(tmp_path / f"{name}.npz", token=reps)
+        (tmp_path / f"{name}.npz.ids.json").write_text(json.dumps(ids))
+    args = ["colbert-score", "--query-reps", str(tmp_path / "q.npz"),
+            "--passage-reps", str(tmp_path / "p.npz"), "--full-ranking",
+            "--topk", "3", "--output", str(tmp_path / "run.trec")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(args)
+    assert not (tmp_path / "run.trec").exists()
+    main(args + ["--device", "cpu"])
+    assert len((tmp_path / "run.trec").read_text().splitlines()) == 6
