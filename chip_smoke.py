@@ -53,6 +53,17 @@ closed-loop client processes at concurrency 1 / 8 / 64 / 256 (and once
 over the fused searcher), and ``/search_text`` through the DistilBERT-base
 query encoder; served results must equal ``search_run``.
 
+``parallel_path`` comes last: two ranks share the card over gloo (NCCL
+refuses two ranks on one GPU) through ``torchrun``: (a) the bench point
+over the 8,841,823-row corpus, each rank holding half (each draws only its
+own rows), main and fused paths with every rank's K1 / K2 / K3 launches
+asserted, the exact candidates against the one-process search and the
+staged agreement against the TPU's bar; (b) one data-parallel step of the
+DistilBERT-base DHR model, then one FSDP step, against one rank; (d) ``Encoder(mesh=)`` planes
+against one process; then ``search --shard-over-devices`` through the CLI
+and (c) ``serve --shard-over-devices`` (64 requests equal to
+``search_run``, SIGINT) on the densified index.
+
 It checks each path's kernel launch counts and its staged-vs-exact ranking
 agreement.  On a 204,803-row slice it also holds the other search modes
 (row-chunked ip, pq, two-tier escalation) on the card against the same
@@ -62,7 +73,7 @@ row-major) and pq (m=64) with rerank.
 Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line come before the
 last line, ``{"ok": true, "device": {...}}``; the kernels line counts the
-launches of the main, fused, densify, eval and serve paths.  Any failure
+launches of the main, fused, densify, eval, serve and parallel paths.  Any failure
 raises and exits non-zero before the last line.  Without CUDA, or outside a
 checkout, it exits non-zero at once.
 """
@@ -3144,6 +3155,542 @@ def phase_serve_path(args, root, paths, searcher, main_queries, smi, torch):
     return {k: launches[k] + text[k] for k in launches}
 
 
+# --------------------------------------------------------------------------
+# parallel_path: the row-sharded search, DP training, DP encoding and the
+# sharded service, two ranks sharing the one card over gloo
+# --------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_AGREE = 64          # queries held against the one-process results
+PARALLEL_PASSES = 4          # one warm-up, three timed
+PARALLEL_ENCODE = 1_024      # passages of the Encoder(mesh=) check
+PARALLEL_CLI_QUERIES = 64    # densified-index queries of the sharded CLI
+PARALLEL_SERVE_REQUESTS = 64
+
+
+def _wall_ms(fn, iters, torch):
+    """Mean wall ms per call of ``fn`` (synchronized), after one warm-up:
+    the sharded stages block on host collectives, so device events would
+    time the host's part too."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def _par_search(job, z, dev, torch, np):
+    """(a): the bench point over this rank's half of the MS MARCO-sized
+    corpus (each rank draws only its own rows' chunks, the int8 scales
+    from a MAX all-reduce of the amaxes), the fused path, the exact
+    candidates, and the collective layer's ms per batch."""
+    import torch.distributed as dist
+    from torch.distributed import ReduceOp
+
+    from dhr_tpu_torch.parallel import make_mesh
+    from dhr_tpu_torch.parallel.collectives import all_reduce_
+    from dhr_tpu_torch.retrieval import DeviceIndex, SearchConfig, Searcher
+    from dhr_tpu_torch.retrieval.synth import synth_index_planes
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    n = job["rows"]
+    per = -(-n // world)
+    mesh = make_mesh(axis="index")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v, f, scales, _ = synth_index_planes(
+        job["seed"], n, device=dev, rows=(rank * per, rank * per + per),
+        reduce_amax=lambda a: all_reduce_(a, ReduceOp.MAX))
+    index = DeviceIndex.from_arrays(
+        v, f, np.arange(n).astype(str), LEX_DIM, scales, device=dev,
+        mesh=mesh, num_rows=n)
+    del v, f
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qv = torch.from_numpy(z["qv"]).to(dev)
+    qf = torch.from_numpy(z["qf"]).to(dev)
+    cfg = SearchConfig(topk=1000, theta=0.3, rerank=True, agip_topk=10000,
+                       max_important_dims=48, query_batch=128)
+    s = Searcher(index, cfg, device=dev)
+    reset_launches()
+    qps, scores, rows = timed_passes(s, qv, qf, PARALLEL_PASSES - 1)
+    launches = read_launches()
+    n_batches = PARALLEL_PASSES * -(-qv.shape[0] // cfg.query_batch)
+    want = {"partial_gip": n_batches, "rerank_gip": n_batches,
+            "gip_candidates": 0}
+    if launches != want:
+        raise AssertionError(f"rank {rank}: sharded main path launches "
+                             f"{launches}, expected {want}")
+    check_result(scores, rows, qv.shape[0], cfg.topk, n)
+    erows = z["erows"]
+    agree = agreement(rows[:erows.shape[0]], erows)
+
+    # exact candidates (f32, one top-k per shard, merged): the one-process
+    # results of the same configuration
+    exact_cfg = dataclasses.replace(cfg, approx_candidates=False,
+                                    candidate_bf16=False,
+                                    query_batch=PARALLEL_AGREE)
+    reset_launches()
+    xs, xr = Searcher(index, exact_cfg, device=dev).search(
+        qv[:PARALLEL_AGREE], qf[:PARALLEL_AGREE])
+    exact_launches = read_launches()
+    checks = [_ranking_check(xr[i].tolist(), xs[i], z["x_rows"][i].tolist(),
+                             z["x_scores"][i], 1e-6)
+              for i in range(PARALLEL_AGREE)]
+    vs_one = {"queries": PARALLEL_AGREE,
+              "scores_equal_rtol_1e-6": sum(c[0] for c in checks),
+              "ids_exact": sum(c[1] for c in checks),
+              "ids_equal_up_to_ties": sum(c[2] for c in checks),
+              "score_max_abs_diff": float(np.abs(xs - z["x_scores"]).max())}
+
+    fcfg = dataclasses.replace(cfg, fused_candidates=True, candidate_block=8)
+    fused = Searcher(index, fcfg, device=dev)
+    if not fused._fused:
+        raise AssertionError("the sharded fused path did not engage")
+    reset_launches()
+    fqps, _, frows = timed_passes(fused, qv, qf, PARALLEL_PASSES - 1)
+    fused_launches = read_launches()
+    fwant = {"partial_gip": 0, "rerank_gip": n_batches,
+             "gip_candidates": n_batches}
+    if fused_launches != fwant:
+        raise AssertionError(f"rank {rank}: sharded fused launches "
+                             f"{fused_launches}, expected {fwant}")
+    fagree = agreement(frows[:erows.shape[0]], erows)
+
+    # the collective layer on the first batch: the local stage 1 and
+    # selection against the same plus the all-gather and merge, the local
+    # rerank against the same plus the MAX all-reduce
+    bs = cfg.query_batch
+    qvb, qv1b, qib = s.prepare_queries(qv[:bs], qf[:bs])
+    _, cand = s.candidates(qv1b, qib)
+    from dhr_tpu_torch.ops.rerank_gip import rerank_gip
+    from dhr_tpu_torch.ops.topk import merge_topk
+    from dhr_tpu_torch.parallel.collectives import all_gather_cat
+
+    local_rows = cand - index.row_offset
+    lv, lr = s.local_candidates(qv1b, qib)
+    lv, lr = lv.float(), lr.long()
+    gv, gr = all_gather_cat(lv, index.group), all_gather_cat(lr, index.group)
+    layer_ms = {
+        "stage1_local": _wall_ms(lambda: s.local_candidates(qv1b, qib), 3,
+                                 torch),
+        "stage1_with_gather_and_merge": _wall_ms(
+            lambda: s.candidates(qv1b, qib), 3, torch),
+        "all_gather_values_f32": _wall_ms(
+            lambda: all_gather_cat(lv, index.group), 3, torch),
+        "all_gather_rows_i64": _wall_ms(
+            lambda: all_gather_cat(lr, index.group), 3, torch),
+        "merge_topk": _wall_ms(lambda: merge_topk(gv, gr, cfg.agip_topk), 3,
+                               torch),
+        "rerank_local_k2": _wall_ms(lambda: rerank_gip(
+            qvb, qib, local_rows, index.values, index.indices, LEX_DIM), 3,
+            torch),
+        "rerank_with_max_all_reduce": _wall_ms(
+            lambda: s.stage2(qvb, qib, cand), 3, torch),
+    }
+    reset_launches()  # the layer timing's launches are not the path's
+    out = {"rows": n, "shard_rows": index.local_rows,
+           "row_offset": index.row_offset, "index_build_s": build_s,
+           "shard_index_bytes": sum(
+               t.untyped_storage().nbytes() for t in (
+                   index.values, index.values_T, index.indices,
+                   index.indices_T)),
+           "qps_median": float(np.median(qps)), "qps_passes": qps,
+           "fused_qps_median": float(np.median(fqps)),
+           "launches": launches, "fused_launches": fused_launches,
+           "exact_launches": exact_launches,
+           "staged_vs_exact": agree, "fused_staged_vs_exact": fagree,
+           "exact_candidates_vs_one_process": vs_one,
+           "layer_ms_first_batch": layer_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del s, fused, index, cand, local_rows, lv, lr, gv, gr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_batch(seed, np, torch):
+    """The documented model's batch: 24 queries x 8 passages (32 / 128
+    tokens), from a 4,096-passage corpus of encode_path's kind."""
+    rng = np.random.default_rng(seed + 9)
+    toks, _ = _passage_tokens(rng, 4096, np)
+    groups = []
+    for _ in range(24):
+        pos = int(rng.integers(4096))
+        negs = rng.choice(4095, TRAIN_NEGATIVES, replace=False)
+        negs = negs + (negs >= pos)
+        groups.append({
+            "query": rng.choice(toks[pos], int(rng.integers(6, 31))).tolist(),
+            "positive_pids": [str(pos)],
+            "negative_pids": [str(int(x)) for x in negs]})
+    return next(iter(_train_loader(groups, toks, 24, torch).epoch(0))), toks
+
+
+def _par_train(job, dev, torch, np):
+    """(b): one DP step of the DistilBERT-base DHR model (f32, dropout 0.1
+    with the global masks) on 2 ranks against the one-process step on
+    rank 0, then the same step with FSDP (its shards on the card): loss
+    and gradients within 1e-5 relative (L2)."""
+    import torch.distributed as dist
+
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from torch.distributed.tensor import DTensor
+
+    from dhr_tpu_torch.parallel import axes_group, make_mesh, shard_batch
+    from dhr_tpu_torch.parallel.collectives import all_gather_cat
+    from dhr_tpu_torch.train.driver import RunConfig, parallelize
+    from dhr_tpu_torch.train.optimizer import OptimizerConfig
+    from dhr_tpu_torch.train.state import TrainState
+    from dhr_tpu_torch.train.step import LossConfig, make_train_step
+
+    rank = dist.get_rank()
+    cfg = _dhr_config(torch.float32)
+    tree = random_flax_params(cfg, torch.Generator().manual_seed(job["seed"]))
+    batch, _ = _par_batch(job["seed"], np, torch)
+    opt = OptimizerConfig(learning_rate=7e-6, warmup_steps=0,
+                          total_steps=100)
+    one = None
+    if rank == 0:
+        model = load_flax_params(BiEncoder(cfg), tree).to(dev)
+        state = TrainState.create(model, opt)
+        loss = float(make_train_step(model, cfg, LossConfig())(
+            state, batch, job["seed"]))
+        one = (loss, _grads(model))
+        del model, state
+        torch.cuda.empty_cache()
+    mesh = make_mesh()
+    model = load_flax_params(BiEncoder(cfg), tree).to(dev)
+    state = TrainState.create(model, opt,
+                              data_group=axes_group(mesh, ("data",)))
+    step = make_train_step(model, cfg, LossConfig())
+    local = shard_batch(batch, mesh)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = float(step(state, local, job["seed"]))
+    step_s = time.perf_counter() - t
+    out = {"queries": 24, "passages": 192, "local_queries": 12,
+           "loss": loss, "step_s_first": step_s}
+    if one is not None:
+        l2, mx = _grad_rel_diff(_grads(model), one[1])
+        out.update(loss_one_process=one[0],
+                   loss_rel_diff=abs(loss - one[0]) / abs(one[0]),
+                   grad_rel_l2_diff=l2, grad_max_rel_diff=mx)
+        if not (out["loss_rel_diff"] <= 1e-5 and l2 <= 1e-5):
+            raise AssertionError(f"DP step vs one process: {out}")
+    del model, state
+    torch.cuda.empty_cache()
+    # the same step with FSDP over the 2 ranks: a gloo mesh of ranks on
+    # the card lives on the card, so its parameter shards stay there
+    model = load_flax_params(BiEncoder(cfg), tree).to(dev)
+    state = TrainState.create(model, opt)
+    state.data_group = parallelize(model, mesh, RunConfig(fsdp=True))
+    out["fsdp_params_on_card"] = all(p.device.type == "cuda"
+                                     for p in model.parameters())
+    t = time.perf_counter()
+    loss = float(make_train_step(model, cfg, LossConfig())(
+        state, local, job["seed"]))
+    out["fsdp_step_s_first"] = time.perf_counter() - t
+    # the sharded gradients gathered with c10d's all_gather: the functional
+    # collectives of DTensor.full_tensor crash under gloo with CUDA tensors
+    # (torch 2.11)
+    grads = {n: (all_gather_cat(p.grad.to_local(), dim=0)
+                 if isinstance(p.grad, DTensor) else p.grad).float().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    if one is not None:
+        l2, mx = _grad_rel_diff(grads, one[1])
+        out.update(fsdp_loss_rel_diff=abs(loss - one[0]) / abs(one[0]),
+                   fsdp_grad_rel_l2_diff=l2, fsdp_grad_max_rel_diff=mx)
+        if not (out["fsdp_params_on_card"]
+                and out["fsdp_loss_rel_diff"] <= 1e-5 and l2 <= 1e-5):
+            raise AssertionError(f"FSDP step vs one process: {out}")
+    del model, state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_encode(job, dev, torch, np):
+    """(d): Encoder(mesh=) planes of 1,024 passages (f32 model, batch 128:
+    64 rows a rank) against the one-process Encoder on rank 0."""
+    import torch.distributed as dist
+
+    from dhr_tpu_torch.encode import EncodeConfig, Encoder, iter_batches
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from dhr_tpu_torch.parallel import make_mesh
+
+    rank = dist.get_rank()
+    cfg = _dhr_config(torch.float32)
+    model = load_flax_params(BiEncoder(cfg), random_flax_params(
+        cfg, torch.Generator().manual_seed(job["seed"])))
+    rng = np.random.default_rng(job["seed"] + 11)
+    toks, _ = _passage_tokens(rng, PARALLEL_ENCODE, np)
+    ids = np.zeros((PARALLEL_ENCODE, 128), np.int32)
+    mask = np.zeros_like(ids)
+    for i, t in enumerate(toks):
+        row = [101, *t.tolist(), 102]
+        ids[i, :len(row)] = row
+        mask[i, :len(row)] = 1
+    docids = [str(i) for i in range(PARALLEL_ENCODE)]
+    ecfg = EncodeConfig(batch_size=128, remove_dims=ENCODE_REMOVE_DIMS)
+    sharded = Encoder(model, cfg, ecfg, device=dev, mesh=make_mesh())
+    t = time.perf_counter()
+    got = sharded.encode_corpus(iter_batches(docids, ids, mask, 128))
+    out = {"passages": PARALLEL_ENCODE, "sharded_s": time.perf_counter() - t}
+    if rank == 0:
+        want = Encoder(model, cfg, ecfg, device=dev).encode_corpus(
+            iter_batches(docids, ids, mask, 128))
+        out.update(
+            values_byte_equal=got.values.tobytes() == want.values.tobytes(),
+            indices_byte_equal=(got.indices.tobytes()
+                                == want.indices.tobytes()),
+            values_differing=int((got.values != want.values).sum()),
+            indices_differing=int((got.indices != want.indices).sum()),
+            docids_equal=list(got.docids) == list(want.docids))
+        if not (out["values_byte_equal"] and out["indices_byte_equal"]
+                and out["docids_equal"]):
+            raise AssertionError(f"Encoder(mesh=) vs one process: {out}")
+    del sharded
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_worker(job_dir: str) -> int:
+    """One rank of parallel_path (launched by torchrun): (a), (b) and (d);
+    writes ``rank<r>.json`` into ``job_dir``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dhr_tpu_torch.parallel import init_distributed
+
+    dev = init_distributed("gloo")  # two ranks share the card: not NCCL
+    with open(os.path.join(job_dir, "job.json")) as f:
+        job = json.load(f)
+    z = dict(np.load(os.path.join(job_dir, "queries.npz")))
+    secs, out = {}, {"rank": dist.get_rank(), "device": str(dev)}
+    for name, fn in (("search", lambda: _par_search(job, z, dev, torch,
+                                                    np)),
+                     ("train", lambda: _par_train(job, dev, torch, np)),
+                     ("encode", lambda: _par_encode(job, dev, torch, np))):
+        t = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t
+    out["seconds"] = secs
+    with open(os.path.join(job_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(argv, timeout):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2
+    <argv>``; raises with the output's tail unless it exits 0."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(PARALLEL_RANKS), *argv]
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    if p.returncode:
+        raise AssertionError(f"{' '.join(argv[:3])} on {PARALLEL_RANKS} "
+                             f"ranks exited {p.returncode}:\n"
+                             f"{p.stdout[-3000:]}\n{p.stderr[-6000:]}")
+    return p
+
+
+def _sharded_search_cli(root, index_path, queries):
+    """``search --shard-over-devices`` under torchrun (gloo, two ranks on
+    the card) against the one-process ``search`` on the same index: the
+    TREC runs must agree (exact candidates, f32)."""
+    import numpy as np
+
+    qv, qi, qids = queries
+    k = PARALLEL_CLI_QUERIES
+    qpath = f"{root}/par_q.npz"
+    np.savez(qpath, values=qv[:k], indices=qi[:k])
+    with open(qpath + ".qids.json", "w") as f:
+        json.dump(list(qids[:k]), f)
+    flags = ["--index-path", index_path, "--query-path", qpath,
+             *DENSIFY_SEARCH, "--exact-candidates", "--no-candidate-bf16",
+             "--topk", "100"]
+    one = _run_cli(["search", *flags, "--output", f"{root}/par_one.trec"],
+                   verb="search")
+    t = time.perf_counter()
+    p = _torchrun(["-m", "dhr_tpu_torch", "search", *flags, "--output",
+                   f"{root}/par_sharded.trec", "--shard-over-devices",
+                   "--dist-backend", "gloo"], 600)
+    wall = time.perf_counter() - t
+    timing = _timing_line(p.stderr, "search")
+    cmp = _compare_runs(_read_run(f"{root}/par_sharded.trec"),
+                        _read_run(f"{root}/par_one.trec"), list(qids[:k]),
+                        1e-6)
+    out = {"queries": k, "vs_one_process": cmp, "shards": timing["shards"],
+           "sharded_qps": timing["qps"], "one_process_qps": one["qps"],
+           "command_wall_s": wall}
+    if timing["shards"] != PARALLEL_RANKS or cmp["scores_equal"] != k \
+            or cmp["ids_equal_up_to_ties"] != k:
+        raise AssertionError(f"sharded search CLI: {out}")
+    return out
+
+
+def _sharded_serve(root, index_path, queries, torch):
+    """(c): ``serve --shard-over-devices`` as two rank processes (the
+    launcher's environment set here, so SIGINT reaches rank 0 alone):
+    64 single-query requests, 8 at a time, each equal to ``search_run``
+    on one process; /stats reports the shards; SIGINT stops both."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from dhr_tpu_torch.retrieval import (
+        DeviceIndex, PackedIndex, SearchConfig, Searcher)
+
+    qv, qi, qids = queries
+    k = PARALLEL_SERVE_REQUESTS
+    cfg = SearchConfig(topk=100, theta=0.1, rerank=True, agip_topk=10000,
+                       approx_candidates=False, candidate_bf16=False,
+                       query_batch=8)
+    direct = Searcher(DeviceIndex.from_packed(PackedIndex.load(index_path),
+                                              device="cuda"), cfg)
+    want_r, want_s = direct.search_run(list(qids[:k]), qv[:k], qi[:k])
+    del direct
+    torch.cuda.empty_cache()
+    port, master = _free_port(), _free_port()
+    procs = []
+    for r in range(PARALLEL_RANKS):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(PARALLEL_RANKS), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(master))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dhr_tpu_torch", "serve", "--index-path",
+             index_path, "--port", str(port), "--theta", "0.1", "--rerank",
+             "--agip-topk", "10000", "--topk", "100", "--exact-candidates",
+             "--no-candidate-bf16", "--query-batch", "8", "--micro-batch-ms",
+             "2", "--shard-over-devices", "--dist-backend", "gloo"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    out = {}
+    try:
+        deadline = time.time() + 240
+        while True:
+            try:
+                _http(port, "/healthz", timeout=5)
+                break
+            except OSError:
+                if time.time() > deadline or any(
+                        p.poll() is not None for p in procs):
+                    raise AssertionError("the sharded service did not "
+                                         "start")
+                time.sleep(0.5)
+
+        def one(i):
+            return (qids[i], None) + _http(port, "/search", {
+                "values": qv[i:i + 1].tolist(),
+                "indices": qi[i:i + 1].tolist(),
+                "qids": [qids[i]]})[:2]
+
+        t = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            done = list(pool.map(one, range(k)))
+        wall = time.perf_counter() - t
+        out["requests"] = _served_equal(done, want_r, want_s)
+        out["qps_concurrency_8"] = k / wall
+        _, stats, _ = _http(port, "/stats")
+        out["sharded_over"] = stats["sharded_over"]
+        out["micro_batches_run"] = stats["micro_batches_run"]
+    finally:
+        if procs[0].poll() is None:
+            procs[0].send_signal(signal.SIGINT)
+        codes = []
+        for p in procs:
+            try:
+                p.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+            codes.append(p.returncode)
+    out["exit_codes"] = codes
+    if out.get("sharded_over") != PARALLEL_RANKS or codes != [0] * len(
+            codes):
+        raise AssertionError(f"sharded serve: {out}")
+    return out
+
+
+def parallel_reference(searcher, queries, torch):
+    """What parallel_path holds the shards against, from the main path's
+    one-process searcher: the exact-candidate results (f32, one top-k) of
+    its first queries and the brute-force rows."""
+    from dhr_tpu_torch.retrieval import Searcher
+
+    qv, qf, erows = queries
+    cfg = dataclasses.replace(searcher.config, approx_candidates=False,
+                              candidate_bf16=False,
+                              query_batch=PARALLEL_AGREE)
+    xs, xr = Searcher(searcher.index, cfg, device=searcher.device).search(
+        qv[:PARALLEL_AGREE], qf[:PARALLEL_AGREE])
+    return {"qv": qv.cpu().numpy(), "qf": qf.cpu().numpy(), "erows": erows,
+            "x_scores": xs, "x_rows": xr}
+
+
+def phase_parallel_path(args, root, index_path, dense_queries, ref, smi,
+                        torch):
+    """Two ranks share the card over gloo: (a) the bench-point search over
+    the MS MARCO-sized corpus, each rank holding half (plus the fused path
+    and the exact candidates against one process), (b) the DP step of the
+    DistilBERT-base DHR model, (d) Encoder(mesh=) (all three in one
+    torchrun job), then ``search --shard-over-devices`` through the CLI and
+    (c) the sharded service, both on the densified index.  Returns the
+    kernel launches of (a)'s paths, summed over the ranks."""
+    import numpy as np
+
+    job = os.path.join(root, "parallel_job")
+    os.makedirs(job, exist_ok=True)
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump({"rows": args.rows, "seed": args.seed}, f)
+    np.savez(os.path.join(job, "queries.npz"), **ref)
+    secs, out = {}, {"phase": "parallel_path", "card": smi,
+                     "ranks": PARALLEL_RANKS, "backend": "gloo",
+                     "note": "two ranks share one card: q/s and ms are of "
+                             "both ranks' work on one H100"}
+    t = time.perf_counter()
+    _torchrun([os.path.abspath(__file__), "--parallel-worker", job], 900)
+    secs["torchrun_job"] = time.perf_counter() - t
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(job, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["ranks_detail"] = ranks
+    for res in ranks:
+        for k, a in res["search"]["staged_vs_exact"].items():
+            if a < TPU_AGREEMENT[k]:
+                raise AssertionError(
+                    f"sharded staged-vs-exact agreement@{k} = {a} < the "
+                    f"TPU's {TPU_AGREEMENT[k]}")
+        for k, a in res["search"]["fused_staged_vs_exact"].items():
+            if a < 0.99:
+                raise AssertionError(f"sharded fused agreement@{k} = {a}")
+        x = res["search"]["exact_candidates_vs_one_process"]
+        if x["scores_equal_rtol_1e-6"] != PARALLEL_AGREE \
+                or x["ids_equal_up_to_ties"] != PARALLEL_AGREE:
+            raise AssertionError(f"sharded exact candidates vs one "
+                                 f"process: {x}")
+    t = time.perf_counter()
+    out["search_cli"] = _sharded_search_cli(root, index_path, dense_queries)
+    secs["search_cli"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["serve"] = _sharded_serve(root, index_path, dense_queries, torch)
+    secs["serve"] = time.perf_counter() - t
+    out["seconds"] = secs
+    emit(out)
+    launches = {k: 0 for k in _counters()}
+    for res in ranks:
+        for key in ("launches", "fused_launches"):
+            for k, v in res["search"][key].items():
+                launches[k] += v
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=MSMARCO_PASSAGES,
@@ -3151,6 +3698,8 @@ def main() -> int:
                          "MARCO passage count)")
     ap.add_argument("--queries", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parallel-worker", default=None,
+                    help=argparse.SUPPRESS)  # one rank of parallel_path
     args = ap.parse_args()
 
     import torch
@@ -3172,6 +3721,8 @@ def main() -> int:
         print(f"chip_smoke: dhr_tpu_torch comes from {pkg}, not from this "
               "checkout", file=sys.stderr)
         return 1
+    if args.parallel_worker:
+        return parallel_worker(args.parallel_worker)
 
     name, smi = phase_device(torch)
     phase_build()
@@ -3194,13 +3745,24 @@ def main() -> int:
         phase_modes_full(searcher, main_queries, torch)
         serve_launches = phase_serve_path(args, root, paths, searcher,
                                           main_queries, smi, torch)
-        del main_queries, paths
-    # the kernels line counts every path: main, fused, densify, eval and
-    # serve
-    for k in launches:
-        launches[k] += (densify_launches[k] + eval_launches[k]
-                        + serve_launches[k])
-    kernels = phase_timing(searcher, batch, launches, errs, torch)
+        # the kernels line counts every path: main, fused, densify, eval,
+        # serve and parallel
+        for k in launches:
+            launches[k] += (densify_launches[k] + eval_launches[k]
+                            + serve_launches[k])
+        kernels = phase_timing(searcher, batch, launches, errs, torch)
+        ref = parallel_reference(searcher, main_queries, torch)
+        # the ranks hold the index (half each): free the parent's first
+        del searcher, batch, main_queries
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        parallel_launches = phase_parallel_path(
+            args, root, paths["index"], paths["queries"], ref, smi, torch)
+        del paths
+    for kern in kernels:
+        kern["launches"] += parallel_launches[kern["name"]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

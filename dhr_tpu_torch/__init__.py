@@ -1,8 +1,10 @@
 """dhr_tpu_torch — the PyTorch / CUDA port of dhr_tpu for NVIDIA Hopper.
 
-The search subsystem of ``dhr_tpu`` on one GPU: gip, ip and pq search over
-a DHR index, fused candidates, row chunking, escalation, pool calibration,
-and evaluation.
+Everything ``dhr_tpu`` does: gip, ip and pq search over a DHR index (fused
+candidates, row chunking, escalation, pool calibration), encoding,
+training, offline densification, serving and evaluation, on one GPU or,
+through ``parallel``, over ranks of ``torch.distributed`` (row-sharded
+search and serving, data-parallel encoding, DP / FSDP / TP training).
 
 Subpackages mirror ``dhr_tpu``:
 
@@ -17,6 +19,9 @@ Subpackages mirror ``dhr_tpu``:
 - ``eval``: ranking metrics (NumPy), rerank evaluation of candidate lists
   and the BEIR harness.
 - ``utils``: format converters, phase timing and profiler traces.
+- ``parallel``: process groups and device meshes (``torchrun``, NCCL or
+  gloo), sharding helpers, the collectives of the sharded paths, and the
+  TP / FSDP parameter rules.
 - ``cli``: the verbs of ``python -m dhr_tpu_torch``.
 
 Entry points run on the CUDA device unless the caller passes

@@ -55,7 +55,6 @@ import numpy as np
 logger = logging.getLogger("dhr_tpu_torch")
 
 _UNPORTED_SEARCH = {
-    "--shard-over-devices": "multi-GPU sharding",
     "--candidate-recall": "approximate candidate recall targets",
 }
 
@@ -253,6 +252,18 @@ def cmd_train(args):
     from dhr_tpu_torch.train.optimizer import OptimizerConfig
     from dhr_tpu_torch.train.step import LossConfig
 
+    mesh = None
+    from dhr_tpu_torch.parallel.mesh import is_rank0, launched
+
+    if launched():
+        # one process per rank (torchrun): data-parallel over every rank,
+        # --batch-size the global batch
+        from dhr_tpu_torch.parallel.mesh import (
+            DATA_AXIS, init_distributed, make_mesh)
+
+        args.device = init_distributed(args.dist_backend, device=args.device,
+                                       init_method=args.dist_init_method)
+        mesh = make_mesh(axis=DATA_AXIS)
     device = resolve_device(args.device)
     model_cfg = _model_cfg_from_args(args)
     model = _load_init_params(args, model_cfg)
@@ -289,8 +300,10 @@ def cmd_train(args):
             p_max_len=args.p_max_len, seed=args.seed,
             cls_id=args.cls_token_id, sep_id=args.sep_token_id),
         corpus=corpus, kd=args.kd, tasb_clusters=clusters, model=model,
-        teacher=teacher, device=device)
+        teacher=teacher, device=device, mesh=mesh)
     train_s = time.perf_counter() - t0
+    if not is_rank0():
+        return
     # the reference's save format (save_pretrained + sidecars), which both
     # packages load; families without an MLM head export encoder-only
     hf_config = None
@@ -531,11 +544,47 @@ def _search_config(args):
     )
 
 
+def _index_mesh(args):
+    """The row-sharding mesh of ``--shard-over-devices``, or None.
+
+    Under a launcher (torchrun) the index shards over every rank, each
+    joining the process group with ``--dist-backend`` (default nccl on the
+    card, gloo on the CPU; gloo lets several ranks share one card) and
+    ``args.device`` becoming its device.  With no launcher, one visible
+    card is one shard (the reference on one device); several cards need
+    the launcher, named in the error."""
+    if not args.shard_over_devices:
+        return None
+    from dhr_tpu_torch.device import resolve_device
+    from dhr_tpu_torch.parallel.mesh import (
+        INDEX_AXIS, init_distributed, launched, make_mesh)
+
+    if not launched():
+        dev = resolve_device(args.device)
+        if dev.type == "cuda":
+            import torch
+
+            n = torch.cuda.device_count()
+            if n > 1:
+                raise SystemExit(
+                    f"--shard-over-devices sees {n} cards and no launcher: "
+                    f"run one process per card, e.g. torchrun "
+                    f"--nproc-per-node {n} -m dhr_tpu_torch "
+                    f"{args.fn.__name__.removeprefix('cmd_')} "
+                    f"--shard-over-devices ...")
+        return None
+    args.device = init_distributed(args.dist_backend, device=args.device,
+                                   init_method=args.dist_init_method)
+    return make_mesh(axis=INDEX_AXIS)
+
+
 def cmd_search(args):
+    from dhr_tpu_torch.parallel.mesh import is_rank0
     from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
     from dhr_tpu_torch.retrieval.searcher import Searcher, calibrate_pool
     from dhr_tpu_torch.retrieval.trec import write_run
 
+    mesh = _index_mesh(args)
     packed = PackedIndex.load(args.index_path)
     if args.total_shard > 1:
         per = packed.num_rows // args.total_shard
@@ -546,21 +595,30 @@ def cmd_search(args):
     qv, qi, qids = _load_queries(args.query_path)
     index = DeviceIndex.from_packed(packed, value_dtype=_value_dtype(args),
                                     layout=_resolve_layout(args),
-                                    device=args.device)
+                                    device=args.device, mesh=mesh)
+    del packed
     cfg = _search_config(args)
+    # every rank runs the same calls (the sharded stages are collective);
+    # rank 0 alone writes
     if args.pool_calibrate:
-        _report(calibrate_pool(
+        report = calibrate_pool(
             index, cfg, qv, qi,
             pools=[int(x) for x in args.pool_calibrate.split(",")],
             overlap_target=args.pool_overlap_target,
-            passes=args.pool_passes), args.output)
+            passes=args.pool_passes)
+        if is_rank0():
+            _report(report, args.output)
         return
     searcher = Searcher(index, cfg, device=args.device)
     if args.escalate_calibrate:
-        _report(searcher.calibrate_escalation(
-            qv, qi, miss_mass_target=args.escalate_miss_mass), args.output)
+        report = searcher.calibrate_escalation(
+            qv, qi, miss_mass_target=args.escalate_miss_mass)
+        if is_rank0():
+            _report(report, args.output)
         return
     results, scores = searcher.search_run(qids, qv, qi)
+    if not is_rank0():
+        return
     write_run(args.output, results, scores, run_name=args.run_name)
     logger.info("wrote %s (%d queries)", args.output, len(results))
     print("DHR_TIMING " + json.dumps(
@@ -571,11 +629,14 @@ def cmd_serve(args):
     from dhr_tpu_torch.device import resolve_device
     from dhr_tpu_torch.retrieval.index import DeviceIndex, PackedIndex
     from dhr_tpu_torch.retrieval.searcher import Searcher
-    from dhr_tpu_torch.serve import SearchService, serve_service
+    from dhr_tpu_torch.parallel.mesh import is_rank0
+    from dhr_tpu_torch.serve import (
+        Lockstep, SearchService, follow, serve_service)
 
+    mesh = _index_mesh(args)
     device = resolve_device(args.device)
     query_encoder = None
-    if args.query_encoder:
+    if args.query_encoder and is_rank0():
         # resident text -> vector encoder for the /search_text endpoint
         from dhr_tpu_torch.encode import (
             EncodeConfig,
@@ -602,28 +663,40 @@ def cmd_serve(args):
         # service over new data"
         return DeviceIndex.from_packed(
             PackedIndex.load(path), value_dtype=_value_dtype(args),
-            layout=_resolve_layout(args), device=device)
+            layout=_resolve_layout(args), device=device, mesh=mesh)
 
-    searcher = Searcher(index_loader(args.index_path), _search_config(args),
-                        device=device)
-    small = None
-    if args.micro_batch_ms > 0 and args.low_latency_batch > 0:
-        # the SAME DeviceIndex: no second copy of the planes
-        small = Searcher(searcher.index, dataclasses.replace(
-            searcher.config, query_batch=args.low_latency_batch),
-            device=device)
+    def make_searchers(index):
+        main = Searcher(index, _search_config(args), device=device)
+        small = None
+        if args.micro_batch_ms > 0 and args.low_latency_batch > 0:
+            # the SAME DeviceIndex: no second copy of the planes
+            small = Searcher(index, dataclasses.replace(
+                main.config, query_batch=args.low_latency_batch),
+                device=device)
+        return {"main": main, "small": small}
+
+    pair = make_searchers(index_loader(args.index_path))
+    if not is_rank0():
+        # a follower: rank 0 serves HTTP and sends every search to us
+        follow(pair, index_loader, make_searchers)
+        return
+    lockstep = Lockstep() if mesh is not None else None
     service = SearchService(
-        searcher, micro_batch_ms=args.micro_batch_ms,
-        small_searcher=small, query_encoder=query_encoder,
+        pair["main"], micro_batch_ms=args.micro_batch_ms,
+        small_searcher=pair["small"], query_encoder=query_encoder,
         max_pending=args.max_pending,
         index_loader=index_loader if args.allow_reload else None,
-        reload_token=args.reload_token)
+        reload_token=args.reload_token, lockstep=lockstep)
     # this frame lives for the whole serve loop: drop its searcher
     # references so a free_first reload can free the planes
     threaded = args.micro_batch_ms > 0
-    del searcher, small
-    serve_service(service, host=args.host, port=args.port,
-                  threaded=threaded)
+    del pair
+    try:
+        serve_service(service, host=args.host, port=args.port,
+                      threaded=threaded)
+    finally:
+        if lockstep is not None:
+            lockstep.stop()
 
 
 def cmd_info(args):
@@ -981,6 +1054,21 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--p-max-len", type=int, default=128)
 
 
+def _add_shard_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--shard-over-devices", action="store_true",
+                   help="row-shard the index over the ranks of a launcher "
+                        "(torchrun --nproc-per-node N -m dhr_tpu_torch "
+                        "...): each rank holds its rows, rank 0 writes")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="with --shard-over-devices: nccl (the default on "
+                        "the card, one card per rank) or gloo (the CPU, or "
+                        "several ranks sharing one card)")
+    p.add_argument("--dist-init-method", default=None,
+                   help="with --shard-over-devices: torch.distributed "
+                        "init_method (default env://, torchrun's "
+                        "MASTER_ADDR / MASTER_PORT), e.g. file:///path")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m dhr_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -1056,6 +1144,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (cuda), 'cpu' runs "
                         "on the CPU")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="under torchrun (data-parallel over the ranks): "
+                        "nccl (default on the card) or gloo")
+    p.add_argument("--dist-init-method", default=None,
+                   help="under a launcher: torch.distributed init_method "
+                        "(default env://)")
     _finish(p, cmd_train)
 
     p = sub.add_parser("encode")
@@ -1182,6 +1276,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (cuda), 'cpu' runs "
                         "the plain PyTorch path")
+    _add_shard_args(p)
     for flag, what in _UNPORTED_SEARCH.items():
         p.add_argument(flag, action=_Unported, what=what)
     _finish(p, cmd_search)
@@ -1250,6 +1345,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (cuda), 'cpu' runs "
                         "the plain PyTorch path")
+    _add_shard_args(p)
     for flag, what in _UNPORTED_SEARCH.items():
         p.add_argument(flag, action=_Unported, what=what)
     _finish(p, cmd_serve)
@@ -1380,7 +1476,12 @@ def main(argv=None):
                         format="%(asctime)s %(name)s %(message)s")
     parser = build_parser()
     args = _apply_config_file(parser.parse_args(argv), parser)
-    args.fn(args)
+    try:
+        args.fn(args)
+    finally:
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_initialized():  # a sharded verb
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

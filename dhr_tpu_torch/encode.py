@@ -16,6 +16,12 @@ on-disk format the reference writes.  Batches are not padded to
 ``batch_size`` (the reference pads them for one compiled shape); the
 outputs are the same.
 
+Data-parallel (``Encoder(mesh=)``, one process per rank): every rank is
+given the same batches; each batch is zero-padded to a multiple of the
+rank count, each rank encodes its rows (plain or packed), and the planes
+are all-gathered in batch order with the pad rows dropped, so every rank
+returns the one-process ``PackedIndex``.
+
 Token packing (:func:`plan_packing`, :func:`collate_packed`,
 :func:`packed_encode_batches`) puts several documents in one row under
 block-diagonal attention, so pad work drops to the row-fill slack;
@@ -50,17 +56,47 @@ class Encoder:
 
     ``device`` defaults to the GPU (raising without one); the encoder keeps
     its own copy of ``model`` there, with the linear and embedding weights
-    cast to the compute dtype once.
+    cast to the compute dtype once.  ``mesh``: encode data-parallel over
+    its ranks (see the module docstring).
     """
 
     def __init__(self, model: BiEncoder, cfg: RetrieverConfig,
                  encode_cfg: EncodeConfig = EncodeConfig(),
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.encode_cfg = encode_cfg
         self.model = compute_copy(model, cfg.encoder.dtype,
                                   self.device).eval()
+        self._group = self._shard = None
+        if mesh is not None and mesh.size() > 1:
+            from dhr_tpu_torch.parallel.mesh import (
+                axes_group, row_axes, shard_coords)
+
+            axes = row_axes(mesh, mesh.mesh_dim_names[-1])
+            self._group = axes_group(mesh, axes)
+            self._shard = shard_coords(mesh, axes)
+
+    def _local(self, arrays):
+        """This rank's rows of a batch's row arrays, zero-padded to a
+        multiple of the rank count; unsharded, the arrays."""
+        if self._group is None:
+            return arrays
+        from dhr_tpu_torch.parallel.mesh import (
+            local_rows, pad_rows_to_multiple)
+
+        index, count = self._shard
+        return [local_rows(pad_rows_to_multiple(np.asarray(a), count)[0],
+                           index, count) for a in arrays]
+
+    def _gathered(self, t, rows: int):
+        """Every rank's ``t`` in rank order, the first ``rows`` kept (the
+        pad rows dropped); unsharded, ``t``."""
+        if self._group is None or t is None:
+            return t
+        from dhr_tpu_torch.parallel.collectives import all_gather_cat
+
+        return all_gather_cat(t, self._group, dim=0)[:rows]
 
     @property
     def lex_dim(self) -> int:
@@ -100,23 +136,25 @@ class Encoder:
             raise ValueError(f"token ids must lie in [0, {V}); got "
                              f"[{ids.min()}, {ids.max()}]")
         dev = self.device
+        n = ids.shape[0]
+        ids, mask = self._local([ids, np.asarray(attention_mask)])
         ids = torch.as_tensor(ids).to(dev, non_blocking=True)
-        mask = torch.as_tensor(np.asarray(attention_mask)).to(
-            dev, non_blocking=True)
+        mask = torch.as_tensor(np.asarray(mask)).to(dev, non_blocking=True)
         with torch.inference_mode():
             reps = self.model.encoder(role)(ids, mask,
                                             is_query=role == "query")
-            return self.planes(reps)
+            vals, idxs = self.planes(reps)
+            return self._gathered(vals, n), self._gathered(idxs, n)
 
     def packed_planes(self, batch: dict):
         """One packed batch -> its per-slot planes ``(values f16 (B*S, D),
         fold indices uint8 or None)`` on the device."""
         cfg = self.cfg
         dev = self.device
-        t = {k: torch.as_tensor(np.asarray(batch[k])).to(dev,
-                                                         non_blocking=True)
-             for k in ("input_ids", "segment_ids", "position_ids",
-                       "seg_start")}
+        keys = ("input_ids", "segment_ids", "position_ids", "seg_start")
+        rows = np.shape(batch["seg_start"])
+        t = {k: torch.as_tensor(np.asarray(a)).to(dev, non_blocking=True)
+             for k, a in zip(keys, self._local([batch[k] for k in keys]))}
         with torch.inference_mode():
             vals, idxs, semantic = self.model.encode_passages_packed(
                 t["input_ids"], t["segment_ids"], t["position_ids"],
@@ -129,7 +167,8 @@ class Encoder:
             vals = vals.reshape(-1, vals.shape[-1]).half()
             if idxs is not None:
                 idxs = idxs.reshape(-1, idxs.shape[-1]).to(torch.uint8)
-            return vals, idxs
+            slots = rows[0] * rows[1]
+            return self._gathered(vals, slots), self._gathered(idxs, slots)
 
     def _copy_back(self, tensors):
         """Start copying ``tensors`` (None kept) to the host; returns
@@ -174,10 +213,13 @@ class Encoder:
         dev = self.device
 
         for batch in batches:
-            t = [torch.as_tensor(np.asarray(batch[k])).to(dev)
-                 for k in ("input_ids", "segment_ids", "position_ids")]
+            keys = ("input_ids", "segment_ids", "position_ids")
+            t = [torch.as_tensor(np.asarray(a)).to(dev)
+                 for a in self._local([batch[k] for k in keys])]
             with torch.inference_mode():
-                reps = self.model.encode_tokens_packed(*t).half().cpu()
+                reps = self._gathered(
+                    self.model.encode_tokens_packed(*t).half(),
+                    len(batch["input_ids"])).cpu()
             reps = reps.numpy()
             segment_ids = np.asarray(batch["segment_ids"])
             seg_start = np.asarray(batch["seg_start"])

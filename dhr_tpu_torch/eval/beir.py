@@ -162,13 +162,16 @@ def evaluate_beir(
     length_bucketing: bool = False,
     pack: bool = False,
     pack_segments: int = 8,
+    mesh=None,
 ) -> dict:
     """End-to-end BEIR evaluation of one dataset directory.
 
     ``encoder`` is a :class:`dhr_tpu_torch.encode.Encoder`,
     ``search_config`` a :class:`dhr_tpu_torch.retrieval.SearchConfig`;
     the index and the searcher live on ``device`` (default: the
-    encoder's).  Phases: ``beir.tokenize`` (inside ``beir.encode``),
+    encoder's).  ``mesh``: the index is row-sharded over its ranks (every
+    rank calls this with the same arguments; give the encoder the mesh
+    too to encode data-parallel).  Phases: ``beir.tokenize`` (inside ``beir.encode``),
     ``beir.encode``, ``beir.index``, ``beir.search``, ``beir.metrics``.
     """
     from dhr_tpu_torch.retrieval import DeviceIndex, Searcher
@@ -198,7 +201,7 @@ def evaluate_beir(
             queries, tokenizer, q_max_len, bs, cls_id, sep_id,
             length_bucketing=length_bucketing), "beir.tokenize"))
     with phase("beir.index"):
-        index = DeviceIndex.from_packed(packed, device=device)
+        index = DeviceIndex.from_packed(packed, device=device, mesh=mesh)
     with phase("beir.search"):
         searcher = Searcher(index, search_config, device=device)
         results, scores = searcher.search_run(qids, qv, qi)

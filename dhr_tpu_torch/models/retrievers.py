@@ -87,6 +87,13 @@ class Reps:
     token_cls: Optional[torch.Tensor] = None  # (B, 1, Dp)    colbert CLS row
 
 
+# a pytree node, so that FSDP2 finds the tensors of a forward's Reps and
+# hooks its pre-backward all-gather onto them: versions of torch that look
+# for them with tree_flatten (2.11) see an unregistered dataclass as one
+# leaf, and the backward then reads parameters already resharded
+torch.utils._pytree.register_dataclass(Reps)
+
+
 class RetrieverEncoder(nn.Module):
     """Role-agnostic encoder: the same module embeds queries and passages."""
 

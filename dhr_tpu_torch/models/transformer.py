@@ -80,16 +80,43 @@ class EncoderConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A dropout generator for one data-parallel rank: each mask is drawn
+    at the global shape (``count`` ranks' rows of the leading batch dim)
+    and this rank's block (``index``) is kept, so the ranks' masks are
+    together the one-process mask of the global batch."""
+
+    gen: torch.Generator
+    index: int
+    count: int
+
+
 def dropout(x: torch.Tensor, p: float, training: bool,
-            gen: torch.Generator | None) -> torch.Tensor:
+            gen: torch.Generator | RowShard | None,
+            heads: tuple[int, int] | None = None) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep each element with probability ``1 - p``
     and scale it by ``1 / (1 - p)`` in ``x``'s dtype; the identity outside
     training or at ``p == 0``.  The mask comes from ``gen`` (the default
-    generator when None)."""
+    generator when None).  Sharded, the global mask is drawn and this
+    rank's block kept: of the batch dim for a :class:`RowShard`, of dim 1
+    for ``heads=(index, count)`` (a tensor-parallel rank's heads)."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), 0.0)
+    shard, shape = gen, list(x.shape)
+    if isinstance(shard, RowShard):
+        shape[0] *= shard.count
+        gen = shard.gen
+    if heads is not None:
+        shape[1] *= heads[1]
+    draw = torch.rand(shape, generator=gen, device=x.device)
+    if isinstance(shard, RowShard):
+        b = x.shape[0]
+        draw = draw[shard.index * b:(shard.index + 1) * b]
+    if heads is not None:
+        h = x.shape[1]
+        draw = draw[:, heads[0] * h:(heads[0] + 1) * h]
+    return torch.where(draw >= p, x / (1.0 - p), 0.0)
 
 
 def attention_bias(attention_mask: torch.Tensor | None,
@@ -176,15 +203,21 @@ class SelfAttention(nn.Module):
                 gen: torch.Generator | None = None):
         B, L, H = x.shape
 
-        def heads(t):  # (B, L, H) -> (B, heads, L, head_dim)
-            return t.view(B, L, self.num_heads, self.head_dim).transpose(1, 2)
+        def heads(t):  # (B, L, H) -> (B, heads, L, head_dim); under tensor
+            # parallelism t holds this rank's heads only
+            return t.view(B, L, -1, self.head_dim).transpose(1, 2)
 
         q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
         scale = float(torch.tensor(float(self.head_dim), dtype=x.dtype).sqrt())
         scores = torch.matmul(q, k.transpose(-1, -2)) / scale + mask_bias
         probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(x.dtype)
-        probs = dropout(probs, self.attention_dropout, self.training, gen)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, H)
+        heads = None
+        if q.shape[1] != self.num_heads:  # tensor parallel: this rank's heads
+            heads = (self.query.weight.device_mesh.get_local_rank(),
+                     self.num_heads // q.shape[1])
+        probs = dropout(probs, self.attention_dropout, self.training, gen,
+                        heads)
+        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, -1)
         return self.out(ctx)
 
 

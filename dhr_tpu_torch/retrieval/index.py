@@ -16,7 +16,9 @@ row gathers, contiguous) and/or their dim-major twins (the theta pass reads
 one dim row per important dim).  A dim-major plane is a ``(D, N)`` view of
 ``(D, pitch)`` storage, ``pitch`` = N rounded up to a multiple of
 :data:`ROW_PITCH`, so every dim row and every row tile of the theta-pass
-kernels starts 16-byte aligned (:func:`dim_major`).
+kernels starts 16-byte aligned (:func:`dim_major`).  Built with ``mesh=``,
+a :class:`DeviceIndex` is row-sharded: each rank holds its contiguous rows
+of every plane, zero-padded to a multiple of the shard count.
 """
 
 from __future__ import annotations
@@ -209,12 +211,42 @@ def _widen_indices(indices: torch.Tensor) -> torch.Tensor:
     return indices
 
 
+def _shard_span(mesh, axis: str, n: int):
+    """``(axes, shard, shards, start, per)``: this rank holds rows ``[start,
+    start + per)`` of the rows zero-padded to ``per * shards``."""
+    from dhr_tpu_torch.parallel.mesh import row_axes, shard_coords
+
+    axes = row_axes(mesh, axis)
+    shard, shards = shard_coords(mesh, axes)
+    per = -(-n // shards)
+    return axes, shard, shards, shard * per, per
+
+
+def _rank_rows(x, start: int, per: int, n: int):
+    """Rows ``[start, start + per)`` of ``x`` (``n`` rows), zero rows past
+    ``n`` (a numpy array stays numpy, a tensor stays a tensor)."""
+    if x is None:
+        return None
+    part = x[min(start, n):min(start + per, n)]
+    pad = per - part.shape[0]
+    if not pad:
+        return part
+    if isinstance(x, np.ndarray):
+        return np.pad(part, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
+    return torch.cat([part, part.new_zeros((pad, *part.shape[1:]))])
+
+
 @dataclasses.dataclass
 class DeviceIndex:
     """Device-resident index planes.
 
     ``layout``: "both" (gip + rerank), "row" (ip/pq candidates + rerank)
     or "dim" (gip without rerank) decides which orientations exist.
+
+    Row-sharded (``mesh`` given): the rows are zero-padded to a multiple of
+    the shard count and each rank keeps only its contiguous rows
+    ``[row_offset, row_offset + local_rows)`` in every plane; ``num_rows``
+    stays the true global count and ``docids`` (host-side) stay global.
     """
 
     values: torch.Tensor | None        # (N, D) int8/bf16/f16/f32
@@ -227,6 +259,9 @@ class DeviceIndex:
     value_scales: torch.Tensor | None = None  # (D,) f32
     pq_codes: torch.Tensor | None = None      # (N, m) uint8
     pq_centroids: torch.Tensor | None = None  # (m, 256, D/m) f32
+    mesh: object | None = None                # DeviceMesh when row-sharded
+    shard_axes: tuple = ()
+    row_offset: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -239,16 +274,59 @@ class DeviceIndex:
             return self.values.shape[1]
         return self.values_T.shape[0]
 
+    @property
+    def local_rows(self) -> int:
+        """Rows of this rank's planes (pad rows included)."""
+        if self.values is not None:
+            return self.values.shape[0]
+        if self.values_T is not None:
+            return self.values_T.shape[1]
+        return self.pq_codes.shape[0]
+
+    @property
+    def group(self):
+        """The process group of the row shards (None unsharded)."""
+        if self.mesh is None:
+            return None
+        from dhr_tpu_torch.parallel.mesh import axes_group
+
+        return axes_group(self.mesh, self.shard_axes)
+
+    @property
+    def shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        from dhr_tpu_torch.parallel.mesh import shard_coords
+
+        return shard_coords(self.mesh, self.shard_axes)[1]
+
     @staticmethod
     def from_arrays(values, indices, docids, lex_dim: int, value_scales=None,
                     layout: str = "both",
                     device: str | torch.device | None = None,
+                    mesh=None, axis: str = "index",
+                    num_rows: int | None = None,
                     ) -> "DeviceIndex":
         """Build from numpy arrays or tensors (e.g. a synthetic corpus made
         on the device); transposes happen on the device.  Planes keep their
-        dtype; uint8 folds widen as in :func:`_widen_indices`."""
+        dtype; uint8 folds widen as in :func:`_widen_indices`.
+
+        ``mesh``: row-shard over ``axis`` (see the class).  The arrays hold
+        every row, of which this rank keeps its own (numpy arrays are sliced
+        on the host first), or, given ``num_rows`` (the global count), just
+        this rank's padded rows."""
         _check_layout(layout)
         dev = resolve_device(device)
+        n = values.shape[0] if num_rows is None else num_rows
+        axes, offset, per = (), 0, n
+        if mesh is not None:
+            axes, _, _, offset, per = _shard_span(mesh, axis, n)
+            if num_rows is None:
+                values = _rank_rows(values, offset, per, n)
+                indices = _rank_rows(indices, offset, per, n)
+        if values.shape[0] != per:
+            raise ValueError(f"{values.shape[0]} rows given, this rank's "
+                             f"shard of {n} holds {per}")
         values = _as_tensor(values, dev)
         dv = values.contiguous() if layout != "dim" else None
         dvt = dim_major(values) if layout != "row" else None
@@ -262,24 +340,33 @@ class DeviceIndex:
         return DeviceIndex(
             values=dv, values_T=dvt, indices=di, indices_T=dit,
             docids=np.asarray(docids), lex_dim=int(lex_dim),
-            num_rows=values.shape[0],
+            num_rows=n,
             value_scales=None if value_scales is None
             else _as_tensor(value_scales, dev).float(),
+            mesh=mesh, shard_axes=axes, row_offset=offset,
         )
 
     @staticmethod
     def from_packed(packed: PackedIndex, value_dtype=None,
                     layout: str = "both",
                     device: str | torch.device | None = None,
+                    mesh=None, axis: str = "index",
                     ) -> "DeviceIndex":
         """Planes of ``packed`` on ``device`` (default: the GPU).
 
         ``value_dtype``: None keeps int8 planes int8 and stores float planes
         as bf16; a torch float dtype converts (round to nearest even).
+        ``mesh``: row-shard over ``axis``; only this rank's rows (zero
+        padded) leave the host.
         """
         _check_layout(layout)
         dev = resolve_device(device)
-        values = torch.from_numpy(np.ascontiguousarray(packed.values))
+        n = packed.num_rows
+        axes, offset, per = (), 0, n
+        if mesh is not None:
+            axes, _, _, offset, per = _shard_span(mesh, axis, n)
+        values = torch.from_numpy(np.ascontiguousarray(
+            _rank_rows(packed.values, offset, per, n)))
         if value_dtype is None:
             value_dtype = torch.int8 if values.dtype == torch.int8 \
                 else torch.bfloat16
@@ -290,8 +377,8 @@ class DeviceIndex:
         dvt = dim_major(values) if layout != "row" else None
         di = dit = None
         if packed.indices is not None:
-            indices = _widen_indices(torch.from_numpy(
-                np.ascontiguousarray(packed.indices))).to(dev)
+            indices = _widen_indices(torch.from_numpy(np.ascontiguousarray(
+                _rank_rows(packed.indices, offset, per, n)))).to(dev)
             if layout != "dim":
                 di = indices
             if layout != "row":
@@ -302,12 +389,14 @@ class DeviceIndex:
                 packed.value_scales.astype(np.float32)).to(dev)
         codes = centroids = None
         if packed.pq_codes is not None:
-            codes = _as_tensor(packed.pq_codes, dev)
+            codes = _as_tensor(_rank_rows(packed.pq_codes, offset, per, n),
+                               dev)
             centroids = _as_tensor(
                 packed.pq_centroids.astype(np.float32), dev)
         return DeviceIndex(
             values=dv, values_T=dvt, indices=di, indices_T=dit,
             docids=packed.docids, lex_dim=packed.lex_dim,
-            num_rows=packed.num_rows, value_scales=scales,
+            num_rows=n, value_scales=scales,
             pq_codes=codes, pq_centroids=centroids,
+            mesh=mesh, shard_axes=axes, row_offset=offset,
         )

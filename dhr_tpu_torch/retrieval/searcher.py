@@ -1,4 +1,4 @@
-"""GIP / IP / PQ search over a :class:`DeviceIndex` on one GPU.
+"""GIP / IP / PQ search over a :class:`DeviceIndex`, on one GPU or row-sharded.
 
 Port of ``dhr_tpu/retrieval/searcher.py``.  Per query batch:
 
@@ -28,6 +28,17 @@ Port of ``dhr_tpu/retrieval/searcher.py``.  Per query batch:
    ``topk``-th score lies within ``escalate_margin`` of the stage-1 pool
    floor search again at the full ``agip_topk``.
 
+Over a row-sharded index (``DeviceIndex`` built with ``mesh=``) every rank
+runs the same calls on the same queries: stage 1 and the selection over
+its own rows (pool ``min(pool, local rows)``), its row offset added, then a
+tiled all-gather of ``(vals, rows)`` over the shards and one exact merge
+to the pool, the same on every rank (the reference's ``shard_map`` stage
+1).  Stage 2 reranks the global candidates against the rank's own rows,
+the others scoring ``-inf`` (K2's rule for rows outside its plane), and a
+MAX all-reduce gives every rank the exact scores.  The stratified slices
+see the shard's lanes, so approximate pools may differ from one process's;
+exact candidates give the same results.
+
 Mode map from the reference's flags: ``--brute_force`` is theta=0;
 ``--theta t`` is theta=t; ``--IP`` is mode='ip'; ``--PQIP`` is mode='pq';
 ``--rerank --agip_topk K`` is rerank=True, agip_topk=K; ``--lamda`` is
@@ -53,6 +64,7 @@ from dhr_tpu_torch.ops.gip_candidates import (
 from dhr_tpu_torch.ops.partial_gip import partial_gip_scores
 from dhr_tpu_torch.ops.pq import pq_ip_scores, pq_luts
 from dhr_tpu_torch.ops.rerank_gip import rerank_gip
+from dhr_tpu_torch.ops.topk import merge_topk
 from dhr_tpu_torch.retrieval.index import DeviceIndex
 
 logger = logging.getLogger(__name__)
@@ -242,13 +254,18 @@ class Searcher:
         self.device = index.device
         self.escalated_queries = 0  # cumulative over calls
         self.last_timing = None
-        n = index.num_rows
+        # sharded: the shards' group and row offset; decisions below see
+        # this rank's rows, as the reference's per-shard program does
+        self._group = index.group
+        self._offset = index.row_offset
+        n = index.local_rows
         self._has_gip = index.indices_T is not None and cfg.mode == "gip"
         # a dense index has no rerank stage (the reference's stage 2 is
         # None there); stage 1 then returns the pool
         self._rerank = cfg.rerank and index.indices is not None
         pool = cfg.escalate_pool or cfg.agip_topk
-        self._k1 = min(pool if cfg.rerank else cfg.topk, n)
+        self._k1 = min(pool if cfg.rerank else cfg.topk, n * index.shards)
+        self._k_local = min(self._k1, n)
         self._n_dims = (index.dim if cfg.theta == 0.0
                         else min(cfg.max_important_dims, index.dim))
         self._cand_dtype = (torch.bfloat16
@@ -319,7 +336,7 @@ class Searcher:
         """Stage-1 candidates ``(vals, rows)``: the rerank pool (unordered)
         or, without rerank, the exact descending top-k."""
         cfg = self.config
-        k = min(self._k1, scores.shape[-1])
+        k = min(self._k_local, scores.shape[-1])
         if cfg.rerank and cfg.approx_candidates:
             S = _pick_slices(cfg.candidate_slices, scores.shape[-1], k)
             if S > 1:
@@ -342,7 +359,7 @@ class Searcher:
         cfg, G = self.config, self.config.candidate_block
         plane = reduced if self._packed_ids else reduced[0]
         lanes = plane.shape[-1]
-        k = self._k1
+        k = self._k_local
         if cfg.approx_candidates and lanes > 2 * k:
             S = _pick_slices(cfg.candidate_slices, lanes, k)
             if S > 1:
@@ -365,7 +382,7 @@ class Searcher:
         n = values.shape[0]
         J = self._row_chunks
         chunk, main = _row_chunk_split(n, J)
-        k = self._k1
+        k = self._k_local
         approx = cfg.rerank and cfg.approx_candidates
         k_pc = min(chunk, -(-k // J)) if approx else k
         bounds = [(lo, lo + chunk) for lo in range(0, main, chunk)]
@@ -383,20 +400,50 @@ class Searcher:
         vals, pos = torch.topk(vals, min(k, vals.shape[-1]), dim=-1)
         return vals, torch.gather(rows, -1, pos)
 
-    def candidates(self, qv1: torch.Tensor, qi: torch.Tensor):
-        """Stage 1 and selection: ``(vals, rows)``."""
+    def local_candidates(self, qv1: torch.Tensor, qi: torch.Tensor):
+        """Stage 1 and selection over this rank's rows: ``(vals, rows)``,
+        rows local."""
         if self._fused:
             return self.select_fused(self.fused_stage1(qv1, qi))
         if self._row_chunks > 1:
             return self.chunked_stage1(qv1)
         return self.select(self.stage1(qv1, qi))
 
+    def candidates(self, qv1: torch.Tensor, qi: torch.Tensor):
+        """Stage 1 and selection: ``(vals, rows)``, rows global; sharded,
+        the merge of every shard's pool (descending), the same on every
+        rank."""
+        vals, rows = self.local_candidates(qv1, qi)
+        if self._group is None:
+            return vals, rows
+        from dhr_tpu_torch.parallel.collectives import all_gather_cat
+
+        dtype = vals.dtype
+        rows = rows.long() + self._offset
+        # f32 on the wire (bf16 widens exactly)
+        all_vals = all_gather_cat(vals.float(), self._group)
+        all_rows = all_gather_cat(rows, self._group)
+        vals, rows = merge_topk(all_vals, all_rows,
+                                min(self._k1, all_vals.shape[-1]))
+        return vals.to(dtype), rows
+
     def stage2(self, qv: torch.Tensor, qi: torch.Tensor,
                cand_rows: torch.Tensor):
-        """Exact rerank through kernel K2, then the exact top-``topk``."""
+        """Exact rerank through kernel K2, then the exact top-``topk``.
+        Sharded, each rank scores the candidates it holds (the others
+        ``-inf``) and a MAX all-reduce completes every row."""
         idx = self.index
-        scores = rerank_gip(qv, qi, cand_rows.contiguous(), idx.values,
+        local = cand_rows.contiguous()
+        if self._group is not None:
+            local = local - self._offset
+        scores = rerank_gip(qv, qi, local, idx.values,
                             idx.indices, idx.lex_dim)
+        if self._group is not None:
+            from torch.distributed import ReduceOp
+
+            from dhr_tpu_torch.parallel.collectives import all_reduce_
+
+            all_reduce_(scores, ReduceOp.MAX, self._group)
         vals, pos = torch.topk(scores, min(self.config.topk, scores.shape[1]),
                                dim=-1)
         return vals, torch.gather(cand_rows, -1, pos)
@@ -442,6 +489,7 @@ class Searcher:
             "n_batches": -(-B // self.config.query_batch),
             "escalated": n_esc,
             "device": str(self.device),
+            "shards": self.index.shards,
             "total_s": dt,
             "qps": B / max(dt, 1e-9),
         }

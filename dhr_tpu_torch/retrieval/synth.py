@@ -160,7 +160,9 @@ def synth_reps(seed: int, n: int, cfg: SynthConfig = SynthConfig(),
 
 
 def synth_index_planes(seed: int, n: int, cfg: SynthConfig = SynthConfig(),
-                       chunk_rows: int = 1 << 18, device=None):
+                       chunk_rows: int = 1 << 18, device=None,
+                       rows: tuple[int, int] | None = None,
+                       reduce_amax=None):
     """Corpus planes, generated in row chunks and int8-quantized.
 
     Two passes over regenerated chunks — per-dim amax, then quantize — so
@@ -168,30 +170,47 @@ def synth_index_planes(seed: int, n: int, cfg: SynthConfig = SynthConfig(),
     chunk is short).  Returns ``(v_i8 (n, D+C), folds (n, D) int8,
     scales (D+C,) f32, topics (n,) int64)``, the arrays
     ``DeviceIndex.from_arrays`` takes.
+
+    ``rows=(start, stop)``: only those rows of the same corpus (rows past
+    ``n`` are zero pad rows, topic -1), e.g. one rank's shard; chunk ``i``
+    is drawn from its own stream, so the rows equal the whole corpus's.
+    The scales still come from every row: the amax pass scans every chunk,
+    or, given ``reduce_amax`` (a MAX all-reduce over ranks whose ranges
+    cover the corpus), only the chunks the range touches.
     """
     dev = resolve_device(device)
     world = make_world(cfg, seed, dev)
     D = cfg.lex_dim + cfg.cls_dim
+    start, stop = (0, n) if rows is None else rows
     starts = range(0, n, chunk_rows)
 
-    def chunk(i, start):
-        rows = min(chunk_rows, n - start)
-        return _chunk_reps(cfg, world, _generator(dev, seed, 0, i), rows,
-                           "passage")
+    def chunk(i, c0):
+        return _chunk_reps(cfg, world, _generator(dev, seed, 0, i),
+                           min(chunk_rows, n - c0), "passage")
+
+    def touched(c0):
+        return c0 < min(stop, n) and c0 + chunk_rows > start
 
     amax = torch.zeros(D, device=dev)
-    for i, start in enumerate(starts):
-        values, _, _ = chunk(i, start)
-        amax = torch.maximum(amax, values.abs().amax(dim=0))
+    for i, c0 in enumerate(starts):
+        if reduce_amax is None or touched(c0):
+            values, _, _ = chunk(i, c0)
+            amax = torch.maximum(amax, values.abs().amax(dim=0))
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     scales = scales_from_absmax(amax)
 
-    v_i8 = torch.empty(n, D, dtype=torch.int8, device=dev)
-    folds = torch.empty(n, cfg.lex_dim, dtype=torch.int8, device=dev)
-    topics = torch.empty(n, dtype=torch.long, device=dev)
-    for i, start in enumerate(starts):
-        values, f, z = chunk(i, start)
-        stop = start + values.shape[0]
-        v_i8[start:stop] = quantize_with_scales(values, scales)
-        folds[start:stop] = f
-        topics[start:stop] = z
+    m = stop - start
+    v_i8 = torch.zeros(m, D, dtype=torch.int8, device=dev)
+    folds = torch.zeros(m, cfg.lex_dim, dtype=torch.int8, device=dev)
+    topics = torch.full((m,), -1, dtype=torch.long, device=dev)
+    for i, c0 in enumerate(starts):
+        if not touched(c0):
+            continue
+        values, f, z = chunk(i, c0)
+        lo, hi = max(c0, start), min(c0 + values.shape[0], stop)
+        src, dst = slice(lo - c0, hi - c0), slice(lo - start, hi - start)
+        v_i8[dst] = quantize_with_scales(values[src], scales)
+        folds[dst] = f[src]
+        topics[dst] = z[src]
     return v_i8, folds, scales, topics

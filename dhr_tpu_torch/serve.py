@@ -17,6 +17,12 @@ serve_client.py`` speaks it):
                          swap it in without a restart (see
                          :meth:`SearchService.reload`)
 
+Over a row-sharded index (``serve --shard-over-devices`` under torchrun)
+rank 0 runs the HTTP front end and the micro-batcher; every other rank runs
+:func:`follow`, which receives each search's queries, each reload and the
+shutdown by broadcast from rank 0 (:class:`Lockstep`) and runs the sharded
+search with it in lockstep.
+
 Two execution modes:
 
 - default: single-threaded server; each request runs the searcher directly
@@ -293,6 +299,118 @@ class MicroBatcher:
             done.set()
 
 
+class _LeadSearcher:
+    """Rank 0's face of a row-sharded searcher: each ``search_run`` first
+    broadcasts the queries (with its role and index generation) to the
+    followers, then runs the collective search with them, under the
+    lockstep's lock so two threads never interleave collectives."""
+
+    def __init__(self, searcher, role: str, gen: int, lockstep: "Lockstep"):
+        self._searcher = searcher
+        self._role = role
+        self._gen = gen
+        self._lockstep = lockstep
+
+    def __getattr__(self, name):
+        return getattr(self._searcher, name)
+
+    def search_run(self, qids, values, indices=None):
+        with self._lockstep.lock:
+            self._lockstep.send({
+                "op": "search", "role": self._role, "gen": self._gen,
+                "qids": list(qids), "values": np.asarray(values),
+                "indices": None if indices is None else np.asarray(indices)})
+            return self._searcher.search_run(qids, values, indices)
+
+
+class Lockstep:
+    """Rank 0's side of a sharded service: the broadcast channel to the
+    followers, the lock that keeps rank 0's collectives in one order, and
+    the index generation (each reload is a new one)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.gen = 0
+
+    def send(self, msg: dict) -> None:
+        from dhr_tpu_torch.parallel.collectives import broadcast_object
+
+        broadcast_object(msg, src=0)
+
+    def wrap(self, searcher, role: str):
+        if searcher is None:
+            return None
+        return _LeadSearcher(searcher, role, self.gen, self)
+
+    def reload(self, path: str, free_first: bool, load):
+        """Announce a reload of ``path`` to the followers, run ``load()``
+        here, and agree with every rank on the outcome: returns what
+        ``load()`` returned, or raises when any rank failed (the followers
+        then drop what they loaded).  Holds the lock throughout, so no
+        search's collectives fall between the announcement and the
+        agreement."""
+        from dhr_tpu_torch.parallel.collectives import all_true
+
+        with self.lock:
+            self.gen += 1
+            self.send({"op": "reload", "path": path,
+                       "free_first": free_first, "gen": self.gen})
+            try:
+                result, err = load(), None
+            except Exception as e:  # noqa: BLE001 - agreed on, re-raised
+                result, err = None, e
+            if not all_true(err is None):
+                raise err or RuntimeError(
+                    f"reload of {path} failed on another rank (see its log)")
+            return result
+
+    def stop(self) -> None:
+        with self.lock:
+            self.send({"op": "stop"})
+
+
+def follow(searchers: dict, index_loader, make_searchers) -> None:
+    """A follower rank's loop: run rank 0's searches on this rank's shard
+    until rank 0 sends the shutdown.
+
+    ``searchers``: ``{"main": Searcher, "small": Searcher or None}`` over
+    the boot index; ``index_loader(path)`` loads this rank's shard of a new
+    index and ``make_searchers(index)`` builds that pair over it.  A
+    reload keeps the previous generation until rank 0's first search on
+    the new one (load-then-swap: rank 0 may finish a pool on the old
+    index), or drops it first (``free_first``).  A load that fails on any
+    rank fails the reload on every rank (:meth:`Lockstep.reload`) and the
+    loop goes on.  A search that fails here leaves this rank out of step
+    with rank 0, so it raises: the process exits and the launcher ends the
+    job."""
+    from dhr_tpu_torch.parallel.collectives import all_true, broadcast_object
+
+    gens = {0: searchers}
+    while True:
+        msg = broadcast_object(None, src=0)
+        op = msg["op"]
+        if op == "stop":
+            return
+        if op == "reload":
+            if msg["free_first"]:
+                gens.clear()
+                gc.collect()
+                if torch.cuda.is_available():
+                    torch.cuda.empty_cache()
+            try:
+                gens[msg["gen"]] = make_searchers(index_loader(msg["path"]))
+            except Exception:  # noqa: BLE001 - agreed on with rank 0 below
+                logger.exception("follower: reload of %s failed",
+                                 msg["path"])
+            if not all_true(msg["gen"] in gens):
+                gens.pop(msg["gen"], None)
+            continue
+        for g in [g for g in gens if g < msg["gen"]]:
+            del gens[g]
+        gens[msg["gen"]][msg["role"]].search_run(
+            msg["qids"], msg["values"], msg["indices"])
+
+
 class SearchService:
     """Wraps a Searcher with a JSON request / response surface.
 
@@ -303,12 +421,20 @@ class SearchService:
 
     ``index_loader``: optional callable ``(path) -> DeviceIndex`` enabling
     ``POST /admin/reload``.
+
+    ``lockstep``: rank 0's :class:`Lockstep` over a row-sharded index (the
+    other ranks run :func:`follow`); the searchers are wrapped so every
+    search, reload and the shutdown reach the followers.
     """
 
     def __init__(self, searcher, micro_batch_ms: float = 0.0,
                  small_searcher=None, query_encoder=None,
                  max_pending: int = 0, index_loader=None,
-                 reload_token=None):
+                 reload_token=None, lockstep: Lockstep | None = None):
+        self.lockstep = lockstep
+        if lockstep is not None:
+            searcher = lockstep.wrap(searcher, "main")
+            small_searcher = lockstep.wrap(small_searcher, "small")
         self.searcher = searcher
         self.query_encoder = query_encoder
         self.index_loader = index_loader
@@ -399,11 +525,21 @@ class SearchService:
                 gc.collect()
                 if torch.cuda.is_available():
                     torch.cuda.empty_cache()
-            try:
+
+            def load():
                 index = self.index_loader(path)
                 new = Searcher(index, cfg, device=index.device)
                 new_small = (Searcher(index, small_cfg, device=index.device)
                              if small_cfg else None)
+                if self.lockstep is not None:
+                    new = self.lockstep.wrap(new, "main")
+                    new_small = self.lockstep.wrap(new_small, "small")
+                return index, new, new_small
+
+            try:
+                index, new, new_small = (
+                    load() if self.lockstep is None
+                    else self.lockstep.reload(path, free_first, load))
             except BaseException:
                 if free_first:
                     # the old index is already gone: restart the worker in
@@ -435,7 +571,7 @@ class SearchService:
             "rows": int(idx.num_rows),
             "dim": int(idx.dim),
             "lex_dim": int(idx.lex_dim),
-            "sharded_over": 1,  # one GPU: the port has no device mesh
+            "sharded_over": int(getattr(idx, "shards", 1)),
             "mode": searcher.config.mode,
             "theta": searcher.config.theta,
             "topk": searcher.config.topk,

@@ -9,6 +9,12 @@ format the two packages exchange is the HF export
 files, ``query_model`` / ``passage_model`` when untied, and the pooler /
 TermWeightTrans sidecars).
 
+A sharded state (data-parallel ranks, FSDP or TP DTensors) is saved as
+the full state in the same format: every rank takes part in gathering each
+sharded tensor, rank 0 alone writes, so the checkpoint restores on any
+number of ranks, one included; the restore loads the full state on every
+rank and re-shards each tensor into the template's placement.
+
 The reference's state is functional, so its background save may read the
 live arrays.  Here the step updates parameters and moments in place, so
 :meth:`AsyncCheckpointer.save` copies them to the host before it returns
@@ -26,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from dhr_tpu_torch.parallel.mesh import is_rank0
 from dhr_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -35,23 +42,31 @@ def _state_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}")
 
 
-def _to_host(tree):
-    """A copy of a (nested) state dict with every tensor on the CPU."""
+def _to_host(tree, keep: bool = True):
+    """A copy of a (nested) state dict with every tensor whole on the CPU:
+    a DTensor is gathered first (every rank must call this).  ``keep``
+    False (a rank that does not write) takes part in the gathers and keeps
+    nothing."""
+    from torch.distributed.tensor import DTensor
+
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        if isinstance(tree, DTensor):
+            tree = tree.full_tensor()
+        return tree.detach().to("cpu", copy=True) if keep else None
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: _to_host(v, keep) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
+        return type(tree)(_to_host(v, keep) for v in tree)
     return tree
 
 
 def snapshot(state: TrainState) -> dict:
-    """The state's step, parameters and optimizer state, copied to the
-    host."""
+    """The state's step, parameters and optimizer state, whole and copied
+    to the host (on rank 0; the other ranks only help gather shards)."""
+    keep = is_rank0()
     return {"step": state.step,
-            "model": _to_host(state.model.state_dict()),
-            "optimizer": _to_host(state.optimizer.state_dict())}
+            "model": _to_host(state.model.state_dict(), keep),
+            "optimizer": _to_host(state.optimizer.state_dict(), keep)}
 
 
 def write_snapshot(ckpt_dir: str, snap: dict) -> str:
@@ -68,8 +83,12 @@ def write_snapshot(ckpt_dir: str, snap: dict) -> str:
 
 
 def save_train_state(ckpt_dir: str, state: TrainState) -> str:
-    """Save the state under ``ckpt_dir/step_XXXXXXXX``; returns the path."""
-    return write_snapshot(ckpt_dir, snapshot(state))
+    """Save the state under ``ckpt_dir/step_XXXXXXXX`` (rank 0 writes);
+    returns the path."""
+    snap = snapshot(state)
+    if is_rank0():
+        return write_snapshot(ckpt_dir, snap)
+    return _state_dir(ckpt_dir, snap["step"])
 
 
 class AsyncCheckpointer:
@@ -90,6 +109,8 @@ class AsyncCheckpointer:
     def save(self, ckpt_dir: str, state: TrainState) -> None:
         self.wait()  # raises (and clears) any previous write's error
         snap = snapshot(state)
+        if not is_rank0():
+            return
 
         def run():
             try:
@@ -130,10 +151,54 @@ def restore_train_state(ckpt_dir: str, state: TrainState,
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     snap = torch.load(os.path.join(_state_dir(ckpt_dir, step), STATE_FILE),
                       map_location="cpu", weights_only=True)
-    state.model.load_state_dict(snap["model"])
-    state.optimizer.load_state_dict(snap["optimizer"])
+    _load_model(state.model, snap["model"])
+    state.optimizer.load_state_dict(_reshard_optimizer(state.optimizer,
+                                                       snap["optimizer"]))
     state.step = int(snap["step"])
     return state
+
+
+def _like(full: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    """``full`` placed as ``template``: this rank's shard of it when the
+    template is a DTensor (cut locally, no collective), else itself."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(template, DTensor):
+        return full
+    return distribute_tensor(
+        full.to(template.device_mesh.device_type), template.device_mesh,
+        template.placements, src_data_rank=None)
+
+
+@torch.no_grad()
+def _load_model(model: torch.nn.Module, full: dict) -> None:
+    """Load a full state dict into a model whose parameters may be
+    sharded: each tensor is cut to this rank's shard and copied in."""
+    from torch.distributed.tensor import DTensor
+
+    own = model.state_dict(keep_vars=True)
+    missing = set(own) ^ set(full)
+    if missing:
+        raise KeyError(f"checkpoint and model differ in {sorted(missing)}")
+    for name, t in own.items():
+        src = _like(full[name], t)
+        if isinstance(t, DTensor):
+            t.to_local().copy_(src.to_local())
+        else:
+            t.copy_(src)
+
+
+def _reshard_optimizer(optimizer, full: dict) -> dict:
+    """A full optimizer state dict with every per-parameter tensor placed
+    as its parameter (index order is the parameter order of the groups,
+    the same on any number of ranks)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    state = {}
+    for i, st in full["state"].items():
+        p = params[int(i)]
+        state[i] = {k: _like(v, p) if torch.is_tensor(v)
+                    and v.shape == p.shape else v for k, v in st.items()}
+    return {"state": state, "param_groups": full["param_groups"]}
 
 
 # --------------------------------------------------------------------------

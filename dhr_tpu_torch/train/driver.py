@@ -1,7 +1,14 @@
 """The training driver: loader -> steps -> checkpoints.
 
-Port of ``dhr_tpu/train/driver.py`` for one device (``batch_size`` is the
-step's whole batch).  The loop keeps what the reference has: periodic
+Port of ``dhr_tpu/train/driver.py``.  ``batch_size`` is the step's global
+batch: with a ``mesh`` the run is data-parallel over its ``data`` axes
+(every mesh axis but ``model``), one process per rank: each step takes
+this rank's rows (``parallel.shard_batch``), packed rows come in a
+multiple of the rank count, and rank 0 alone logs, writes the metrics and
+writes checkpoints (every rank helps gather sharded state).  A ``model``
+axis shards the parameters tensor-parallel and ``RunConfig.fsdp`` shards
+them FSDP over ``data`` (``parallel.tp``).  The loop keeps what the
+reference has: periodic
 checkpoints written in the background, resume that restarts in the epoch
 where the checkpoint was taken and skips its consumed batches (so the
 resumed run sees the uninterrupted run's batch stream), an emergency
@@ -25,6 +32,7 @@ import torch
 from dhr_tpu_torch.data import SamplingConfig, TASBSampler, TrainLoader
 from dhr_tpu_torch.device import resolve_device
 from dhr_tpu_torch.models.retrievers import BiEncoder, RetrieverConfig
+from dhr_tpu_torch.parallel.mesh import is_rank0, shard_batch
 from dhr_tpu_torch.train.checkpoint import (
     AsyncCheckpointer,
     latest_step,
@@ -68,6 +76,34 @@ class RunConfig:
     pack_passages: bool = False
     pack_segments: int = 4
     pack_rows: int | None = None
+    # with a mesh: shard parameters of >= fsdp_min_size elements over the
+    # data axis (parallel.tp.shard_params_fsdp)
+    fsdp: bool = False
+    fsdp_min_size: int = 2 ** 14
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The batch axes of a train mesh: every axis but ``model``."""
+    from dhr_tpu_torch.parallel.tp import MODEL_AXIS
+
+    return tuple(a for a in mesh.mesh_dim_names if a != MODEL_AXIS)
+
+
+def parallelize(model, mesh, run_cfg: RunConfig):
+    """Shard ``model`` for ``mesh`` in place (TP over ``model``, FSDP over
+    ``data`` when asked); returns the data axes' process group."""
+    from dhr_tpu_torch.parallel.mesh import DATA_AXIS, axes_group
+    from dhr_tpu_torch.parallel.tp import (
+        MODEL_AXIS, shard_params_fsdp, shard_params_tp)
+
+    if MODEL_AXIS in mesh.mesh_dim_names:
+        shard_params_tp(model, mesh)
+    if run_cfg.fsdp:
+        if MODEL_AXIS in mesh.mesh_dim_names:
+            raise ValueError("fsdp with a model axis is not supported; "
+                             "shard over data or model")
+        shard_params_fsdp(model, mesh, DATA_AXIS, run_cfg.fsdp_min_size)
+    return axes_group(mesh, data_axes(mesh))
 
 
 def run_training(
@@ -83,11 +119,23 @@ def run_training(
     model: BiEncoder | None = None,
     teacher: BiEncoder | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> TrainState:
     """Train a retriever end to end on ``device`` (default the GPU);
     returns the final state.  ``model`` holds the initial weights (default:
-    the seeded random tree of ``run_cfg.seed``)."""
+    the seeded random tree of ``run_cfg.seed``).  ``mesh``: train
+    data-parallel over its ranks (see the module docstring); every rank
+    calls this with the same arguments."""
     device = resolve_device(device)
+    n_data, writer = 1, True
+    if mesh is not None:
+        from dhr_tpu_torch.parallel.mesh import shard_coords
+
+        n_data = shard_coords(mesh, data_axes(mesh))[1]
+        writer = is_rank0()
+        if run_cfg.batch_size % n_data:
+            raise ValueError(f"batch {run_cfg.batch_size} does not split "
+                             f"over {n_data} data-parallel ranks")
     if run_cfg.grad_cache and (
             run_cfg.batch_size % run_cfg.gc_q_chunks
             or run_cfg.batch_size * sampling.n_passages
@@ -109,7 +157,8 @@ def run_training(
         tasb=TASBSampler(tasb_clusters, seed=sampling.seed)
         if tasb_clusters else None,
         pack_passages=run_cfg.pack_passages,
-        pack_segments=run_cfg.pack_segments, pack_rows=run_cfg.pack_rows)
+        pack_segments=run_cfg.pack_segments, pack_rows=run_cfg.pack_rows,
+        pack_rows_multiple=n_data)
     if model is None:
         from dhr_tpu_torch.models.flax_params import (
             load_flax_params,
@@ -121,10 +170,13 @@ def run_training(
     model.to(device)
     if teacher is not None:
         teacher.to(device)
+    group = parallelize(model, mesh, run_cfg) if mesh is not None else None
     state = TrainState.create(model, opt_cfg)
+    state.data_group = group
     if run_cfg.resume and run_cfg.ckpt_dir and latest_step(run_cfg.ckpt_dir):
         restore_train_state(run_cfg.ckpt_dir, state)
-        logger.info("resumed from step %d", state.step)
+        if writer:
+            logger.info("resumed from step %d", state.step)
 
     if run_cfg.grad_cache:
         step_fn = make_grad_cache_train_step(
@@ -138,8 +190,8 @@ def run_training(
     start_step = state.step
     loader.global_step = start_step
     losses: list[torch.Tensor] = []
-    metrics_f = open(run_cfg.metrics_path, "a") if run_cfg.metrics_path \
-        else None
+    metrics_f = (open(run_cfg.metrics_path, "a")
+                 if run_cfg.metrics_path and writer else None)
     run_t0 = t0 = time.time()
 
     def log_interval(epoch):
@@ -147,8 +199,9 @@ def run_training(
         vals = torch.stack(losses).float().cpu().tolist()  # the one read
         rate = len(vals) / max(time.time() - t0, 1e-9)
         loss_mean = sum(vals) / len(vals)
-        logger.info("step %d loss %.4f (%.2f steps/s)", state.step,
-                    loss_mean, rate)
+        if writer:
+            logger.info("step %d loss %.4f (%.2f steps/s)", state.step,
+                        loss_mean, rate)
         if metrics_f is not None:
             metrics_f.write(json.dumps({
                 "step": state.step, "epoch": epoch, "loss": loss_mean,
@@ -176,6 +229,8 @@ def run_training(
                 if run_cfg.max_steps and state.step >= run_cfg.max_steps:
                     done = True
                     break
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh, data_axes(mesh))
                 losses.append(step_fn(state, batch, run_cfg.seed))
                 if state.step % run_cfg.log_steps == 0:
                     log_interval(epoch)

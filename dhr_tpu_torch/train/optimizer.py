@@ -119,13 +119,26 @@ def make_optimizer(cfg: OptimizerConfig,
         lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps)
 
 
+def _grad_norm(g: torch.Tensor) -> torch.Tensor:
+    """The 2-norm of a whole gradient: a sharded (DTensor) one's comes
+    from every shard (one collective), not this rank's alone."""
+    from torch.distributed.tensor import DTensor
+
+    n = torch.linalg.vector_norm(g.float())
+    return n.full_tensor() if isinstance(n, DTensor) else n
+
+
+@torch.no_grad()
 def clip_grad_norm(params, max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm``: scale every gradient by ``max_norm /
     norm`` when the global norm reaches ``max_norm``; no host sync.
-    Returns the norm."""
+    Sharded gradients count whole.  Returns the norm."""
+    from torch.distributed.tensor import DTensor
+
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm = torch.linalg.vector_norm(torch.stack([_grad_norm(g)
+                                                 for g in grads]))
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_([g.to_local() if isinstance(g, DTensor) else g
+                         for g in grads], scale)
     return norm

@@ -20,6 +20,20 @@ contrastive batch from device memory:
 3. re-encode each chunk with gradients and call ``torch.autograd.backward``
    on its reps with the cached rep gradients; the parameter gradients
    accumulate over the chunks, and one chunk's activations live at a time.
+
+Data parallelism (a train state with ``data_group``, the reference's
+``data`` mesh axis): each rank forwards its rows of the global batch (from
+``parallel.shard_batch``), the reps (packed: the per-row encoder outputs)
+are all-gathered with autograd (:func:`~dhr_tpu_torch.parallel.
+collectives.gather_rows`, whose backward hands each rank the gradient of
+its own rows), and every rank computes the reference's loss over the
+global batch.  ``TrainState.apply_gradients`` then sums the parameter
+gradients over the ranks, which gives the one-process gradient of the
+global batch.  Dropout masks are drawn at the global shape and sliced
+(:class:`~dhr_tpu_torch.models.transformer.RowShard`), so every step
+matches one process with dropout on: the gradient-cache step's rank chunks
+each take their block of the one-process chunk they lie in (the same
+``q_chunks`` / ``p_chunks`` per rank as in one process).
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import numpy as np
 import torch
 
 from dhr_tpu_torch.models.retrievers import BiEncoder, Reps, RetrieverConfig
+from dhr_tpu_torch.models.transformer import RowShard
 from dhr_tpu_torch.train import loss as losses
 from dhr_tpu_torch.train.state import TrainState
 
@@ -54,6 +69,39 @@ def generator(seed: int, step: int, *path: int,
     g = torch.Generator(device=device)
     g.manual_seed(int(s[0]) << 31 | int(s[1]) >> 1)
     return g
+
+
+def dropout_gen(state: TrainState, seed: int, *path: int,
+                device: torch.device | str = "cpu"):
+    """The step's dropout generator for ``path``: :func:`generator`, or
+    under data parallelism its :class:`RowShard` of the global mask."""
+    g = generator(seed, state.step, *path, device=device)
+    if state.data_group is None:
+        return g
+    from dhr_tpu_torch.parallel.collectives import rank_in, size
+
+    return RowShard(g, rank_in(state.data_group), size(state.data_group))
+
+
+def gather_reps(reps: Reps, group) -> Reps:
+    """Every rank's rows of each rep field, with autograd (identity without
+    a group)."""
+    if group is None:
+        return reps
+    from dhr_tpu_torch.parallel.collectives import gather_rows
+
+    return Reps(**{f: gather_rows(getattr(reps, f), group)
+                   for f in REP_FIELDS})
+
+
+def gather_global(x, group):
+    """Every rank's rows of a batch tensor (no gradient): the global rows
+    of an array ``shard_batch`` split (None stays None)."""
+    if group is None or x is None:
+        return x
+    from dhr_tpu_torch.parallel.collectives import all_gather_cat
+
+    return all_gather_cat(x, group, dim=0)
 
 
 def to_device(batch, device):
@@ -95,14 +143,16 @@ def compute_loss(cfg: RetrieverConfig, loss_cfg: LossConfig, q_reps: Reps,
     raise ValueError(cfg.model_type)
 
 
-def _teacher_scores(batch, loss_cfg, teacher):
+def _teacher_scores(batch, loss_cfg, teacher, group=None):
     """Data-provided teacher scores, or the in-graph TCT teacher's (no
-    gradient) when ``use_tct_teacher`` and a teacher is given."""
+    gradient) when ``use_tct_teacher`` and a teacher is given; over the
+    global batch under data parallelism (``group``)."""
     if loss_cfg.use_tct_teacher and teacher is not None:
         with torch.no_grad():
             tq, tp = teacher(query=batch["query"], passage=batch["passage"])
+            tq, tp = gather_reps(tq, group), gather_reps(tp, group)
         return losses.colbert_teacher_scores(tq, tp)
-    return batch.get("teacher_scores")
+    return gather_global(batch.get("teacher_scores"), group)
 
 
 def plain_loss(model: BiEncoder, cfg: RetrieverConfig, loss_cfg: LossConfig,
@@ -138,14 +188,17 @@ def make_train_step(model: BiEncoder, cfg: RetrieverConfig,
         model.train()
         dev = state_device(model)
         batch = to_device(batch, dev)
-        gen = generator(seed, state.step, device=dev)
+        group = state.data_group
+        gen = dropout_gen(state, seed, device=dev)
         state.zero_grad()
         mark("ready")
         q_reps, p_reps = model(query=batch["query"],
                                passage=batch["passage"], gen=gen)
+        q_reps, p_reps = gather_reps(q_reps, group), gather_reps(p_reps, group)
         mark("forward")
         loss, _ = compute_loss(cfg, loss_cfg, q_reps, p_reps,
-                               _teacher_scores(batch, loss_cfg, teacher))
+                               _teacher_scores(batch, loss_cfg, teacher,
+                                               group))
         mark("loss")
         loss.backward()
         mark("backward")
@@ -173,13 +226,17 @@ def check_packed(cfg: RetrieverConfig, loss_cfg: LossConfig) -> None:
 
 def packed_loss(model: BiEncoder, cfg: RetrieverConfig, loss_cfg: LossConfig,
                 batch: dict, q_gen: torch.Generator | None = None,
-                p_gen: torch.Generator | None = None):
+                p_gen: torch.Generator | None = None, group=None):
     """``(loss, scores)`` of a ``collate_train_packed`` device batch: the
     query tower plain, the passage tower packed, whose per-slot reps
-    ``slot_pos`` puts back in the plain flatten order."""
+    ``slot_pos`` puts back in the plain flatten order.  Under data
+    parallelism (``group``) each rank encodes its packed rows and the loss
+    sees every rank's outputs and the global batch arrays."""
     q_reps, _ = model(query=batch["query"], gen=q_gen)
+    q_reps = gather_reps(q_reps, group)
     pp = batch["packed_passage"]
-    teacher_scores = batch.get("teacher_scores")
+    pg = {k: gather_global(v, group) for k, v in pp.items()}
+    teacher_scores = gather_global(batch.get("teacher_scores"), group)
     kw = dict(teacher_scores=teacher_scores,
               temperature=loss_cfg.temperature,
               loss_scale=loss_cfg.loss_scale)
@@ -187,13 +244,15 @@ def packed_loss(model: BiEncoder, cfg: RetrieverConfig, loss_cfg: LossConfig,
         packed_tok = model.encode_tokens_packed(
             pp["input_ids"], pp["segment_ids"], pp["position_ids"], p_gen)
         return losses.colbert_loss_packed(
-            q_reps, packed_tok, pp["segment_ids"], pp["position_ids"],
-            pp["seg_start"], pp["slot_pos"], loss_cfg.n_passages,
-            p_len=pp["input_ids"].shape[1], **kw)
+            q_reps, gather_rows_of(packed_tok, group), pg["segment_ids"],
+            pg["position_ids"], pg["seg_start"], pg["slot_pos"],
+            loss_cfg.n_passages, p_len=pp["input_ids"].shape[1], **kw)
     vals, idxs, semantic = model.encode_passages_packed(
         pp["input_ids"], pp["segment_ids"], pp["position_ids"],
         pp["seg_start"], cfg.dlr_out_dim, loss_cfg.remove_dims, p_gen)
-    slot_pos = pp["slot_pos"].long()
+    vals, idxs, semantic = (gather_rows_of(x, group)
+                            for x in (vals, idxs, semantic))
+    slot_pos = pg["slot_pos"].long()
 
     def take(x):
         return x.reshape(-1, *x.shape[2:])[slot_pos]
@@ -214,6 +273,16 @@ def packed_loss(model: BiEncoder, cfg: RetrieverConfig, loss_cfg: LossConfig,
         semi_aggregate=cfg.semi_aggregate, **kw)
 
 
+def gather_rows_of(x, group):
+    """Every rank's rows of a tensor, with autograd where it needs a
+    gradient (identity without a group)."""
+    if group is None or x is None:
+        return x
+    from dhr_tpu_torch.parallel.collectives import gather_rows
+
+    return gather_rows(x, group)
+
+
 def make_packed_train_step(model: BiEncoder, cfg: RetrieverConfig,
                            loss_cfg: LossConfig) -> Callable:
     """Train step with a token-packed passage tower (batches from
@@ -230,8 +299,9 @@ def make_packed_train_step(model: BiEncoder, cfg: RetrieverConfig,
         batch = to_device(batch, dev)
         state.zero_grad()
         loss, _ = packed_loss(model, cfg, loss_cfg, batch,
-                              generator(seed, state.step, 0, device=dev),
-                              generator(seed, state.step, 1, device=dev))
+                              dropout_gen(state, seed, 0, device=dev),
+                              dropout_gen(state, seed, 1, device=dev),
+                              state.data_group)
         loss.backward()
         state.apply_gradients()
         return loss.detach()
@@ -271,37 +341,56 @@ def _cat_reps(parts: list[Reps]) -> Reps:
 def grad_cache_backward(model: BiEncoder, cfg: RetrieverConfig,
                         loss_cfg: LossConfig, batch: dict, seed: int,
                         step: int, q_chunks: int, p_chunks: int,
-                        teacher: BiEncoder | None = None):
+                        teacher: BiEncoder | None = None, group=None):
     """The two passes: accumulate the batch's parameter gradients into
-    ``.grad`` chunk by chunk; returns the loss (no gradient)."""
+    ``.grad`` chunk by chunk; returns the loss (no gradient).  Under data
+    parallelism (``group``) the chunks split this rank's rows, the loss
+    sees every rank's reps, and pass 2 takes the gradient of this rank's
+    rows."""
+    from dhr_tpu_torch.parallel import collectives
+
     dev = state_device(model)
     sides = ((0, True, _chunks(batch["query"], q_chunks)),
              (1, False, _chunks(batch["passage"], p_chunks)))
+
+    def chunk_gen(side, i, n_chunks):
+        if group is None:
+            return generator(seed, step, side, i, device=dev)
+        # in row order the ranks' chunks k = rank * n + i split each
+        # one-process chunk k // W into W blocks: draw its mask, keep ours
+        w = collectives.size(group)
+        k = collectives.rank_in(group) * n_chunks + i
+        return RowShard(generator(seed, step, side, k // w, device=dev),
+                        k % w, w)
+
     reps = []
     with torch.no_grad():  # pass 1
         for side, is_query, chunks in sides:
             parts = [_encode(model, c, is_query,
-                             generator(seed, step, side, i, device=dev))
+                             chunk_gen(side, i, len(chunks)))
                      for i, c in enumerate(chunks)]
-            reps.append(_cat_reps(parts))
+            reps.append(gather_reps(_cat_reps(parts), group))
     for r in reps:
         for f in REP_FIELDS:
             if getattr(r, f) is not None:
                 getattr(r, f).requires_grad_(True)
     loss, _ = compute_loss(cfg, loss_cfg, reps[0], reps[1],
-                           _teacher_scores(batch, loss_cfg, teacher))
+                           _teacher_scores(batch, loss_cfg, teacher, group))
     loss.backward()
     for (side, is_query, chunks), r in zip(sides, reps):  # pass 2
         size = chunks[0]["input_ids"].shape[0]
+        # this rank's rows of the global reps
+        base = (0 if group is None
+                else collectives.rank_in(group) * size * len(chunks))
         for i, c in enumerate(chunks):
             out = _encode(model, c, is_query,
-                          generator(seed, step, side, i, device=dev))
+                          chunk_gen(side, i, len(chunks)))
             fields = [f for f in REP_FIELDS if getattr(r, f) is not None
                       and getattr(r, f).grad is not None]
+            lo = base + i * size
             torch.autograd.backward(
                 [getattr(out, f) for f in fields],
-                [getattr(r, f).grad[i * size:(i + 1) * size]
-                 for f in fields])
+                [getattr(r, f).grad[lo:lo + size] for f in fields])
     return loss.detach()
 
 
@@ -321,7 +410,8 @@ def make_grad_cache_train_step(model: BiEncoder, cfg: RetrieverConfig,
         batch = to_device(batch, state_device(model))
         state.zero_grad()
         loss = grad_cache_backward(model, cfg, loss_cfg, batch, seed,
-                                   state.step, q_chunks, p_chunks, teacher)
+                                   state.step, q_chunks, p_chunks, teacher,
+                                   state.data_group)
         state.apply_gradients()
         return loss
 

@@ -41,6 +41,8 @@ new |= {"dhr_tpu_torch.densify_offline." + m for m in (
 new |= {"dhr_tpu_torch.retrieval.colbert", "dhr_tpu_torch.eval.rerank",
         "dhr_tpu_torch.eval.beir", "dhr_tpu_torch.utils.convert",
         "dhr_tpu_torch.utils.profiling"}
+new |= {"dhr_tpu_torch.parallel.mesh", "dhr_tpu_torch.parallel.tp",
+        "dhr_tpu_torch.parallel.collectives"}
 assert new <= set(names), new - set(names)
 assert not bad, bad
 """
@@ -101,7 +103,8 @@ def test_cli_search_without_gpu_fails_unless_cpu_is_asked(tmp_path,
     run = read_run(str(tmp_path / "run.trec"))
     assert sorted(run) == ["a", "b", "c"]
     assert all(len(docs) == 5 for docs in run.values())
-    with pytest.raises(SystemExit):
+    # sharding is ported; it too runs on the card unless asked for the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         main(args + ["--shard-over-devices"])
 
 

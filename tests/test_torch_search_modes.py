@@ -656,14 +656,22 @@ def test_cli_calibration_reports(cli_world):
     assert report["pool"] == 16
 
 
-def test_cli_still_rejects_multi_gpu_and_recall_flags(cli_world):
+def test_cli_still_rejects_multi_gpu_and_recall_flags(cli_world,
+                                                      monkeypatch):
+    """--candidate-recall is not ported; --shard-over-devices is, but
+    several visible cards need a launcher (one process per card)."""
     from dhr_tpu_torch.cli.main import main
 
     base = ["search", "--index-path", str(cli_world / "index.npz"),
-            "--query-path", str(cli_world / "q.npz"), "--device", "cpu"]
-    for flag in ("--shard-over-devices", "--candidate-recall"):
-        with pytest.raises(SystemExit):
-            main(base + [flag])
+            "--query-path", str(cli_world / "q.npz")]
+    with pytest.raises(SystemExit):
+        main(base + ["--device", "cpu", "--candidate-recall"])
+    for k in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit, match="torchrun"):
+        main(base + ["--shard-over-devices"])
 
 
 def test_search_config_fields_cover_the_reference():

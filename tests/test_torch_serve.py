@@ -917,13 +917,20 @@ def test_serve_verb_process_serves_reloads_and_stops_on_sigint(tmp_path):
     assert "interrupted; stopping" in err
 
 
-def test_serve_verb_refuses_unported_flags_and_missing_tokenizer(tmp_path):
+def test_serve_verb_refuses_unported_flags_and_missing_tokenizer(
+        tmp_path, monkeypatch):
     _packed(np.random.default_rng(0), 4, "d").save(str(tmp_path / "i.npz"))
     base = ["serve", "--index-path", str(tmp_path / "i.npz"), "--device",
             "cpu"]
-    for flag in ("--shard-over-devices", "--candidate-recall"):
-        with pytest.raises(SystemExit):
-            tcli.main(base + [flag])
+    with pytest.raises(SystemExit):
+        tcli.main(base + ["--candidate-recall"])
+    # sharding is ported, but several cards need a launcher
+    for k in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit, match="torchrun"):
+        tcli.main(base[:-2] + ["--shard-over-devices"])
     with pytest.raises(SystemExit, match="--tokenizer"):
         tcli.main(base + ["--query-encoder", "--tiny"])
 

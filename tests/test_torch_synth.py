@@ -3,6 +3,7 @@ jax.random streams cannot be reproduced), plus its own determinism."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from dhr_tpu.retrieval.synth import SynthConfig as JaxSynthConfig
@@ -64,3 +65,34 @@ def test_index_planes_chunked_and_deterministic():
                                1024, "passage")
     assert torch.equal(quantize_with_scales(values, scales), v_i8[:1024])
     assert torch.equal(f, folds[:1024])
+
+
+@pytest.mark.parametrize("span", [(0, 700), (700, 1100), (250, 900)])
+def test_index_planes_rows_equal_the_whole_corpus(span):
+    """A row range (one rank's shard, pad rows past n) is that slice of the
+    whole corpus, scales included; with reduce_amax the amax pass reads
+    only the chunks the range touches and the reduce completes it."""
+    whole = synth_index_planes(3, 1000, chunk_rows=256, device="cpu")
+    start, stop = span
+    part = synth_index_planes(3, 1000, chunk_rows=256, device="cpu",
+                              rows=span)
+    real = min(stop, 1000) - start
+    for w, p in zip((whole[0], whole[1], whole[3]),
+                    (part[0], part[1], part[3])):
+        assert torch.equal(p[:real], w[start:start + real])
+        assert not p[real:].any() or p.dtype == torch.long
+    assert (part[3][real:] == -1).all()
+    assert torch.equal(part[2], whole[2])
+    # two ranks covering the corpus: each scans only its chunks, the MAX
+    # of their amaxes is the whole corpus's
+    halves = [(0, 500), (500, 1000)]
+    local_amax = []
+    for h in halves:
+        synth_index_planes(3, 1000, chunk_rows=256, device="cpu", rows=h,
+                           reduce_amax=lambda a: local_amax.append(a) or a)
+    both = torch.maximum(*local_amax)
+    local = synth_index_planes(3, 1000, chunk_rows=256, device="cpu",
+                               rows=span, reduce_amax=lambda a: torch.maximum(
+                                   a, both))
+    assert torch.equal(local[2], whole[2])
+    assert torch.equal(local[0], part[0])
