@@ -32,8 +32,19 @@ and the loss must fall), the trained export through ``encode`` -> ``index
 plain, and the steps' speed (steps/s, passages/s, tokens/s, TFLOP/s, the
 split of a step, peak memory).
 
+``rehearsal_path`` follows: the port's full-pipeline rehearsal
+(``python -m dhr_tpu_torch.tools.pipeline_rehearsal``, family dhr) as a
+process at DistilBERT-base width: a 65,536-passage topical wordpiece
+world, the untrained and the trained model each through ``encode`` ->
+``index --quantize`` -> ``search`` (staged and exact) -> ``eval``, and
+``train --pack-passages`` (bf16, 400 steps) between them; its gates
+(trained MRR@10 above untrained, staged Recall@1000 at least 0.9 x exact)
+must hold, K1 and K2 must launch in its search verbs, and the trained exact
+run must equal the CPU's brute force on 4 queries.  ``rep_stats``' generator
+statistics and agreement run on the card at 204,800 rows beside it.
+
 ``densify_path`` comes next: the DLR paper's BM25 -> DLR front end on the
-port's C++ host runtime (262,144 synthetic whole-word passages of MS MARCO
+port's C++ host runtime (131,072 synthetic whole-word passages of MS MARCO
 length, Zipf words over 2^18 terms, so the fold planes are int16):
 ``simple_analyzer``, ``TermDictionary``, ``native.bm25_csr``, the vectors as
 JSONL, then ``densify`` -> ``index --quantize`` -> ``search`` with 1,024
@@ -42,7 +53,7 @@ the CPU's plain path.  ``eval_path`` then runs the evaluation verbs at
 DistilBERT-base width: ColBERT ``encode`` and ``colbert-score
 --full-ranking`` over the encode corpus (card against the CPU, host slabs
 against the resident plane, ``--pairs`` against the run; q/s and TFLOP/s),
-``rerank-eval`` over 64 x 1,000 candidate pairs, and ``evaluate_beir`` over
+``rerank-eval`` over 32 x 1,000 candidate pairs, and ``evaluate_beir`` over
 a SciFact-shaped BEIR directory at theta 0 (K1) and theta 0.3 with rerank
 (K1 and K2), each held against the brute force on the same planes, with no
 self-hit left.  After the main and fused paths, ``serve_path`` runs
@@ -59,7 +70,10 @@ over the 8,841,823-row corpus, each rank holding half (each draws only its
 own rows), main and fused paths with every rank's K1 / K2 / K3 launches
 asserted, the exact candidates against the one-process search and the
 staged agreement against the TPU's bar; (b) one data-parallel step of the
-DistilBERT-base DHR model, then one FSDP step, against one rank; (d) ``Encoder(mesh=)`` planes
+DistilBERT-base DHR model against one rank, then FSDP: a clipped step
+against one rank's, a save, and the next step against a fresh state
+restored from the save (the state gathered and the norm summed by c10d);
+(d) ``Encoder(mesh=)`` planes
 against one process; then ``search --shard-over-devices`` through the CLI
 and (c) ``serve --shard-over-devices`` (64 requests equal to
 ``search_run``, SIGINT) on the densified index.
@@ -73,7 +87,9 @@ row-major) and pq (m=64) with rerank.
 Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line come before the
 last line, ``{"ok": true, "device": {...}}``; the kernels line counts the
-launches of the main, fused, densify, eval, serve and parallel paths.  Any failure
+launches of the main, fused, rehearsal (with rep_stats), densify, eval,
+serve and parallel paths; a ``walls`` line before them gives each path's
+seconds.  Any failure
 raises and exits non-zero before the last line.  Without CUDA, or outside a
 checkout, it exits non-zero at once.
 """
@@ -103,6 +119,7 @@ SMALL_ROWS = 204_803
 H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 ENCODE_PASSAGES = 65_536
 ENCODE_QUERIES = 1_024
+ENCODE_TIMED = 32_768          # passages of the Encoder's timed passes
 ENCODE_REMOVE_DIMS = 570
 TRAIN_QUERIES = 2_048
 TRAIN_NEGATIVES = 32
@@ -113,28 +130,36 @@ TRAIN_FLAGS = ["--train-n-passages", "8", "--batch-size", "24",
                "--q-max-len", "32", "--bf16"]
 # densify_path: synthetic whole-word passages of MS MARCO length over a
 # vocabulary of 2^18 terms (folds well past 127: int16 planes)
-DENSIFY_PASSAGES = 262_144
+DENSIFY_PASSAGES = 131_072
 DENSIFY_VOCAB = 1 << 18
 DENSIFY_QUERIES = 1_024
 DENSIFY_SEARCH = ["--theta", "0.1", "--rerank", "--agip-topk", "10000"]
 # serve_path: single-query requests per concurrency level, the levels whose
 # responses are held against search_run, client processes at most (threads
 # share a process past that), the 503 flood and the /search_text queries
-SERVE_LEVELS = {1: 128, 8: 512, 64: 1_024, 256: 2_048}
+SERVE_LEVELS = {1: 64, 8: 256, 64: 512, 256: 1_024}
 SERVE_CHECKED_LEVELS = (1, 64)
 SERVE_CLIENT_PROCS = 16
 SERVE_FLOOD = 256
 SERVE_FLOOD_QUERIES = 32
-SERVE_TEXT_QUERIES = 256
+SERVE_TEXT_QUERIES = 128
 # eval_path: rerank-eval's queries x candidates (the reference's
 # EvalDataset holds ~1,000 candidates a query) and the SciFact-shaped BEIR
 # directory (Thakur et al., 2021, Table 1), 10 of its query ids also
 # document ids
-EVAL_RERANK_QUERIES = 64
+EVAL_RERANK_QUERIES = 32
 EVAL_RERANK_CANDIDATES = 1_000
 BEIR_DOCS = 5_183
 BEIR_QUERIES = 300
 BEIR_SELF_HITS = 10
+# rehearsal_path: the port's full-pipeline rehearsal (train -> encode ->
+# index -> search -> eval through the CLI, family dhr) at DistilBERT-base
+# width on the tool's world; lr 1e-4 (3e-4, the JAX tool's rate for its
+# 256 x 4 model, collapsed the loss at this width on the card)
+REHEARSAL_FLAGS = ["--n-corpus", "65536", "--n-train", "4096", "--n-dev",
+                   "512", "--max-steps", "400", "--learning-rate", "1e-4"]
+REHEARSAL_CHECKED = 4          # trained exact-run queries held on the CPU
+REP_STATS_ROWS = 204_800       # rep_stats' generator corpus on the card
 
 
 def emit(obj) -> None:
@@ -581,7 +606,7 @@ def phase_encode_path(args, torch):
     with tempfile.TemporaryDirectory() as root:
         user, toks = _encode_user_path(root, args.seed, torch, np)
     t2 = time.perf_counter()
-    timing = _encode_timing(tree, toks, torch, np)
+    timing = _encode_timing(tree, toks[:ENCODE_TIMED], torch, np)
     emit({"phase": "encode_path", "model": "distilbert-base DHR "
           "(6x768, vocab 30522, remove_dims 570, 768 + 128 dims)",
           "weights": f"random, seed {args.seed}", "card_vs_cpu": parity,
@@ -1028,7 +1053,7 @@ def _plain_step_split(step_for, model, state, batch, torch):
 def _train_timing(tree, groups, toks, torch):
     """Steps/s, passages/s and tokens/s of the plain (padded to 128),
     packed (one row count for all its batches) and grad-cache steps in
-    bf16 at batch 24 (dropout 0.1, the documented lr): wall time over 30
+    bf16 at batch 24 (dropout 0.1, the documented lr): wall time over 15
     steps after 3 warm-up steps on batches of the timed shapes, and the
     spread of the steps (CUDA events between steps, no host wait between
     them); the host's time to issue a step of each kind, the card idle
@@ -1050,7 +1075,7 @@ def _train_timing(tree, groups, toks, torch):
     state = TrainState.create(model, OptimizerConfig(
         learning_rate=7e-6, warmup_steps=0, total_steps=1000,
         freeze_word_embeddings=True))
-    n_warm, n_timed = 3, 30
+    n_warm, n_timed = 3, 15
     q_flops = 24 * 32 * encode_flops_per_token(32)
     out = {"batch": 24, "passages_per_step": 192, "dtype": "bf16",
            "timed_steps": n_timed, "warm_up_steps": n_warm,
@@ -1172,6 +1197,149 @@ def phase_train_path(args, torch):
                    "passage_len_mean": float(lens.mean() + 2)},
           "flags": TRAIN_FLAGS, **out, "seconds": secs})
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# rehearsal_path: the full pipeline through the CLI, and rep_stats
+# --------------------------------------------------------------------------
+
+
+def _rehearsal_exact_vs_cpu(work, np, torch):
+    """The trained exact run (``search --brute-force`` on the card, K1)
+    against ``gip_scores_masked`` on the CPU over the same int8 index and
+    query planes, for the first queries, by :func:`_vs_exact`'s rule
+    (each document's score and, rank by rank, its exact score within 1e-5
+    of the query's scale: the rule the BEIR check holds).  ``_ranking_check``'s stricter
+    reading (runs of scores within 1e-5 relative hold the same ids) is
+    reported beside it: int8 planes give many tied and near-tied scores,
+    and a chain of near-ties splits into runs differently on each side."""
+    from dhr_tpu_torch.ops.gip import gip_scores_masked, pad_indices_for_cls
+    from dhr_tpu_torch.retrieval.index import PackedIndex
+
+    pk = PackedIndex.load(f"{work}/trained_index.npz")
+    with np.load(f"{work}/trained_queries.npz") as z:
+        qv = z["values"][:REHEARSAL_CHECKED].astype(np.float32)
+        qi = z["indices"][:REHEARSAL_CHECKED].astype(np.int32)
+    with open(f"{work}/trained_queries.npz.qids.json") as f:
+        qids = json.load(f)[:REHEARSAL_CHECKED]
+    cls = pk.dim - pk.lex_dim
+    with torch.inference_mode():
+        exact = gip_scores_masked(
+            torch.from_numpy(qv * pk.value_scales[None, :]),
+            pad_indices_for_cls(torch.from_numpy(qi), cls),
+            torch.from_numpy(pk.values).float(),
+            pad_indices_for_cls(torch.from_numpy(pk.indices).int(),
+                                cls)).numpy()
+    run = _read_run(f"{work}/trained_exact.trec")
+    out = _vs_exact(qids, {q: [d for d, _ in run[q]] for q in qids},
+                    {q: [s for _, s in run[q]] for q in qids}, exact,
+                    pk.docids, np)
+    k = min(1000, pk.num_rows)
+    order = np.argsort(-exact, axis=1, kind="stable")[:, :k]
+    want = {q: [(str(pk.docids[r]), float(exact[b, r])) for r in order[b]]
+            for b, q in enumerate(qids)}
+    out["ranking_check_runs"] = _compare_runs(run, want, qids, 1e-5)
+    return out
+
+
+def _rep_stats_on_card(torch):
+    """``rep_stats``' generator statistics and staged / reference-theta /
+    exact agreement at 204,800 rows on the card (K1 and K2)."""
+    from dhr_tpu_torch.retrieval.synth import SynthConfig
+    from dhr_tpu_torch.tools.rep_stats import agreement, generator_stats
+
+    cfg = SynthConfig()
+    t = time.perf_counter()
+    stats, corpus, queries = generator_stats(cfg, REP_STATS_ROWS, 64, 0.3,
+                                             48)
+    reset_launches()
+    agree = agreement(cfg, corpus, queries, 0.3, 48, 1000, 10_000)
+    launches = read_launches()
+    del corpus, queries
+    torch.cuda.empty_cache()
+    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
+        raise AssertionError(f"rep_stats launches {launches}: K1 and K2 "
+                             "must launch")
+    dims = stats["query_dims_above_theta"]["mean"]
+    if not 30 <= dims <= 46:
+        raise AssertionError(f"generator: {dims} query dims above theta "
+                             "0.3, outside the calibrated 30-46")
+    return {"rows": REP_STATS_ROWS, "queries": 64,
+            "query_dims_above_theta": stats["query_dims_above_theta"],
+            "fold_top_share_mean": stats["fold_top_share_mean"],
+            "agreement": agree, "launches": launches,
+            "seconds": time.perf_counter() - t}, launches
+
+
+def phase_rehearsal_path(args, root, torch):
+    """The port's pipeline rehearsal (``dhr_tpu_torch/tools/
+    pipeline_rehearsal.py``, family dhr) as a process on the card at
+    DistilBERT-base width: a topical wordpiece world, the untrained init
+    checkpoint encoded, indexed (int8), searched staged and exact and
+    evaluated, ``train --pack-passages`` (bf16), then the trained export
+    the same way.  Its gates hold (trained MRR@10 above untrained, staged
+    Recall@1000 at least 0.9 x exact), K1 and K2 launch in its search
+    verbs (counted by each process, reported in its ``DHR_TIMING`` line),
+    and the trained exact run equals the CPU's brute force on its first
+    queries.  Then ``rep_stats`` on the card.  Returns the launches of
+    both."""
+    import numpy as np
+
+    checkout = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "rehearsal")
+    t = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "dhr_tpu_torch.tools.pipeline_rehearsal",
+         "--workdir", work, "--out", f"{work}/report.json", "--seed",
+         str(args.seed), *REHEARSAL_FLAGS],
+        cwd=checkout, capture_output=True, text=True, timeout=900)
+    secs = {"tool": time.perf_counter() - t}
+    if p.returncode:
+        raise AssertionError(f"pipeline_rehearsal exited {p.returncode} "
+                             f"(2: a quality gate):\n{p.stderr[-6000:]}")
+    with open(f"{work}/report.json") as f:
+        report = json.load(f)
+    launches = {k: 0 for k in _counters()}
+    for verb in report["timings"]:
+        for line in verb.get("device", []):
+            for k, v in line.get("launches", {}).items():
+                launches[k] += v
+    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
+        raise AssertionError(f"rehearsal launches {launches}: K1 and K2 "
+                             "must launch")
+    if not (report["mrr_improves"] and report["staged_holds_exact_quality"]):
+        raise AssertionError("rehearsal gates: "
+                             f"{report['mrr_improves']}, "
+                             f"{report['staged_holds_exact_quality']}")
+    t = time.perf_counter()
+    vs_cpu = _rehearsal_exact_vs_cpu(work, np, torch)
+    secs["exact_vs_cpu"] = time.perf_counter() - t
+    if vs_cpu["ranks_equal_up_to_ties"] != REHEARSAL_CHECKED \
+            or vs_cpu["scores_match_exact"] != REHEARSAL_CHECKED:
+        raise AssertionError(f"trained exact run vs the CPU: {vs_cpu}")
+    rep, rep_launches = _rep_stats_on_card(torch)
+    keep = ("MRR@10", "Recall@1000", "nDCG@10", "Recall@100")
+    emit({"phase": "rehearsal_path", "config": report["config"],
+          "flags": REHEARSAL_FLAGS,
+          "wall_s": {v["verb"]: v["wall_s"] for v in report["timings"]},
+          "total_wall_s": report["total_wall_s"],
+          "quality": {stage: {mode: {k: report[stage][mode][k]
+                                     for k in keep}
+                              for mode in ("exact", "staged")}
+                      for stage in ("untrained", "trained")},
+          "staged_operating_point":
+              report["trained"]["staged_operating_point"],
+          "staged_ladder": report["trained"]["staged_calibration"],
+          "train_loss_first_last": [report["train_loss_first"],
+                                    report["train_loss_last"]],
+          "mrr_improves": report["mrr_improves"],
+          "staged_holds_exact_quality":
+              report["staged_holds_exact_quality"],
+          "launches": launches, "trained_exact_vs_cpu": vs_cpu,
+          "rep_stats": rep, "seconds": secs,
+          # the tool's whole report: tools/render_pipeline_run.py renders it
+          "report": report})
+    return {k: launches[k] + rep_launches[k] for k in launches}
 
 
 def small_world(seed, torch):
@@ -1554,7 +1722,9 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    from dhr_tpu_torch.ops import kernel_launches
+
+    return kernel_launches()
 
 
 def timed_passes(searcher, qv, qf, n_passes):
@@ -2282,7 +2452,7 @@ def _colbert_path(root, toks, q_toks, seed, torch, np):
 def _rerank_eval_path(root, seed, toks, q_toks, torch, np):
     """(b): ``make_pair_scorer`` on the card against the CPU in f32 (dhr on
     32 pairs, colbert on 8), then the ``rerank-eval`` verb (DHR
-    DistilBERT-base, bf16) over 64 queries x 1,000 candidates of the
+    DistilBERT-base, bf16) over 32 queries x 1,000 candidates of the
     corpus, 1-3 of them relevant."""
     from dhr_tpu_torch.data.collate import pad_token_batch
     from dhr_tpu_torch.data.examples import write_jsonl
@@ -2422,27 +2592,17 @@ class _BeirCapture:
         Searcher.search_run, beir.ndcg_at_k = self.search_run, self.ndcg
 
 
-def _vs_brute_force(cap, torch, np, rel=1e-5):
-    """The captured search's results against ``gip_scores_masked`` over the
-    same device planes and queries, per query at a tolerance of ``rel``
-    times its largest exact score: each returned document's score equals
-    its exact score, and rank by rank the exact score of the returned
-    document equals the exact top-k's (the ranking equals the exact one up
-    to ties, chains of near-ties included)."""
-    from dhr_tpu_torch.ops.gip import gip_scores_masked, pad_indices_for_cls
-
-    index, qids, qv, qi = cap.searched
-    cls = index.dim - index.lex_dim
-    with torch.inference_mode():
-        exact = gip_scores_masked(
-            torch.as_tensor(qv, device=index.device).float(),
-            pad_indices_for_cls(
-                torch.as_tensor(qi, device=index.device).int(), cls),
-            index.values, pad_indices_for_cls(index.indices, cls)).cpu()
-    best = torch.topk(exact, min(1000, exact.shape[1]), dim=1)
-    exact, best_s, best_r = (x.numpy() for x in (exact, *best))
-    row = {str(d): r for r, d in enumerate(index.docids)}
-    results, scores = cap.results
+def _vs_exact(qids, results, scores, exact, docids, np, rel=1e-5):
+    """A run ``{qid: [docid...]}, {qid: [score...]}`` against the exact
+    scores ``(B, N)`` of its queries (in ``qids`` order), per query at a
+    tolerance of ``rel`` times its largest exact score: each returned
+    document's score equals its exact score, and rank by rank the exact
+    score of the returned document equals the exact top-k's (the ranking
+    equals the exact one up to ties, chains of near-ties included)."""
+    k = min(1000, exact.shape[1])
+    order = np.argsort(-exact, axis=1, kind="stable")[:, :k]
+    best_s = np.take_along_axis(exact, order, axis=1)
+    row = {str(d): r for r, d in enumerate(docids)}
     out = {"queries": len(qids), "rel_tol_of_scale": rel,
            "scores_match_exact": 0, "ranks_equal_up_to_ties": 0,
            "ids_exact": 0, "max_score_diff_of_scale": 0.0,
@@ -2454,14 +2614,32 @@ def _vs_brute_force(cap, torch, np, rel=1e-5):
         d_score = float(np.abs(got - exact[b, rows]).max()) / scale
         d_rank = float(np.abs(exact[b, rows] - best_s[b]).max()) / scale
         out["scores_match_exact"] += d_score <= rel
-        out["ranks_equal_up_to_ties"] += (rows.size == best_r.shape[1]
+        out["ranks_equal_up_to_ties"] += (rows.size == k
                                           and d_rank <= rel)
-        out["ids_exact"] += np.array_equal(rows, best_r[b])
+        out["ids_exact"] += np.array_equal(rows, order[b])
         out["max_score_diff_of_scale"] = max(
             out["max_score_diff_of_scale"], d_score)
         out["max_rank_diff_of_scale"] = max(
             out["max_rank_diff_of_scale"], d_rank)
     return out
+
+
+def _vs_brute_force(cap, torch, np, rel=1e-5):
+    """The captured search's results against ``gip_scores_masked`` over the
+    same device planes and queries (:func:`_vs_exact`)."""
+    from dhr_tpu_torch.ops.gip import gip_scores_masked, pad_indices_for_cls
+
+    index, qids, qv, qi = cap.searched
+    cls = index.dim - index.lex_dim
+    with torch.inference_mode():
+        exact = gip_scores_masked(
+            torch.as_tensor(qv, device=index.device).float(),
+            pad_indices_for_cls(
+                torch.as_tensor(qi, device=index.device).int(), cls),
+            index.values, pad_indices_for_cls(index.indices, cls)).cpu()
+    results, scores = cap.results
+    return _vs_exact(qids, results, scores, exact.numpy(), index.docids, np,
+                     rel)
 
 
 def _beir_path(root, seed, torch, np):
@@ -3166,6 +3344,7 @@ PARALLEL_PASSES = 4          # one warm-up, three timed
 PARALLEL_ENCODE = 1_024      # passages of the Encoder(mesh=) check
 PARALLEL_CLI_QUERIES = 64    # densified-index queries of the sharded CLI
 PARALLEL_SERVE_REQUESTS = 64
+FSDP_MAX_GRAD_NORM = 1e-3    # below the step's gradient norm: the clip acts
 
 
 def _wall_ms(fn, iters, torch):
@@ -3327,19 +3506,33 @@ def _par_batch(seed, np, torch):
     return next(iter(_train_loader(groups, toks, 24, torch).epoch(0))), toks
 
 
+def _clipped(grads, max_norm):
+    """``grads`` scaled as ``clip_grad_norm`` scales them (optax
+    ``clip_by_global_norm``), from their f64 global norm."""
+    norm = math.sqrt(sum(float((g.double() ** 2).sum())
+                         for g in grads.values()))
+    scale = 1.0 if norm < max_norm else max_norm / norm
+    return {n: g * scale for n, g in grads.items()}, norm
+
+
 def _par_train(job, dev, torch, np):
     """(b): one DP step of the DistilBERT-base DHR model (f32, dropout 0.1
     with the global masks) on 2 ranks against the one-process step on
-    rank 0, then the same step with FSDP (its shards on the card): loss
-    and gradients within 1e-5 relative (L2)."""
+    rank 0; then FSDP (its shards on the card) with ``max_grad_norm`` set
+    below the gradient's norm: the clipped step against the one-process
+    step clipped (loss and gradients within 1e-5 relative, L2; the
+    sharded gradients' norm summed by c10d all-reduces), a save after it
+    (the state gathered by c10d all-gathers), the next step, and the same
+    next step from a fresh FSDP state restored from the save: its loss
+    bit-equal to the uninterrupted run's."""
     import torch.distributed as dist
 
     from dhr_tpu_torch.models import (
         BiEncoder, load_flax_params, random_flax_params)
-    from torch.distributed.tensor import DTensor
-
     from dhr_tpu_torch.parallel import axes_group, make_mesh, shard_batch
-    from dhr_tpu_torch.parallel.collectives import all_gather_cat
+    from dhr_tpu_torch.parallel.collectives import gather_full
+    from dhr_tpu_torch.train.checkpoint import (
+        restore_train_state, save_train_state)
     from dhr_tpu_torch.train.driver import RunConfig, parallelize
     from dhr_tpu_torch.train.optimizer import OptimizerConfig
     from dhr_tpu_torch.train.state import TrainState
@@ -3381,31 +3574,57 @@ def _par_train(job, dev, torch, np):
             raise AssertionError(f"DP step vs one process: {out}")
     del model, state
     torch.cuda.empty_cache()
-    # the same step with FSDP over the 2 ranks: a gloo mesh of ranks on
-    # the card lives on the card, so its parameter shards stay there
-    model = load_flax_params(BiEncoder(cfg), tree).to(dev)
-    state = TrainState.create(model, opt)
-    state.data_group = parallelize(model, mesh, RunConfig(fsdp=True))
+
+    # FSDP over the 2 ranks: a gloo mesh of ranks on the card lives on the
+    # card, so its parameter shards stay there
+    clip = dataclasses.replace(opt, max_grad_norm=FSDP_MAX_GRAD_NORM)
+
+    def fsdp_state():
+        # shard first: the optimizer must hold the sharded parameters
+        model = load_flax_params(BiEncoder(cfg), tree).to(dev)
+        group = parallelize(model, mesh, RunConfig(fsdp=True))
+        state = TrainState.create(model, clip, data_group=group)
+        return state, make_train_step(model, cfg, LossConfig())
+
+    state, step = fsdp_state()
+    model = state.model
     out["fsdp_params_on_card"] = all(p.device.type == "cuda"
                                      for p in model.parameters())
     t = time.perf_counter()
-    loss = float(make_train_step(model, cfg, LossConfig())(
-        state, local, job["seed"]))
+    loss = float(step(state, local, job["seed"]))
     out["fsdp_step_s_first"] = time.perf_counter() - t
-    # the sharded gradients gathered with c10d's all_gather: the functional
-    # collectives of DTensor.full_tensor crash under gloo with CUDA tensors
-    # (torch 2.11)
-    grads = {n: (all_gather_cat(p.grad.to_local(), dim=0)
-                 if isinstance(p.grad, DTensor) else p.grad).float().cpu()
+    grads = {n: gather_full(p.grad).float().cpu()
              for n, p in model.named_parameters() if p.grad is not None}
     if one is not None:
-        l2, mx = _grad_rel_diff(grads, one[1])
-        out.update(fsdp_loss_rel_diff=abs(loss - one[0]) / abs(one[0]),
+        want, norm = _clipped(one[1], FSDP_MAX_GRAD_NORM)
+        l2, mx = _grad_rel_diff(grads, want)
+        out.update(fsdp_max_grad_norm=FSDP_MAX_GRAD_NORM,
+                   fsdp_grad_norm_one_process=norm,
+                   fsdp_loss_rel_diff=abs(loss - one[0]) / abs(one[0]),
                    fsdp_grad_rel_l2_diff=l2, fsdp_grad_max_rel_diff=mx)
-        if not (out["fsdp_params_on_card"]
+        if not (out["fsdp_params_on_card"] and norm > FSDP_MAX_GRAD_NORM
                 and out["fsdp_loss_rel_diff"] <= 1e-5 and l2 <= 1e-5):
-            raise AssertionError(f"FSDP step vs one process: {out}")
-    del model, state, grads
+            raise AssertionError(f"clipped FSDP step vs one process: {out}")
+    ckpt = os.path.join(job["dir"], "fsdp_ckpt")
+    t = time.perf_counter()
+    save_train_state(ckpt, state)
+    out["fsdp_save_s"] = time.perf_counter() - t
+    nxt, _ = _par_batch(job["seed"] + 1, np, torch)
+    nxt = shard_batch(nxt, mesh)
+    out["fsdp_next_loss"] = float(step(state, nxt, job["seed"]))
+    del model, state, step, grads
+    torch.cuda.empty_cache()
+    state, step = fsdp_state()
+    t = time.perf_counter()
+    restore_train_state(ckpt, state)
+    out["fsdp_restore_s"] = time.perf_counter() - t
+    out["fsdp_restored_step"] = state.step
+    out["fsdp_resumed_loss"] = float(step(state, nxt, job["seed"]))
+    out["fsdp_resume_bit_equal"] = (out["fsdp_resumed_loss"]
+                                    == out["fsdp_next_loss"])
+    if out["fsdp_restored_step"] != 1 or not out["fsdp_resume_bit_equal"]:
+        raise AssertionError(f"FSDP restore: {out}")
+    del state, step
     torch.cuda.empty_cache()
     return out
 
@@ -3647,7 +3866,7 @@ def phase_parallel_path(args, root, index_path, dense_queries, ref, smi,
     job = os.path.join(root, "parallel_job")
     os.makedirs(job, exist_ok=True)
     with open(os.path.join(job, "job.json"), "w") as f:
-        json.dump({"rows": args.rows, "seed": args.seed}, f)
+        json.dump({"rows": args.rows, "seed": args.seed, "dir": job}, f)
     np.savez(os.path.join(job, "queries.npz"), **ref)
     secs, out = {}, {"phase": "parallel_path", "card": smi,
                      "ranks": PARALLEL_RANKS, "backend": "gloo",
@@ -3724,13 +3943,26 @@ def main() -> int:
     if args.parallel_worker:
         return parallel_worker(args.parallel_worker)
 
+    walls, t_start = {}, time.perf_counter()
+
+    def timed(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[label] = time.perf_counter() - t
+        return out
+
     name, smi = phase_device(torch)
-    phase_build()
-    phase_encode_path(args, torch)
-    phase_train_path(args, torch)
+    timed("build", phase_build)
+    timed("encode_path", phase_encode_path, args, torch)
+    timed("train_path", phase_train_path, args, torch)
     with tempfile.TemporaryDirectory() as root:
-        paths, densify_launches = phase_densify_path(args, root, torch)
-        eval_launches = phase_eval_path(args, root, torch)
+        rehearsal_launches = timed("rehearsal_path", phase_rehearsal_path,
+                                   args, root, torch)
+        paths, densify_launches = timed("densify_path", phase_densify_path,
+                                        args, root, torch)
+        eval_launches = timed("eval_path", phase_eval_path, args, root,
+                              torch)
+        t = time.perf_counter()
         index, queries, raw = small_world(args.seed + 1, torch)
         errs = (phase_k1(index, queries, torch),
                 phase_k2(index, queries, args.seed, torch),
@@ -3739,18 +3971,22 @@ def main() -> int:
         phase_modes(index, raw, torch)
         del index, queries, raw
         torch.cuda.empty_cache()
+        walls["kernels_vs_plain_and_modes"] = time.perf_counter() - t
+        t = time.perf_counter()
         searcher, batch, launches, main_queries = phase_main(args, torch)
         launches["gip_candidates"] = phase_fused(searcher, main_queries,
                                                  torch)["gip_candidates"]
         phase_modes_full(searcher, main_queries, torch)
-        serve_launches = phase_serve_path(args, root, paths, searcher,
-                                          main_queries, smi, torch)
-        # the kernels line counts every path: main, fused, densify, eval,
-        # serve and parallel
+        walls["main_fused_modes_full"] = time.perf_counter() - t
+        serve_launches = timed("serve_path", phase_serve_path, args, root,
+                               paths, searcher, main_queries, smi, torch)
+        # the kernels line counts every path: main, fused, rehearsal,
+        # densify, eval, serve and parallel
         for k in launches:
-            launches[k] += (densify_launches[k] + eval_launches[k]
-                            + serve_launches[k])
-        kernels = phase_timing(searcher, batch, launches, errs, torch)
+            launches[k] += (rehearsal_launches[k] + densify_launches[k]
+                            + eval_launches[k] + serve_launches[k])
+        kernels = timed("timing", phase_timing, searcher, batch, launches,
+                        errs, torch)
         ref = parallel_reference(searcher, main_queries, torch)
         # the ranks hold the index (half each): free the parent's first
         del searcher, batch, main_queries
@@ -3758,11 +3994,14 @@ def main() -> int:
 
         gc.collect()
         torch.cuda.empty_cache()
-        parallel_launches = phase_parallel_path(
-            args, root, paths["index"], paths["queries"], ref, smi, torch)
+        parallel_launches = timed(
+            "parallel_path", phase_parallel_path, args, root,
+            paths["index"], paths["queries"], ref, smi, torch)
         del paths
     for kern in kernels:
         kern["launches"] += parallel_launches[kern["name"]]
+    walls["total"] = time.perf_counter() - t_start
+    emit({"phase": "walls", "seconds": walls})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

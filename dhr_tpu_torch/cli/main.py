@@ -621,8 +621,11 @@ def cmd_search(args):
         return
     write_run(args.output, results, scores, run_name=args.run_name)
     logger.info("wrote %s (%d queries)", args.output, len(results))
+    from dhr_tpu_torch.ops import kernel_launches
+
     print("DHR_TIMING " + json.dumps(
-        {"verb": "search", **searcher.last_timing}), file=sys.stderr)
+        {"verb": "search", **searcher.last_timing,
+         "launches": kernel_launches()}), file=sys.stderr)
 
 
 def cmd_serve(args):

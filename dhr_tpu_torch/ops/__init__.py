@@ -22,12 +22,22 @@ from dhr_tpu_torch.ops.quantize import quantize_per_dim, quantize_per_dim_np
 from dhr_tpu_torch.ops.rerank_gip import rerank_gip
 from dhr_tpu_torch.ops.topk import blockwise_topk, merge_topk
 
+
+def kernel_launches() -> dict:
+    """This process's launch counts of the CUDA kernels: K1
+    ``partial_gip``, K2 ``rerank_gip``, K3 ``gip_candidates`` (each
+    wrapper counts where it launches its kernel, never on the CPU)."""
+    return {"partial_gip": partial_gip.launches,
+            "rerank_gip": rerank_gip.launches,
+            "gip_candidates": gip_candidates.launches}
+
+
 __all__ = [
     "aggregate", "blockwise_topk", "cal_remove_dim",
     "decode_packed_candidates", "densify", "densify_sparse_rows",
     "gip_candidates",
     "gip_scores_masked", "gip_scores_pairwise", "gip_scores_subindex",
-    "ip_scores", "merge_reps", "merge_topk", "pad_indices_for_cls",
+    "ip_scores", "kernel_launches", "merge_reps", "merge_topk", "pad_indices_for_cls",
     "partial_gip", "partial_gip_candidates", "partial_gip_scores",
     "quantize_per_dim", "quantize_per_dim_np", "rerank_gip",
     "scale_cls_tail", "threshold_query_values", "undensify",

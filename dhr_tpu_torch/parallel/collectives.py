@@ -6,7 +6,8 @@ card (NCCL refuses two ranks on one GPU).  gloo takes CUDA tensors in
 every collective used here and copies them through the host itself
 (``chip_smoke.py``'s parallel path runs each on the card).  The tensors
 these carry are small: top-k lists, candidate scores, queries, losses and
-gradients.
+gradients; :func:`gather_full` gathers whole sharded parameters and
+optimizer moments for a checkpoint.
 """
 
 from __future__ import annotations
@@ -34,6 +35,62 @@ def all_gather_cat(t: torch.Tensor, group=None, dim: int = -1
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _check_placements(t) -> None:
+    from torch.distributed.tensor import Replicate, Shard
+
+    for p in t.placements:
+        if type(p) not in (Shard, Replicate):
+            raise NotImplementedError(
+                f"placement {p} of a DTensor: only Shard and Replicate are "
+                "gathered here")
+
+
+def shard_groups(t) -> list:
+    """The process groups of the mesh dims over which DTensor ``t`` is
+    sharded (its ``Shard`` placements)."""
+    from torch.distributed.tensor import Shard
+
+    _check_placements(t)
+    return [t.device_mesh.get_group(m) for m, p in enumerate(t.placements)
+            if isinstance(p, Shard)]
+
+
+def gather_full(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a DTensor (a plain tensor as is), gathered with
+    c10d all-gathers: ``DTensor.full_tensor``'s functional collectives
+    crash under gloo with CUDA tensors (torch 2.11).  Every rank of the
+    mesh must call it.
+
+    A ``Shard(d)`` placement is gathered along ``d`` in its mesh dim's
+    group, innermost mesh dim first; shards are ``torch.chunk``'s (the
+    ceiling, the last ones short or empty), so each is padded to the
+    ceiling and the gathered dim trimmed.  ``Replicate`` keeps the local
+    tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    _check_placements(t)
+    mesh = t.device_mesh
+    shape = list(t.shape)
+    splits = []  # (mesh dim, tensor dim, size before the split, chunk)
+    for m, p in enumerate(t.placements):
+        if isinstance(p, Shard):
+            size = shape[p.dim]
+            chunk = -(-size // mesh.size(m))
+            splits.append((m, p.dim, size, chunk))
+            shape[p.dim] = max(0, min(chunk, size
+                                      - mesh.get_local_rank(m) * chunk))
+    x = t.to_local()
+    for m, d, size, chunk in reversed(splits):
+        if x.shape[d] < chunk:
+            pad = list(x.shape)
+            pad[d] = chunk - x.shape[d]
+            x = torch.cat([x, x.new_zeros(pad)], dim=d)
+        x = all_gather_cat(x, mesh.get_group(m), dim=d).narrow(d, 0, size)
+    return x
 
 
 def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None

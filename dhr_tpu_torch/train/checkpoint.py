@@ -32,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from dhr_tpu_torch.parallel.collectives import gather_full
 from dhr_tpu_torch.parallel.mesh import is_rank0
 from dhr_tpu_torch.train.state import TrainState
 
@@ -44,14 +45,11 @@ def _state_dir(ckpt_dir: str, step: int) -> str:
 
 def _to_host(tree, keep: bool = True):
     """A copy of a (nested) state dict with every tensor whole on the CPU:
-    a DTensor is gathered first (every rank must call this).  ``keep``
-    False (a rank that does not write) takes part in the gathers and keeps
-    nothing."""
-    from torch.distributed.tensor import DTensor
-
+    a DTensor is gathered first by c10d (``parallel.collectives.
+    gather_full``; every rank must call this).  ``keep`` False (a rank that
+    does not write) takes part in the gathers and keeps nothing."""
     if isinstance(tree, torch.Tensor):
-        if isinstance(tree, DTensor):
-            tree = tree.full_tensor()
+        tree = gather_full(tree)
         return tree.detach().to("cpu", copy=True) if keep else None
     if isinstance(tree, dict):
         return {k: _to_host(v, keep) for k, v in tree.items()}

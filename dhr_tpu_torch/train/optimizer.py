@@ -104,6 +104,8 @@ def make_optimizer(cfg: OptimizerConfig,
     frozen word embeddings (``freeze_word_embeddings``) are in neither
     group and stop requiring gradients.  The caller sets each group's
     ``lr`` from :func:`linear_warmup_decay` before every update."""
+    from torch.distributed.tensor import DTensor
+
     decay = decay_mask(model)
     frozen = (frozen_word_embedding_mask(model) if cfg.freeze_word_embeddings
               else dict.fromkeys(decay, False))
@@ -113,19 +115,32 @@ def make_optimizer(cfg: OptimizerConfig,
             p.requires_grad_(False)
         else:
             groups[decay[name]].append(p)
+    # FSDP leaves small and indivisible parameters plain beside its DTensor
+    # shards; the multi-tensor (foreach) update refuses a group that mixes
+    # the two (torch 2.11 on the card), so such a model updates tensor by
+    # tensor
+    kinds = {isinstance(p, DTensor) for g in groups.values() for p in g}
     return torch.optim.AdamW(
         [{"params": groups[True], "weight_decay": cfg.weight_decay},
          {"params": groups[False], "weight_decay": 0.0}],
-        lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps)
+        lr=0.0, betas=(cfg.b1, cfg.b2), eps=cfg.eps,
+        foreach=False if len(kinds) > 1 else None)
 
 
 def _grad_norm(g: torch.Tensor) -> torch.Tensor:
-    """The 2-norm of a whole gradient: a sharded (DTensor) one's comes
-    from every shard (one collective), not this rank's alone."""
+    """The 2-norm of a whole gradient: a sharded (DTensor) one's squared
+    local norm is summed over its shard groups (c10d all-reduces; a
+    replicated mesh dim adds nothing), not this rank's alone."""
     from torch.distributed.tensor import DTensor
 
-    n = torch.linalg.vector_norm(g.float())
-    return n.full_tensor() if isinstance(n, DTensor) else n
+    from dhr_tpu_torch.parallel.collectives import all_reduce_, shard_groups
+
+    if not isinstance(g, DTensor):
+        return torch.linalg.vector_norm(g.float())
+    sq = g.to_local().float().square().sum()
+    for group in shard_groups(g):
+        all_reduce_(sq, group=group)
+    return sq.sqrt()
 
 
 @torch.no_grad()

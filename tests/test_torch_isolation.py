@@ -43,9 +43,30 @@ new |= {"dhr_tpu_torch.retrieval.colbert", "dhr_tpu_torch.eval.rerank",
         "dhr_tpu_torch.utils.profiling"}
 new |= {"dhr_tpu_torch.parallel.mesh", "dhr_tpu_torch.parallel.tp",
         "dhr_tpu_torch.parallel.collectives"}
+new |= {"dhr_tpu_torch.tools." + m for m in (
+    "k1_ablation", "pipeline_rehearsal", "rep_stats", "recall_table",
+    "escalation_probe")}
 assert new <= set(names), new - set(names)
 assert not bad, bad
 """
+
+
+def _imports(path):
+    """Top-level module names that a source file imports, anywhere in it
+    (function bodies included)."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module)
+    return out
+
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "dhr_tpu", "tools")
 
 
 def test_port_imports_no_jax_and_no_reference_module():
@@ -54,6 +75,25 @@ def test_port_imports_no_jax_and_no_reference_module():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("[]")
+
+
+def test_tools_and_chip_smoke_import_no_jax_dhr_tpu_or_tools():
+    """Every module under dhr_tpu_torch/tools/ and chip_smoke.py import,
+    even inside functions, nothing of JAX, dhr_tpu or the JAX package's
+    tools/ (the rehearsal runs ``python -m dhr_tpu_torch``, not
+    ``dhr_tpu``)."""
+    tools = os.path.join(ROOT, "dhr_tpu_torch", "tools")
+    files = [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+             if f.endswith(".py")]
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) >= 7
+    for path in files:
+        bad = {m for m in _imports(path)
+               if m.split(".")[0] in _FORBIDDEN}
+        assert not bad, (path, bad)
+        src = open(path).read()
+        assert '"-m", "dhr_tpu"' not in src, path
+        assert "reference_harness" not in src, path
 
 
 def _packed():

@@ -225,6 +225,94 @@ def train(inp):
 
 
 @task
+def fsdp_ckpt(inp):
+    """c10d gathers of DTensors whose dims the ranks do not divide, against
+    ``DTensor.full_tensor``; then a clipped FSDP step, the state's host
+    copy against ``full_tensor``'s, a save, the next step, and the same
+    next step from a fresh state restored from the save."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from dhr_tpu_torch.parallel import shard_batch
+    from dhr_tpu_torch.parallel.collectives import gather_full
+    from dhr_tpu_torch.parallel.mesh import _device_mesh
+    from dhr_tpu_torch.train.checkpoint import (
+        _to_host, restore_train_state, save_train_state)
+    from dhr_tpu_torch.train.driver import data_axes
+    from dhr_tpu_torch.train.optimizer import _grad_norm
+
+    w = torch.distributed.get_world_size()
+    x = torch.randn(inp["rows"], inp["cols"],
+                    generator=torch.Generator().manual_seed(0))
+    layouts = [("1d", _train_mesh("data"), [Shard(0)]),
+               ("1d", _train_mesh("data"), [Shard(1)])]
+    if w == 4:
+        grid = _device_mesh(np.arange(4).reshape(2, 2), ("a", "b"))
+        layouts += [("2d", grid, [Shard(0), Shard(0)]),
+                    ("2d", grid, [Shard(0), Shard(1)]),
+                    ("2d", grid, [Replicate(), Shard(1)])]
+    uneven = {}
+    for name, mesh, placements in layouts:
+        d = distribute_tensor(x, mesh, placements)
+        key = f"{name} {placements}"
+        uneven[key] = {"gathered": gather_full(d).numpy(),
+                       "full_tensor": d.full_tensor().numpy(),
+                       "local_rows": int(d.to_local().shape[0]),
+                       "local_cols": int(d.to_local().shape[1])}
+    out = {"uneven": uneven, "whole": x.numpy()}
+
+    sc = inp["scenario"]
+    mesh = _train_mesh("data")
+    state, cfg, loss_cfg, teacher = _make_state(sc, mesh)
+    # a foreach AdamW over FSDP's mix of DTensor shards and plain tensors
+    # raises (the port's optimizer steps them one by one instead)
+    kinds = {type(p).__name__ for p in state.params}
+    mixed = torch.optim.AdamW(state.params, lr=0.0, foreach=True)
+    for p in state.params:
+        p.grad = torch.zeros_like(p)
+    try:
+        mixed.step()
+        out["foreach_on_mixed_raises"] = False
+    except RuntimeError as e:
+        out["foreach_on_mixed_raises"] = "mixed" in str(e)
+    state.zero_grad()
+    out["param_kinds"] = sorted(kinds)
+    out["foreach"] = state.optimizer.defaults["foreach"]
+    step = _step_fn(sc, state, cfg, loss_cfg, teacher)
+    batches = [shard_batch(b, mesh, data_axes(mesh)) for b in sc["batches"]]
+    out["first"] = _report(state, step(state, batches[0], sc["seed"]))
+    out["grad_norms"] = {
+        n: (float(_grad_norm(p.grad)),
+            float(torch.linalg.vector_norm(p.grad.full_tensor())))
+        for n, p in state.model.named_parameters()
+        if type(p.grad).__name__ == "DTensor"}
+
+    def full(tree):
+        if isinstance(tree, torch.Tensor):
+            t = tree.full_tensor() if type(tree).__name__ == "DTensor" \
+                else tree
+            return t.detach().to("cpu", copy=True)
+        if isinstance(tree, dict):
+            return {k: full(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(full(v) for v in tree)
+        return tree
+
+    host, want = {}, {}
+    for part, sd in (("model", state.model.state_dict()),
+                     ("optimizer", state.optimizer.state_dict())):
+        host[part], want[part] = _to_host(sd), full(sd)
+    out["host_copy"], out["full_tensor_copy"] = host, want
+    save_train_state(sc["ckpt"], state)
+    out["next_loss"] = float(step(state, batches[1], sc["seed"]))
+    fresh, *_ = _make_state(sc, mesh)
+    restore_train_state(sc["ckpt"], fresh)
+    step = _step_fn(sc, fresh, cfg, loss_cfg, teacher)
+    out["resumed_step"] = fresh.step
+    out["resumed_loss"] = float(step(fresh, batches[1], sc["seed"]))
+    return out
+
+
+@task
 def encode(inp):
     """Encoder(mesh=) plain and packed over a 1-D and a hybrid mesh."""
     from dhr_tpu_torch.encode import (
