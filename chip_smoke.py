@@ -72,7 +72,11 @@ asserted, the exact candidates against the one-process search and the
 staged agreement against the TPU's bar; (b) one data-parallel step of the
 DistilBERT-base DHR model against one rank, then FSDP: a clipped step
 against one rank's, a save, and the next step against a fresh state
-restored from the save (the state gathered and the norm summed by c10d);
+restored from the save (the state gathered and the norm summed by c10d),
+then Megatron TP over a (data, model) = (1, 2) mesh (its collectives c10d
+all-reduces): the sharded set against the rules, steps with dropout off
+and 0.1 and a clipped step against one rank's, a save and a restore whose
+next loss is bit-equal, and the TP step's wall beside one process's;
 (d) ``Encoder(mesh=)`` planes
 against one process; then ``search --shard-over-devices`` through the CLI
 and (c) ``serve --shard-over-devices`` (64 requests equal to
@@ -3345,6 +3349,8 @@ PARALLEL_ENCODE = 1_024      # passages of the Encoder(mesh=) check
 PARALLEL_CLI_QUERIES = 64    # densified-index queries of the sharded CLI
 PARALLEL_SERVE_REQUESTS = 64
 FSDP_MAX_GRAD_NORM = 1e-3    # below the step's gradient norm: the clip acts
+TP_TIMED_STEPS = 3           # the TP and one-process step walls: median
+TP_HALVE_ABOVE_S = 10.0      # a slower TP step times a half batch instead
 
 
 def _wall_ms(fn, iters, torch):
@@ -3489,13 +3495,13 @@ def _par_search(job, z, dev, torch, np):
     return out
 
 
-def _par_batch(seed, np, torch):
+def _par_batch(seed, np, torch, queries=24):
     """The documented model's batch: 24 queries x 8 passages (32 / 128
     tokens), from a 4,096-passage corpus of encode_path's kind."""
     rng = np.random.default_rng(seed + 9)
     toks, _ = _passage_tokens(rng, 4096, np)
     groups = []
-    for _ in range(24):
+    for _ in range(queries):
         pos = int(rng.integers(4096))
         negs = rng.choice(4095, TRAIN_NEGATIVES, replace=False)
         negs = negs + (negs >= pos)
@@ -3503,7 +3509,8 @@ def _par_batch(seed, np, torch):
             "query": rng.choice(toks[pos], int(rng.integers(6, 31))).tolist(),
             "positive_pids": [str(pos)],
             "negative_pids": [str(int(x)) for x in negs]})
-    return next(iter(_train_loader(groups, toks, 24, torch).epoch(0))), toks
+    return (next(iter(_train_loader(groups, toks, queries, torch).epoch(0))),
+            toks)
 
 
 def _clipped(grads, max_norm):
@@ -3524,7 +3531,7 @@ def _par_train(job, dev, torch, np):
     sharded gradients' norm summed by c10d all-reduces), a save after it
     (the state gathered by c10d all-gathers), the next step, and the same
     next step from a fresh FSDP state restored from the save: its loss
-    bit-equal to the uninterrupted run's."""
+    bit-equal to the uninterrupted run's; then the TP leg (``_par_tp``)."""
     import torch.distributed as dist
 
     from dhr_tpu_torch.models import (
@@ -3624,6 +3631,194 @@ def _par_train(job, dev, torch, np):
                                     == out["fsdp_next_loss"])
     if out["fsdp_restored_step"] != 1 or not out["fsdp_resume_bit_equal"]:
         raise AssertionError(f"FSDP restore: {out}")
+    del state, step
+    torch.cuda.empty_cache()
+    out["tp"] = _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np)
+    return out
+
+
+def _step_walls(step, state, batch, seed, n, torch):
+    """Wall seconds of ``n`` steps, each ending in a synchronize."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(step(state, batch, seed))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return walls
+
+
+def _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np):
+    """(b'): Megatron TP over a (data, model) = (1, 2) mesh of the two
+    ranks (6 of the 12 heads and 1,536 of the 3,072 FFN columns a rank;
+    embeddings and norms replicated), its collectives c10d all-reduces
+    (``copy_to_model`` / ``reduce_from_model``).  Checked against the
+    one-process step on rank 0, the same batch on both ranks: dropout off
+    (a one-process step of its own) and 0.1 (``one``, _par_train's), loss
+    within 1e-5 relative and ``gather_full`` gradients within 1e-5
+    relative L2 over all of them; a step clipped at
+    ``FSDP_MAX_GRAD_NORM`` against ``one`` clipped; a save, the next step and a fresh TP state restored from the
+    save, whose next loss must be bit-equal.  Reported: the step walls of
+    TP and of one process (median of ``TP_TIMED_STEPS``, dropout off) and
+    the bytes all-reduced in a step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+    from dhr_tpu_torch.parallel import collectives, shard_batch
+    from dhr_tpu_torch.parallel.collectives import gather_full
+    from dhr_tpu_torch.parallel.mesh import _device_mesh
+    from dhr_tpu_torch.parallel.tp import tp_param_specs
+    from dhr_tpu_torch.train.checkpoint import (
+        restore_train_state, save_train_state)
+    from dhr_tpu_torch.train.driver import RunConfig, data_axes, parallelize
+    from dhr_tpu_torch.train.state import TrainState
+    from dhr_tpu_torch.train.step import LossConfig, make_train_step
+
+    rank, seed = dist.get_rank(), job["seed"]
+    dry = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, hidden_dropout=0.0, attention_dropout=0.0))
+    mesh = _device_mesh(np.arange(PARALLEL_RANKS).reshape(1, -1),
+                        ("data", "model"))
+    local = shard_batch(batch, mesh, data_axes(mesh))
+    out = {"mesh": {"data": 1, "model": PARALLEL_RANKS}}
+
+    def tp_state(c, o):
+        model = load_flax_params(BiEncoder(c), tree).to(dev)
+        group = parallelize(model, mesh, RunConfig())
+        return (TrainState.create(model, o, data_group=group),
+                make_train_step(model, c, LossConfig()))
+
+    def full_grads(model):
+        return {n: gather_full(p.grad).float().cpu()
+                for n, p in model.named_parameters() if p.grad is not None}
+
+    def check(key, loss, grads, want):
+        # the relative L2 over every gradient (the CPU tests' measure) is
+        # held to 1e-5; the largest per-tensor one (what the DP and FSDP
+        # legs hold) is reported: TP reorders the sums inside each layer,
+        # and attention's query / key gradients, behind the softmax's
+        # cancellation, move most
+        worst = {}
+        l2, mx = _grad_rel_diff(grads, want[1], worst)
+        names = [n for n in want[1] if "attention.key.bias" not in n]
+        d = math.sqrt(sum(float((grads[n].double() - want[1][n].double())
+                                .square().sum()) for n in names))
+        w = math.sqrt(sum(float(want[1][n].double().square().sum())
+                          for n in names))
+        out[key] = {"loss": loss, "loss_one_process": want[0],
+                    "loss_rel_diff": abs(loss - want[0]) / abs(want[0]),
+                    "grad_rel_l2_diff": d / w,
+                    "grad_rel_l2_diff_worst_tensor": l2,
+                    "grad_max_rel_diff": mx, "worst_tensors": worst}
+        if not (out[key]["loss_rel_diff"] <= 1e-5
+                and out[key]["grad_rel_l2_diff"] <= 1e-5):
+            raise AssertionError(f"TP {key} vs one process: {out[key]}")
+
+    dry_one = None
+    if rank == 0:
+        model = load_flax_params(BiEncoder(dry), tree).to(dev)
+        state = TrainState.create(model, opt)
+        step = make_train_step(model, dry, LossConfig())
+        dry_one = (float(step(state, batch, seed)), _grads(model))
+        out["one_process_step_s"] = _step_walls(step, state, batch, seed,
+                                                TP_TIMED_STEPS, torch)
+        del model, state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # dropout off: placement, the step against one process, the walls
+    state, step = tp_state(dry, opt)
+    model = state.model
+    specs = tp_param_specs(model)
+    sharded = {n for n, p in model.named_parameters()
+               if isinstance(p, DTensor)
+               and any(isinstance(q, Shard) for q in p.placements)}
+    want = {n for n, q in specs.items() if isinstance(q, Shard)}
+    out["params_on_card"] = all(p.device.type == dev.type
+                                for p in model.parameters())
+    out["sharded_params"] = len(sharded)
+    if not (out["params_on_card"] and sharded and sharded == want):
+        raise AssertionError(f"TP placement: on card "
+                             f"{out['params_on_card']}, sharded - specs "
+                             f"{sorted(sharded - want)[:4]}, specs - "
+                             f"sharded {sorted(want - sharded)[:4]}")
+    t = time.perf_counter()
+    loss = float(step(state, local, seed))
+    out["step_s_first"] = time.perf_counter() - t
+    grads = full_grads(model)
+    if dry_one is not None:
+        check("dropout_off", loss, grads, dry_one)
+    del grads
+    timed = local
+    if out["step_s_first"] > TP_HALVE_ABOVE_S:
+        half, _ = _par_batch(seed, np, torch, queries=12)
+        timed = shard_batch(half, mesh, data_axes(mesh))
+        out["timed_queries"] = 12
+    counted = {"calls": 0, "bytes": 0}
+
+    def counting(x, *a, **kw):
+        if collectives.size(kw.get("group")) > 1:
+            counted["calls"] += 1
+            counted["bytes"] += x.numel() * x.element_size()
+        return all_reduce(x, *a, **kw)
+
+    all_reduce, collectives.all_reduce_ = collectives.all_reduce_, counting
+    try:
+        float(step(state, timed, seed))
+    finally:
+        collectives.all_reduce_ = all_reduce
+    out["all_reduces_a_step"] = counted["calls"]
+    out["all_reduced_bytes_a_step"] = counted["bytes"]
+    out["step_s"] = _step_walls(step, state, timed, seed, TP_TIMED_STEPS,
+                                torch)
+    out["step_s_median"] = statistics.median(out["step_s"])
+    if rank == 0:
+        out["one_process_step_s_median"] = statistics.median(
+            out["one_process_step_s"])
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # dropout 0.1 (a TP rank keeps its heads' block of the global mask)
+    state, step = tp_state(cfg, opt)
+    loss = float(step(state, local, seed))
+    grads = full_grads(state.model)
+    if one is not None:
+        check("dropout", loss, grads, one)
+    del state, step, grads
+    torch.cuda.empty_cache()
+
+    # clipped, saved, stepped on, restored
+    clip = dataclasses.replace(opt, max_grad_norm=FSDP_MAX_GRAD_NORM)
+    state, step = tp_state(cfg, clip)
+    loss = float(step(state, local, seed))
+    grads = full_grads(state.model)
+    if one is not None:
+        want, norm = _clipped(one[1], FSDP_MAX_GRAD_NORM)
+        check("clipped", loss, grads, (one[0], want))
+        out["clipped"]["grad_norm_one_process"] = norm
+        if not norm > FSDP_MAX_GRAD_NORM:
+            raise AssertionError(f"TP clip did not act: norm {norm}")
+    del grads
+    ckpt = os.path.join(job["dir"], "tp_ckpt")
+    t = time.perf_counter()
+    save_train_state(ckpt, state)
+    out["save_s"] = time.perf_counter() - t
+    nxt, _ = _par_batch(seed + 1, np, torch)
+    nxt = shard_batch(nxt, mesh, data_axes(mesh))
+    out["next_loss"] = float(step(state, nxt, seed))
+    del state, step
+    torch.cuda.empty_cache()
+    state, step = tp_state(cfg, clip)
+    t = time.perf_counter()
+    restore_train_state(ckpt, state)
+    out["restore_s"] = time.perf_counter() - t
+    out["restored_step"] = state.step
+    out["resumed_loss"] = float(step(state, nxt, seed))
+    out["resume_bit_equal"] = out["resumed_loss"] == out["next_loss"]
+    if out["restored_step"] != 1 or not out["resume_bit_equal"]:
+        raise AssertionError(f"TP restore: {out}")
     del state, step
     torch.cuda.empty_cache()
     return out

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import logging
 import sys
@@ -698,6 +699,7 @@ def cmd_serve(args):
         serve_service(service, host=args.host, port=args.port,
                       threaded=threaded)
     finally:
+        service.close()
         if lockstep is not None:
             lockstep.stop()
 
@@ -1484,6 +1486,11 @@ def main(argv=None):
     finally:
         dist = sys.modules.get("torch.distributed")
         if dist is not None and dist.is_initialized():  # a sharded verb
+            # free what still holds the groups (a DeviceMesh in a
+            # reference cycle) so their gloo threads stop here: left
+            # running into the interpreter's exit, they could abort it
+            # ("terminate called without an active exception")
+            gc.collect()
             dist.destroy_process_group()
 
 

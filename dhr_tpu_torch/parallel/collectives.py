@@ -7,7 +7,10 @@ every collective used here and copies them through the host itself
 (``chip_smoke.py``'s parallel path runs each on the card).  The tensors
 these carry are small: top-k lists, candidate scores, queries, losses and
 gradients; :func:`gather_full` gathers whole sharded parameters and
-optimizer moments for a checkpoint.
+optimizer moments for a checkpoint, and :func:`copy_to_model` /
+:func:`reduce_from_model` carry tensor parallelism's activations and
+their gradients (c10d, not DTensor's functional collectives, which crash
+under gloo with CUDA tensors on torch 2.11).
 """
 
 from __future__ import annotations
@@ -162,3 +165,51 @@ def gather_rows(t: torch.Tensor | None, group=None):
     if t.requires_grad:
         return _GatherRows.apply(t, group)
     return all_gather_cat(t, group, dim=0)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's *f*: the identity forward; the backward SUMs the
+    gradient over the model ranks (each rank's column-parallel layers
+    give only their output features' share of the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        return all_reduce_(grad, group=ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's *g*: the forward SUMs the row-parallel partial outputs
+    over the model ranks; the backward is the identity (every rank holds
+    the whole output's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as is, its gradient summed over ``group`` in the backward
+    (:class:`_CopyToModel`): the input of a block of column-parallel
+    layers."""
+    if size(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, its gradient passed through
+    (:class:`_ReduceFromModel`): the output of a row-parallel layer."""
+    if size(group) == 1:
+        return x
+    return _ReduceFromModel.apply(x, group)

@@ -1,11 +1,17 @@
 """Tensor-parallel (Megatron) and FSDP parameter sharding.
 
 Port of ``dhr_tpu/parallel/tp.py``.  The reference annotates parameter
-shardings and lets XLA insert the collectives; here the same rules become a
-``parallelize_module`` plan (TP: DTensor parameters whose layers gather or
-reduce their activations) and FSDP2 ``fully_shard`` (FSDP: the parameters
-live sharded, each is gathered where it is used and its gradient
-reduce-scattered).
+shardings and lets XLA insert the collectives; here the TP rules make each
+planned layer's parameters DTensors (cut locally from the weights every
+rank holds) and the layer compute on its local shard, with Megatron's two
+conjugate collectives on c10d (``parallel.collectives``): the input of a
+block of column-parallel layers passes ``copy_to_model`` once (its
+gradient summed over the model ranks in the backward), a row-parallel
+output passes ``reduce_from_model`` (summed in the forward).  No DTensor
+redistribution runs on the TP path: DTensor's functional collectives crash
+under gloo with CUDA tensors (torch 2.11), the backend of ranks sharing
+one card.  FSDP is FSDP2 ``fully_shard`` (the parameters live sharded,
+each is gathered where it is used and its gradient reduce-scattered).
 
 TP rules over the port's modules, with the reference's (Flax) path each one
 matches; a port ``Dense`` weight is ``(out, in)`` where a Flax kernel is
@@ -32,10 +38,15 @@ the train state sums over the data ranks).
 
 from __future__ import annotations
 
+import functools
 import math
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
+from dhr_tpu_torch.models.transformer import Dense
+from dhr_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from dhr_tpu_torch.parallel.mesh import check_device
 
 MODEL_AXIS = "model"
@@ -77,33 +88,70 @@ def tp_param_specs(model: nn.Module, axis: str = MODEL_AXIS) -> dict:
     return out
 
 
-def tp_plan(model: nn.Module) -> dict:
-    """The ``parallelize_module`` plan of :func:`tp_param_specs`."""
-    from torch.distributed.tensor.parallel import (
-        ColwiseParallel,
-        RowwiseParallel,
-    )
+class _ColumnParallel(Dense):
+    """Megatron's column-parallel layer: this rank's output features (its
+    heads, its FFN columns) from its ``Shard(0)`` weight and bias.  The
+    block's input passed ``copy_to_model`` before it (one hook a block,
+    not one a layer): no collective here."""
 
-    plan = {}
-    for name, _ in model.named_modules():
-        style = _tp_style(name)
-        if style == "column":
-            plan[name] = ColwiseParallel()
-        elif style == "row":
-            plan[name] = RowwiseParallel()
-    return plan
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to_local().to(x.dtype),
+                        self.bias.to_local().to(x.dtype))
+
+
+class _RowParallel(Dense):
+    """Megatron's row-parallel layer: this rank's ``Shard(1)`` weight on
+    its share of the features, the partial outputs summed over the model
+    ranks (``reduce_from_model``), then the replicated bias added once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to_local().to(x.dtype))
+        y = reduce_from_model(y, self.weight.device_mesh.get_group())
+        return y + self.bias.to_local().to(x.dtype)
+
+
+def _copy_input(group, module, args):
+    """A forward pre-hook: the block's input through ``copy_to_model``."""
+    x, *rest = args
+    return (copy_to_model(x, group), *rest)
 
 
 def shard_params_tp(model: nn.Module, mesh, axis: str = MODEL_AXIS
                     ) -> nn.Module:
     """Shard ``model`` in place with the TP rules over the ``axis`` dim of
-    ``mesh`` (rank 0's weights land); returns it.  Heads and the FFN
-    width must divide by the axis size."""
-    from torch.distributed.tensor.parallel import parallelize_module
+    ``mesh``; returns it.  Each rank cuts its shards from its own weights,
+    so every rank must hold the same ones (the same seed or checkpoint).
+    Heads and the FFN width must divide by the axis size."""
+    from torch.distributed.tensor import Shard, distribute_tensor
 
     check_device(next(model.parameters()).device, mesh, "the model")
     sub = mesh[axis] if mesh.ndim > 1 else mesh
-    return parallelize_module(model, sub, tp_plan(model))
+    n, group = sub.size(), sub.get_group()
+    specs = tp_param_specs(model, axis)
+    blocks = {}
+    for name, mod in list(model.named_modules()):
+        style = _tp_style(name)
+        if style is None:
+            continue
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            place = specs[f"{name}.{pname}"]
+            if isinstance(place, Shard) and p.shape[place.dim] % n:
+                raise ValueError(f"{name}.{pname} {tuple(p.shape)} does not "
+                                 f"shard over {n} model ranks")
+            mod.register_parameter(pname, nn.Parameter(
+                distribute_tensor(p.detach(), sub, [place],
+                                  src_data_rank=None),
+                requires_grad=p.requires_grad))
+        mod.__class__ = _ColumnParallel if style == "column" else _RowParallel
+        if style == "column":
+            # attention's query / key / value share one input
+            parent, _, leaf = name.rpartition(".")
+            block = parent if leaf in ("query", "key", "value") else name
+            blocks[block] = model.get_submodule(block)
+    for block in blocks.values():
+        block.register_forward_pre_hook(functools.partial(_copy_input,
+                                                          group))
+    return model
 
 
 def fsdp_param_specs(model: nn.Module, axis: str = "data",

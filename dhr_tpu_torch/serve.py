@@ -121,8 +121,24 @@ class MicroBatcher:
         # clearing the resume flag can eat the next signal)
         self._state_cv = threading.Condition()
         self._state = "running"  # running | pause_requested | parked
+        self._closed = False
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Stop the worker after its pool in flight and wait for it; the
+        requests still queued fail.  A worker left running at exit keeps
+        its searchers, and a sharded index's process group with its
+        threads, alive while the interpreter finalizes, which can abort
+        the process ("terminate called without an active exception")."""
+        with self._state_cv:
+            self._closed = True
+            self._state_cv.notify_all()
+        try:
+            self._q.put_nowait(_SWAP_WAKE)
+        except queue.Full:
+            pass  # the worker is busy; it stops before its next pool
+        self._worker.join(timeout)
 
     def pause(self):
         """Park the worker between pools and drop its searcher references
@@ -196,9 +212,11 @@ class MicroBatcher:
                 if self._state == "pause_requested":
                     self._state = "parked"
                     self._state_cv.notify_all()
-                    while self._state == "parked":
+                    while self._state == "parked" and not self._closed:
                         self._state_cv.wait()
                     continue
+                if self._closed:
+                    break
             if self._swap is not None:
                 self.searcher, self.small = self._swap
                 self._swap = None
@@ -252,6 +270,18 @@ class MicroBatcher:
                     if not done.is_set():
                         slot["error"] = e
                         done.set()
+        self.searcher = self.small = self._swap = None
+        left = [self._carry] if self._carry is not None else []
+        self._carry = None
+        while True:
+            try:
+                left.append(self._q.get_nowait())
+            except queue.Empty:
+                break
+        for item in left:
+            if item is not _SWAP_WAKE:
+                item[4]["error"] = RuntimeError("the service is stopping")
+                item[3].set()
 
     def _per_request(self, batch):
         for qids, values, indices, done, slot in batch:
@@ -452,6 +482,12 @@ class SearchService:
                          max_pending=max_pending)
             if micro_batch_ms > 0 else None
         )
+
+    def close(self) -> None:
+        """Stop the micro-batcher's worker (:meth:`MicroBatcher.close`);
+        the service takes no search after it."""
+        if self.batcher is not None:
+            self.batcher.close()
 
     def _run(self, qids, values, indices):
         if self.batcher is not None:

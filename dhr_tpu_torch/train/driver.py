@@ -91,7 +91,8 @@ def data_axes(mesh) -> tuple[str, ...]:
 
 def parallelize(model, mesh, run_cfg: RunConfig):
     """Shard ``model`` for ``mesh`` in place (TP over ``model``, FSDP over
-    ``data`` when asked); returns the data axes' process group."""
+    ``data`` when asked); returns the data axes' process group, the one
+    :class:`TrainState` sums gradients over (TP needs no model-axis sum)."""
     from dhr_tpu_torch.parallel.mesh import DATA_AXIS, axes_group
     from dhr_tpu_torch.parallel.tp import (
         MODEL_AXIS, shard_params_fsdp, shard_params_tp)

@@ -9,7 +9,11 @@ Under data parallelism (``data_group``, the process group of the ``data``
 mesh axes) every rank holds the same state, or its FSDP / TP shards of it
 (``parallel.tp``): :meth:`TrainState.apply_gradients` first sums the
 gradients the ranks computed for their rows, except those FSDP has
-already reduce-scattered, then clips by the global norm.
+already reduce-scattered, then clips by the global norm.  Under TP the
+sum stays over the data ranks: a replicated parameter's gradient is
+already the same on every model rank (``copy_to_model`` summed the
+activations' gradients in the backward) and a sharded one is its rank's
+shard of the whole.
 """
 
 from __future__ import annotations

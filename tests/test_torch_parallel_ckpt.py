@@ -1,4 +1,4 @@
-"""FSDP checkpoints and the clipped FSDP step through c10d, over gloo ranks
+"""FSDP and TP checkpoints and clipped steps through c10d, over gloo ranks
 on the CPU (``parallel.collectives.gather_full``, ``optimizer._grad_norm``).
 
 ``DTensor.full_tensor``'s functional all-gather crashes under gloo with
@@ -18,7 +18,12 @@ ranks, on a tiny DHR model whose vocabulary (1,021) no rank count divides:
 - the state saved after that step, restored into a fresh FSDP state, gives
   the uninterrupted run's next loss bit for bit;
 - the optimizer steps FSDP's mix of DTensor shards and plain tensors one
-  by one: a foreach AdamW over the mix raises (it did on the card).
+  by one: a foreach AdamW over the mix raises (it did on the card);
+- the same clipped step, host copy and restore for a TP state over a
+  (data, model) = (1, 2) and (2, 2) mesh, its path run with
+  ``torch.distributed._functional_collectives`` patched to raise; its
+  save also restores into an unsharded state here, bit-equal to the host
+  copy, whose next step equals the TP ranks' next loss.
 """
 
 import numpy as np
@@ -44,6 +49,10 @@ MAX_NORM = 1e-3
 OPT = dict(learning_rate=1e-3, weight_decay=0.01, max_grad_norm=MAX_NORM)
 LOSS = dict(n_passages=N_PSG, remove_dims=REMOVE)
 WORLDS = (2, 4)
+# each group's wall limit: ten times its spawn's wall with six pytest
+# workers busy beside it on an 8-core host (~16 s on 2 ranks, ~25 s on 4),
+# rounded up to a minute
+LIMIT_S = {2: 180, 4: 300}
 
 
 @pytest.fixture(autouse=True)
@@ -70,9 +79,9 @@ def _cfg():
                            **FAMILY)
 
 
-def _scenario(ckpt):
+def _scenario(ckpt, mesh="data"):
     return dict(enc=ENC, family=FAMILY, loss=LOSS, opt=OPT, step="plain",
-                mesh="data", seed=5, fsdp=True, ckpt=ckpt,
+                mesh=mesh, seed=5, fsdp=mesh == "data", ckpt=ckpt,
                 tree=random_flax_params(_cfg(), torch.Generator()
                                         .manual_seed(3)),
                 batches=[_batch(21), _batch(22)])
@@ -84,8 +93,10 @@ def runs(tmp_path_factory):
     out = {}
     for w in WORLDS:
         sc = _scenario(str(tmp / f"ckpt{w}"))
+        tp = _scenario(str(tmp / f"ckpt{w}_tp"), mesh="tp")
         out[w] = (sc, run_ranks("fsdp_ckpt", w, {
-            "rows": V, "cols": 7, "scenario": sc}, tmp))
+            "rows": V, "cols": 7, "scenario": sc, "tp_scenario": tp}, tmp,
+            timeout=LIMIT_S[w]))
     return out
 
 
@@ -137,31 +148,52 @@ def test_gather_full_of_uneven_shards_equals_full_tensor(runs, world):
     assert sum(rows) == V
 
 
+def _check_host_copy(leg):
+    assert leg["first"]["sharded"], "no parameter sharded"
+    for part in ("model", "optimizer"):
+        assert _equal_trees(leg["host_copy"][part],
+                            leg["full_tensor_copy"][part]), part
+
+
+def _check_clipped_step(sc, legs):
+    loss, grads = _one_process(sc)
+    total = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                        for g in grads.values()))
+    assert abs(total - MAX_NORM) <= 1e-5 * MAX_NORM  # the clip engaged
+    for leg in legs:
+        got = leg["first"]
+        assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
+        assert set(got["grads"]) == set(grads)
+        assert _rel_l2(got["grads"], grads) <= 1e-5
+        assert leg["grad_norms"]
+        for name, (c10d, full) in leg["grad_norms"].items():
+            assert abs(c10d - full) <= 1e-6 * full, name
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_fsdp_host_copy_equals_full_tensor(runs, world):
     _, res = runs[world]
     for rank in res:
-        assert rank["first"]["sharded"], "FSDP sharded no parameter"
-        for part in ("model", "optimizer"):
-            assert _equal_trees(rank["host_copy"][part],
-                                rank["full_tensor_copy"][part]), part
+        _check_host_copy(rank)
 
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_clipped_fsdp_step_equals_one_process(runs, world):
     sc, res = runs[world]
-    loss, grads = _one_process(sc)
-    total = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
-                        for g in grads.values()))
-    assert abs(total - MAX_NORM) <= 1e-5 * MAX_NORM  # the clip engaged
+    _check_clipped_step(sc, res)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tp_host_copy_equals_full_tensor(runs, world):
+    _, res = runs[world]
     for rank in res:
-        got = rank["first"]
-        assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
-        assert set(got["grads"]) == set(grads)
-        assert _rel_l2(got["grads"], grads) <= 1e-5
-        assert rank["grad_norms"]
-        for name, (c10d, full) in rank["grad_norms"].items():
-            assert abs(c10d - full) <= 1e-6 * full, name
+        _check_host_copy(rank["tp"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_clipped_tp_step_equals_one_process(runs, world):
+    sc, res = runs[world]
+    _check_clipped_step(sc, [rank["tp"] for rank in res])
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -182,3 +214,34 @@ def test_fsdp_restore_gives_the_next_loss_bit_for_bit(runs, world):
     for rank in res:
         assert rank["resumed_step"] == 1
         assert rank["resumed_loss"] == rank["next_loss"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tp_restore_gives_the_next_loss_bit_for_bit(runs, world):
+    _, res = runs[world]
+    for rank in res:
+        assert rank["tp"]["resumed_step"] == 1
+        assert rank["tp"]["resumed_loss"] == rank["tp"]["next_loss"]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tp_checkpoint_restores_into_one_process(runs, world):
+    """The TP ranks' save restored into an unsharded state here: its
+    parameters and moments equal the ranks' host copy bit for bit, and its
+    next step's loss equals the TP ranks' next loss."""
+    from dhr_tpu_torch.train.checkpoint import restore_train_state
+
+    sc, res = runs[world]
+    cfg = _cfg()
+    model = load_flax_params(BiEncoder(cfg), sc["tree"])
+    one = TrainState.create(model, OptimizerConfig(**sc["opt"]))
+    restore_train_state(sc["ckpt"] + "_tp", one)
+    assert one.step == 1
+    host = res[0]["tp"]["host_copy"]
+    assert _equal_trees(dict(model.state_dict()), host["model"])
+    assert _equal_trees(one.optimizer.state_dict()["state"],
+                        host["optimizer"]["state"])
+    step = tstep.make_train_step(model, cfg, tstep.LossConfig(**sc["loss"]))
+    loss = float(step(one, sc["batches"][1], sc["seed"]))
+    want = res[0]["tp"]["next_loss"]
+    assert abs(loss - want) <= 1e-5 * abs(want)

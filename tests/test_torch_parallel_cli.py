@@ -28,6 +28,7 @@ import pytest
 from dhr_tpu_torch.cli import main as tcli
 from dhr_tpu_torch.retrieval import (
     DeviceIndex, PackedIndex, SearchConfig, Searcher, read_run)
+from torch_parallel_util import wait_all
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, LEX, CLS, B = 301, 16, 4, 6
@@ -77,26 +78,38 @@ def _rank_env(rank, world):
     return env
 
 
-def _ranks(argv, world, init, **kw):
-    return [subprocess.Popen(
-        [sys.executable, "-m", "dhr_tpu_torch", *argv, "--device", "cpu",
-         "--shard-over-devices", "--dist-backend", "gloo",
-         "--dist-init-method", init], cwd=ROOT, env=_rank_env(r, world),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, **kw)
-        for r in range(world)]
+def _spawn(argvs, init):
+    """One ``python -m dhr_tpu_torch`` process a rank (``argvs[r]``), its
+    stdout and stderr written to files beside the rendezvous file (no pipe
+    to drain while the others wait)."""
+    base = init[len("file://"):]
+    procs = []
+    for r, argv in enumerate(argvs):
+        logs = (f"{base}.rank{r}.out", f"{base}.rank{r}.err")
+        with open(logs[0], "w") as out, open(logs[1], "w") as err:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "dhr_tpu_torch", *argv,
+                 "--dist-init-method", init], cwd=ROOT,
+                env=_rank_env(r, len(argvs)), stdin=subprocess.DEVNULL,
+                stdout=out, stderr=err)
+        p.logs = logs
+        procs.append(p)
+    return procs
+
+
+def _ranks(argv, world, init):
+    return _spawn([[*argv, "--device", "cpu", "--shard-over-devices",
+                    "--dist-backend", "gloo"]] * world, init)
 
 
 def _wait(procs, timeout):
+    """Every rank's ``(stdout, stderr)`` once all exit 0; raises with every
+    rank's stderr tail when one exits non-zero or ``timeout`` passes."""
+    wait_all(procs, [p.logs[1] for p in procs], timeout, "the ranks")
     outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, (_, err) in zip(procs, outs):
-        assert p.returncode == 0, err[-3000:]
+    for p in procs:
+        with open(p.logs[0]) as out, open(p.logs[1]) as err:
+            outs.append((out.read(), err.read()))
     return outs
 
 
@@ -288,13 +301,9 @@ def trained(files):
     tmp = os.path.join(files.tmp, "train")
     os.makedirs(tmp)
     _train_files(tmp)
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "dhr_tpu_torch",
-         *_train_argv(tmp, os.path.join(tmp, "dp")), "--device", "cpu",
-         "--dist-backend", "gloo", "--dist-init-method",
-         "file://" + os.path.join(tmp, "train.rdzv")], cwd=ROOT,
-        env=_rank_env(r, 2), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for r in range(2)]
+    procs = _spawn([[*_train_argv(tmp, os.path.join(tmp, "dp")), "--device",
+                     "cpu", "--dist-backend", "gloo"]] * 2,
+                   "file://" + os.path.join(tmp, "train.rdzv"))
     outs = _wait(procs, 300)
     tcli.main([*_train_argv(tmp, os.path.join(tmp, "one")), "--device",
                "cpu"])

@@ -10,12 +10,21 @@ the parameters after the AdamW update:
 - data parallel, plain, packed and grad-cache (dropout on: the masks are
   drawn at the global shape, so they equal one process's; and off) and
   the in-graph TCT teacher, over 2 and 4 ranks;
-- FSDP over 2 and 4 ranks, TP over a (data, model) = (2, 2) mesh (dropout
-  on and off: a TP rank keeps its heads' block of the attention mask), and
-  the hybrid recipe (FSDP over ``data``, DP over ``(host, data)``, 2 x 2);
+- FSDP over 2 and 4 ranks, TP over a (data, model) = (1, 2) and (2, 2)
+  mesh (dropout on and off: a TP rank keeps its heads' block of the
+  attention mask), and the hybrid recipe (FSDP over ``data``, DP over
+  ``(host, data)``, 2 x 2);
 - a two-rank FSDP state saved after one step, restored into a fresh
   sharded state on 2 ranks and into an unsharded one here, and stepped
-  once more: both equal the uninterrupted run.
+  once more: both equal the uninterrupted run;
+- every TP scenario runs with ``torch.distributed._functional_collectives``
+  patched to raise (the worker's ``no_functional_collectives``): the TP
+  path's collectives are c10d's alone, the kind that runs under gloo with
+  CUDA tensors on the card.
+
+Each world size is one module fixture (one spawn of its ranks), so a
+fault in one group costs only its own tests; the spawner's assertion
+carries every rank's log tail.
 
 Loss and gradients to 1e-5 relative L2 of the one-process step (and, with
 dropout off, the loss to 1e-5 of dhr_tpu's step on the same batch);
@@ -95,6 +104,8 @@ SCENARIOS = {
         "dp_tct": scenario(loss=dict(LOSS, use_tct_teacher=True),
                            teacher=_teacher()),
         "fsdp": scenario(fsdp=True),
+        "tp": scenario(mesh="tp"),
+        "tp_dropout": scenario(mesh="tp", dropout=True),
     },
     4: {
         "dp_plain_dropout": scenario(dropout=True),
@@ -105,16 +116,33 @@ SCENARIOS = {
     },
 }
 CASES = [(w, n) for w, scen in SCENARIOS.items() for n in scen]
+# each group's wall limit: ten times its spawn's wall with six pytest
+# workers busy beside it on an 8-core host (18 s on 2 ranks, 22 s on 4),
+# rounded up to a minute; a hung collective fails its group's tests there
+LIMIT_S = {2: 180, 4: 240}
+
+
+def _spawn(tmp_path_factory, world):
+    tmp = tmp_path_factory.mktemp(f"ptrain{world}")
+    if world == 2:
+        SCENARIOS[2]["fsdp"]["ckpt"] = str(tmp / "ckpt")
+    return run_ranks("train", world, {"scenarios": SCENARIOS[world]}, tmp,
+                     timeout=LIMIT_S[world])
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("ptrain")
-    ckpt = str(tmp / "ckpt")
-    SCENARIOS[2]["fsdp"]["ckpt"] = ckpt
-    out = {w: run_ranks("train", w, {"scenarios": scen}, tmp)
-           for w, scen in SCENARIOS.items()}
-    return out, ckpt
+def runs2(tmp_path_factory):
+    return _spawn(tmp_path_factory, 2)
+
+
+@pytest.fixture(scope="module")
+def runs4(tmp_path_factory):
+    return _spawn(tmp_path_factory, 4)
+
+
+def _runs(request, world) -> list:
+    """Each rank's results of the ``world``-rank group."""
+    return request.getfixturevalue(f"runs{world}")
 
 
 def _one_process(sc, n_steps=1):
@@ -162,11 +190,10 @@ def _params(state):
 
 
 @pytest.mark.parametrize("world,name", CASES)
-def test_sharded_step_equals_one_process(runs, world, name):
-    out, _ = runs
+def test_sharded_step_equals_one_process(request, world, name):
     sc = SCENARIOS[world][name]
     state, (loss,), _ = _one_process(sc)
-    for r, res in enumerate(out[world]):
+    for r, res in enumerate(_runs(request, world)):
         got = res[name]["first"]
         assert abs(got["loss"] - loss) <= 1e-5 * abs(loss), (r, got["loss"])
         assert set(got["grads"]) == set(_grads(state))
@@ -177,21 +204,19 @@ def test_sharded_step_equals_one_process(runs, world, name):
 @pytest.mark.parametrize("world,name", [c for c in CASES
                                         if "dropout" not in c[1]
                                         and "tct" not in c[1]])
-def test_sharded_loss_equals_dhr_tpu(runs, world, name):
-    out, _ = runs
+def test_sharded_loss_equals_dhr_tpu(request, world, name):
     sc = SCENARIOS[world][name]
     jcfg, _ = configs(sc["family"])
     want, _ = jax_loss_and_grads(jax_train_step, jcfg, sc["tree"],
                                  sc["batches"][0])
-    got = out[world][0][name]["first"]["loss"]
+    got = _runs(request, world)[0][name]["first"]["loss"]
     assert abs(got - want) <= 1e-5 * abs(want)
 
 
-def test_fsdp_shards_large_and_replicates_small(runs):
+def test_fsdp_shards_large_and_replicates_small(runs2, runs4):
     """FSDP shards exactly the parameters of >= min_size (64) elements
     whose first dim divides by the ranks (the reference's rule)."""
-    out, _ = runs
-    sharded = set(out[2][0]["fsdp"]["first"]["sharded"])
+    sharded = set(runs2[0]["fsdp"]["first"]["sharded"])
     state, _, _ = _one_process(SCENARIOS[2]["fsdp"])
     want = {n for n, p in state.model.named_parameters()
             if p.numel() >= 64 and p.shape[0] % 2 == 0}
@@ -200,20 +225,20 @@ def test_fsdp_shards_large_and_replicates_small(runs):
     assert any(n.endswith("term_weight.linear.bias") for n in
                dict(state.model.named_parameters())) and not any(
         n.endswith("term_weight.linear.bias") for n in sharded)
-    tp = set(out[4][0]["tp"]["first"]["sharded"])
+    tp = set(runs4[0]["tp"]["first"]["sharded"])
     assert any(n.endswith("attention.query.weight") for n in tp)
     assert any(n.endswith("ffn_out.weight") for n in tp)
     assert not any("embeddings" in n for n in tp)
 
 
-def test_sharded_checkpoint_restores_on_two_ranks_and_one(runs):
+def test_sharded_checkpoint_restores_on_two_ranks_and_one(runs2):
     """Saved from a 2-rank FSDP state after step 1, restored into a fresh
     sharded state (2 ranks) and into an unsharded one (here): the next
     step equals the uninterrupted run's second step."""
-    out, ckpt = runs
     sc = SCENARIOS[2]["fsdp"]
+    ckpt = sc["ckpt"]
     want, losses, tcfg = _one_process(sc, n_steps=2)
-    for res in out[2]:
+    for res in runs2:
         got = res["fsdp"]
         assert got["step"] == 2
         assert abs(got["resumed"]["loss"] - losses[1]) <= 1e-5 * losses[1]
@@ -226,6 +251,30 @@ def test_sharded_checkpoint_restores_on_two_ranks_and_one(runs):
     loss = float(step(one, sc["batches"][1], sc["seed"]))
     assert abs(loss - losses[1]) <= 1e-5 * losses[1]
     assert _rel_l2(_params(one), _params(want)) <= 1e-5
+
+
+TP_CASES = [(w, n) for w, n in CASES if SCENARIOS[w][n]["mesh"] == "tp"]
+
+
+@pytest.mark.parametrize("world,name", TP_CASES)
+def test_tp_step_runs_no_functional_collective(request, world, name):
+    """The TP scenario ran under the guard (its step equals one process's
+    above), the guard trips on a DTensor redistribution, and the DTensor
+    parameters are the rules' ``Shard`` ones plus the row layers'
+    replicated biases."""
+    from dhr_tpu_torch.parallel.tp import tp_param_specs
+
+    sc = SCENARIOS[world][name]
+    _, tcfg = configs(sc["family"])
+    specs = tp_param_specs(port_model(tcfg, sc["tree"]))
+    want = {n for n, p in specs.items() if p.is_shard()}
+    for res in _runs(request, world):
+        assert res[name]["guard_trips"] is True
+        got = res[name]["first"]
+        assert want and want <= set(got["sharded"])
+        assert set(got["sharded"]) - want == {
+            n for n in got["sharded"]
+            if n.endswith(("attention.out.bias", "ffn_out.bias"))}
 
 
 def test_reps_is_a_pytree_node():

@@ -588,6 +588,50 @@ def test_bounded_ingress_queue_sheds_with_503():
     assert stats["max_pending"] == 1
 
 
+def test_close_finishes_the_pool_in_flight_and_fails_the_queued():
+    """``SearchService.close`` stops the micro-batcher's worker: the pool
+    it runs finishes, the requests still queued fail, and the thread (and
+    with it the searchers it held) is gone."""
+    entered, release = threading.Event(), threading.Event()
+
+    class Gated(SlowSearcher):
+        def search_run(self, qids, values, indices):
+            entered.set()
+            release.wait(10)
+            return ({q: ["d0"] for q in qids}, {q: [1.0] for q in qids})
+
+    service = SearchService(Gated(), micro_batch_ms=1.0)
+    batcher = service.batcher
+    got = {}
+
+    def one(i):
+        try:
+            got[i] = batcher.search([f"q{i}"], np.zeros((1, 12), np.float32),
+                                    None)
+        except RuntimeError as e:
+            got[i] = str(e)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+    threads[0].start()
+    assert entered.wait(10)  # the first pool is in flight
+    for t in threads[1:]:
+        t.start()
+    deadline = time.monotonic() + 10
+    while batcher._q.qsize() < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    closer = threading.Thread(target=service.close)
+    closer.start()
+    while not batcher._closed and time.monotonic() < deadline:
+        time.sleep(0.01)
+    release.set()
+    for t in (closer, *threads):
+        t.join(timeout=10)
+        assert not t.is_alive()
+    assert not batcher._worker.is_alive() and batcher.searcher is None
+    assert got[0] == ({"q0": ["d0"]}, {"q0": [1.0]})
+    assert got[1] == got[2] == "the service is stopping"
+
+
 def _reload_service(old, micro_batch_ms=0.0, small=False, loader=_loader,
                     token=None):
     idx = _device(old)

@@ -10,6 +10,9 @@ module (see ``torch_parallel_util.run_ranks``) and assert on the results.
 
 from __future__ import annotations
 
+import contextlib
+import datetime
+import inspect
 import os
 import pickle
 import sys
@@ -25,6 +28,64 @@ TASKS = {}
 def task(fn):
     TASKS[fn.__name__] = fn
     return fn
+
+
+def _log(msg: str) -> None:
+    """A timestamped line on this rank's stderr (the spawner keeps each
+    rank's log and shows its tail when a group fails or hangs)."""
+    rank = (torch.distributed.get_rank()
+            if torch.distributed.is_initialized() else "-")
+    print(f"{datetime.datetime.now():%H:%M:%S.%f} rank {rank} {msg}",
+          file=sys.stderr, flush=True)
+
+
+class FunctionalCollectiveCalled(RuntimeError):
+    pass
+
+
+@contextlib.contextmanager
+def no_functional_collectives():
+    """Every entry point of ``torch.distributed._functional_collectives``
+    raises inside: a DTensor redistribution (``full_tensor``,
+    ``redistribute``, DTensor parallel styles), the kind of collective
+    that crashes under gloo with CUDA tensors on the card, fails here on
+    the CPU."""
+    import torch.distributed._functional_collectives as funcol
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise FunctionalCollectiveCalled(
+                f"functional collective {name} called on the TP path")
+        return call
+
+    saved = {n: f for n, f in vars(funcol).items()
+             if inspect.isfunction(f) and f.__module__ == funcol.__name__
+             and not n.startswith("_")
+             and not n.endswith(("_backward", "_setup_context"))}
+    for n in saved:
+        setattr(funcol, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(funcol, n, f)
+
+
+def _guard(sc):
+    """The guard of a TP scenario, a no-op for the others."""
+    return (no_functional_collectives() if sc["mesh"] == "tp"
+            else contextlib.nullcontext())
+
+
+def _guard_trips(model) -> bool:
+    """True when, under the guard, ``full_tensor`` of a sharded parameter
+    raises: the guard covers what a DTensor redistribution calls."""
+    p = next(p for p in model.parameters() if type(p).__name__ == "DTensor")
+    try:
+        p.full_tensor()
+    except FunctionalCollectiveCalled:
+        return True
+    return False
 
 
 def _mesh(kind: str):
@@ -44,6 +105,7 @@ def search(inp):
 
     out = {}
     for name, sc in inp["scenarios"].items():
+        _log(f"scenario {name} start")
         mesh = _mesh(sc.get("mesh", "index"))
         packed = PackedIndex(**sc["packed"])
         idx = DeviceIndex.from_packed(packed, layout=sc.get("layout", "both"),
@@ -65,6 +127,7 @@ def search(inp):
             res["pool_overlap"] = {p: v["overlap_mean"]
                                    for p, v in rep["pools"].items()}
         out[name] = res
+        _log(f"scenario {name} end")
     return out
 
 
@@ -197,7 +260,8 @@ def _report(state, loss):
 @task
 def train(inp):
     """Each scenario: one (or, with ``ckpt``, a saved, restored and
-    resumed) step of a sharded train state on this rank's rows."""
+    resumed) step of a sharded train state on this rank's rows.  A TP
+    scenario runs its path under :func:`no_functional_collectives`."""
     from dhr_tpu_torch.parallel import shard_batch
     from dhr_tpu_torch.train.checkpoint import (
         restore_train_state, save_train_state)
@@ -205,40 +269,94 @@ def train(inp):
 
     out = {}
     for name, sc in inp["scenarios"].items():
+        _log(f"scenario {name} start")
         mesh = _train_mesh(sc["mesh"])
-        state, cfg, loss_cfg, teacher = _make_state(sc, mesh)
-        step = _step_fn(sc, state, cfg, loss_cfg, teacher)
         batches = [shard_batch(b, mesh, data_axes(mesh))
                    for b in sc["batches"]]
-        loss = step(state, batches[0], sc["seed"])
-        res = {"first": _report(state, loss)}
+        with _guard(sc):
+            state, cfg, loss_cfg, teacher = _make_state(sc, mesh)
+            step = _step_fn(sc, state, cfg, loss_cfg, teacher)
+            loss = step(state, batches[0], sc["seed"])
+            trips = sc["mesh"] == "tp" and _guard_trips(state.model)
+        res = {"first": _report(state, loss), "guard_trips": trips}
         if sc.get("ckpt"):
-            save_train_state(sc["ckpt"], state)
-            fresh, *_ = _make_state(sc, mesh)
-            restore_train_state(sc["ckpt"], fresh)
-            step = _step_fn(sc, fresh, cfg, loss_cfg, teacher)
-            res["resumed"] = _report(fresh, step(fresh, batches[1],
-                                                 sc["seed"]))
+            with _guard(sc):
+                save_train_state(sc["ckpt"], state)
+                fresh, *_ = _make_state(sc, mesh)
+                restore_train_state(sc["ckpt"], fresh)
+                step = _step_fn(sc, fresh, cfg, loss_cfg, teacher)
+                loss = step(fresh, batches[1], sc["seed"])
+            res["resumed"] = _report(fresh, loss)
             res["step"] = fresh.step
         out[name] = res
+        _log(f"scenario {name} end")
+    return out
+
+
+def _full_copy(tree):
+    """A state dict's tensors whole (``full_tensor``), on the host."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.full_tensor() if type(tree).__name__ == "DTensor" else tree
+        return t.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _full_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_full_copy(v) for v in tree)
+    return tree
+
+
+def _ckpt_leg(sc, mesh, made):
+    """From a fresh sharded state (``made``, :func:`_make_state`'s): a (clipped) step, each sharded
+    gradient's c10d norm beside ``full_tensor``'s, the state's host copy
+    beside ``full_tensor``'s, a save, the next step, and the same next
+    step from a fresh state restored from the save.  The port's own calls
+    run under the scenario's guard; the ``full_tensor`` references
+    outside it."""
+    from dhr_tpu_torch.parallel import shard_batch
+    from dhr_tpu_torch.train.checkpoint import (
+        _to_host, restore_train_state, save_train_state)
+    from dhr_tpu_torch.train.driver import data_axes
+    from dhr_tpu_torch.train.optimizer import _grad_norm
+
+    state, cfg, loss_cfg, _ = made
+    batches = [shard_batch(b, mesh, data_axes(mesh)) for b in sc["batches"]]
+    parts = ("model", "optimizer")
+    with _guard(sc):
+        step = _step_fn(sc, state, cfg, loss_cfg, None)
+        loss = step(state, batches[0], sc["seed"])
+        norms = {n: float(_grad_norm(p.grad))
+                 for n, p in state.model.named_parameters()
+                 if type(p.grad).__name__ == "DTensor"}
+        host = {part: _to_host(getattr(state, part).state_dict())
+                for part in parts}
+    out = {"first": _report(state, loss), "host_copy": host,
+           "full_tensor_copy": {part: _full_copy(getattr(state, part)
+                                                 .state_dict())
+                                for part in parts}}
+    out["grad_norms"] = {
+        n: (norms[n], float(torch.linalg.vector_norm(p.grad.full_tensor())))
+        for n, p in state.model.named_parameters() if n in norms}
+    with _guard(sc):
+        save_train_state(sc["ckpt"], state)
+        out["next_loss"] = float(step(state, batches[1], sc["seed"]))
+        fresh, *_ = _make_state(sc, mesh)
+        restore_train_state(sc["ckpt"], fresh)
+        step = _step_fn(sc, fresh, cfg, loss_cfg, None)
+        out["resumed_step"] = fresh.step
+        out["resumed_loss"] = float(step(fresh, batches[1], sc["seed"]))
     return out
 
 
 @task
 def fsdp_ckpt(inp):
     """c10d gathers of DTensors whose dims the ranks do not divide, against
-    ``DTensor.full_tensor``; then a clipped FSDP step, the state's host
-    copy against ``full_tensor``'s, a save, the next step, and the same
-    next step from a fresh state restored from the save."""
+    ``DTensor.full_tensor``; then :func:`_ckpt_leg` of an FSDP state over
+    ``data`` and, given ``tp_scenario``, of a TP state over ``(data,
+    model)`` under :func:`no_functional_collectives`."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
-    from dhr_tpu_torch.parallel import shard_batch
     from dhr_tpu_torch.parallel.collectives import gather_full
     from dhr_tpu_torch.parallel.mesh import _device_mesh
-    from dhr_tpu_torch.train.checkpoint import (
-        _to_host, restore_train_state, save_train_state)
-    from dhr_tpu_torch.train.driver import data_axes
-    from dhr_tpu_torch.train.optimizer import _grad_norm
 
     w = torch.distributed.get_world_size()
     x = torch.randn(inp["rows"], inp["cols"],
@@ -259,10 +377,12 @@ def fsdp_ckpt(inp):
                        "local_rows": int(d.to_local().shape[0]),
                        "local_cols": int(d.to_local().shape[1])}
     out = {"uneven": uneven, "whole": x.numpy()}
+    _log("uneven gathers done")
 
     sc = inp["scenario"]
     mesh = _train_mesh("data")
-    state, cfg, loss_cfg, teacher = _make_state(sc, mesh)
+    made = _make_state(sc, mesh)
+    state = made[0]
     # a foreach AdamW over FSDP's mix of DTensor shards and plain tensors
     # raises (the port's optimizer steps them one by one instead)
     kinds = {type(p).__name__ for p in state.params}
@@ -277,38 +397,15 @@ def fsdp_ckpt(inp):
     state.zero_grad()
     out["param_kinds"] = sorted(kinds)
     out["foreach"] = state.optimizer.defaults["foreach"]
-    step = _step_fn(sc, state, cfg, loss_cfg, teacher)
-    batches = [shard_batch(b, mesh, data_axes(mesh)) for b in sc["batches"]]
-    out["first"] = _report(state, step(state, batches[0], sc["seed"]))
-    out["grad_norms"] = {
-        n: (float(_grad_norm(p.grad)),
-            float(torch.linalg.vector_norm(p.grad.full_tensor())))
-        for n, p in state.model.named_parameters()
-        if type(p.grad).__name__ == "DTensor"}
-
-    def full(tree):
-        if isinstance(tree, torch.Tensor):
-            t = tree.full_tensor() if type(tree).__name__ == "DTensor" \
-                else tree
-            return t.detach().to("cpu", copy=True)
-        if isinstance(tree, dict):
-            return {k: full(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(full(v) for v in tree)
-        return tree
-
-    host, want = {}, {}
-    for part, sd in (("model", state.model.state_dict()),
-                     ("optimizer", state.optimizer.state_dict())):
-        host[part], want[part] = _to_host(sd), full(sd)
-    out["host_copy"], out["full_tensor_copy"] = host, want
-    save_train_state(sc["ckpt"], state)
-    out["next_loss"] = float(step(state, batches[1], sc["seed"]))
-    fresh, *_ = _make_state(sc, mesh)
-    restore_train_state(sc["ckpt"], fresh)
-    step = _step_fn(sc, fresh, cfg, loss_cfg, teacher)
-    out["resumed_step"] = fresh.step
-    out["resumed_loss"] = float(step(fresh, batches[1], sc["seed"]))
+    out.update(_ckpt_leg(sc, mesh, made))
+    _log("fsdp leg done")
+    if inp.get("tp_scenario"):
+        sc = inp["tp_scenario"]
+        mesh = _train_mesh("tp")
+        with _guard(sc):
+            made = _make_state(sc, mesh)
+        out["tp"] = _ckpt_leg(sc, mesh, made)
+        _log("tp leg done")
     return out
 
 
@@ -413,8 +510,10 @@ def main(argv):
     torch.set_num_threads(1)
     from dhr_tpu_torch.parallel import init_distributed
 
+    _log(f"{name} on {world} ranks: joining")
     init_distributed("gloo", device="cpu", init_method=init, rank=int(rank),
                      world_size=int(world))
+    _log("joined")
     with open(inp_path, "rb") as f:
         inp = pickle.load(f)
     result = TASKS[name](inp)
@@ -422,6 +521,7 @@ def main(argv):
         pickle.dump(result, f)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+    _log(f"{name} done")
 
 
 if __name__ == "__main__":
