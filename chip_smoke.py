@@ -34,17 +34,17 @@ split of a step, peak memory).
 
 ``rehearsal_path`` follows: the port's full-pipeline rehearsal
 (``python -m dhr_tpu_torch.tools.pipeline_rehearsal``, family dhr) as a
-process at DistilBERT-base width: a 65,536-passage topical wordpiece
+process at DistilBERT-base width: a 32,768-passage topical wordpiece
 world, the untrained and the trained model each through ``encode`` ->
 ``index --quantize`` -> ``search`` (staged and exact) -> ``eval``, and
-``train --pack-passages`` (bf16, 400 steps) between them; its gates
+``train --pack-passages`` (bf16, 250 steps) between them; its gates
 (trained MRR@10 above untrained, staged Recall@1000 at least 0.9 x exact)
 must hold, K1 and K2 must launch in its search verbs, and the trained exact
 run must equal the CPU's brute force on 4 queries.  ``rep_stats``' generator
 statistics and agreement run on the card at 204,800 rows beside it.
 
 ``densify_path`` comes next: the DLR paper's BM25 -> DLR front end on the
-port's C++ host runtime (131,072 synthetic whole-word passages of MS MARCO
+port's C++ host runtime (65,536 synthetic whole-word passages of MS MARCO
 length, Zipf words over 2^18 terms, so the fold planes are int16):
 ``simple_analyzer``, ``TermDictionary``, ``native.bm25_csr``, the vectors as
 JSONL, then ``densify`` -> ``index --quantize`` -> ``search`` with 1,024
@@ -56,7 +56,18 @@ against the resident plane, ``--pairs`` against the run; q/s and TFLOP/s),
 ``rerank-eval`` over 32 x 1,000 candidate pairs, and ``evaluate_beir`` over
 a SciFact-shaped BEIR directory at theta 0 (K1) and theta 0.3 with rerank
 (K1 and K2), each held against the brute force on the same planes, with no
-self-hit left.  After the main and fused paths, ``serve_path`` runs
+self-hit left.  ``family_path`` then runs the other retriever families at
+DistilBERT-base width from train_path's random tree (an HF directory):
+dense (CLS and mean pooling), Aggretriever (full fold with the sign
+competition, semi fold, skip-MLM scatter-max) and DLR (768 lexical dims,
+no CLS), each card against CPU in f32 and its Encoder's passages/s; one f32
+train step card against CPU for agg with margin-KD scores, dense with the
+in-graph ColBERT teacher (TCT) and dlr; and for dense-cls, agg-full and dlr
+the CLI chain ``train`` (24 x 8, bf16, 40 steps; the loss must fall) ->
+``encode`` (16,384 passages, 1,024 queries) -> ``index`` (dlr int8,
+lexical only) -> ``search`` (``--IP``; dlr GIP at theta 0 on K1 and at 0.3
+with rerank on K1 and K2) -> ``eval``, the exact run against the CPU's
+brute force.  After the main and fused paths, ``serve_path`` runs
 the resident service: the ``serve`` verb as a process on the densified
 index (serve_client, reloads, 503 shedding, token refusal, SIGINT), a
 free-first reload's device memory, the service at 8,841,823 rows with
@@ -92,7 +103,7 @@ Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line come before the
 last line, ``{"ok": true, "device": {...}}``; the kernels line counts the
 launches of the main, fused, rehearsal (with rep_stats), densify, eval,
-serve and parallel paths; a ``walls`` line before them gives each path's
+family, serve and parallel paths; a ``walls`` line before them gives each path's
 seconds.  Any failure
 raises and exits non-zero before the last line.  Without CUDA, or outside a
 checkout, it exits non-zero at once.
@@ -123,7 +134,7 @@ SMALL_ROWS = 204_803
 H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 ENCODE_PASSAGES = 65_536
 ENCODE_QUERIES = 1_024
-ENCODE_TIMED = 32_768          # passages of the Encoder's timed passes
+ENCODE_TIMED = 16_384          # passages of the Encoder's timed passes
 ENCODE_REMOVE_DIMS = 570
 TRAIN_QUERIES = 2_048
 TRAIN_NEGATIVES = 32
@@ -134,14 +145,14 @@ TRAIN_FLAGS = ["--train-n-passages", "8", "--batch-size", "24",
                "--q-max-len", "32", "--bf16"]
 # densify_path: synthetic whole-word passages of MS MARCO length over a
 # vocabulary of 2^18 terms (folds well past 127: int16 planes)
-DENSIFY_PASSAGES = 131_072
+DENSIFY_PASSAGES = 65_536
 DENSIFY_VOCAB = 1 << 18
 DENSIFY_QUERIES = 1_024
 DENSIFY_SEARCH = ["--theta", "0.1", "--rerank", "--agip-topk", "10000"]
 # serve_path: single-query requests per concurrency level, the levels whose
 # responses are held against search_run, client processes at most (threads
 # share a process past that), the 503 flood and the /search_text queries
-SERVE_LEVELS = {1: 64, 8: 256, 64: 512, 256: 1_024}
+SERVE_LEVELS = {1: 32, 8: 128, 64: 256, 256: 512}
 SERVE_CHECKED_LEVELS = (1, 64)
 SERVE_CLIENT_PROCS = 16
 SERVE_FLOOD = 256
@@ -160,8 +171,8 @@ BEIR_SELF_HITS = 10
 # index -> search -> eval through the CLI, family dhr) at DistilBERT-base
 # width on the tool's world; lr 1e-4 (3e-4, the JAX tool's rate for its
 # 256 x 4 model, collapsed the loss at this width on the card)
-REHEARSAL_FLAGS = ["--n-corpus", "65536", "--n-train", "4096", "--n-dev",
-                   "512", "--max-steps", "400", "--learning-rate", "1e-4"]
+REHEARSAL_FLAGS = ["--n-corpus", "32768", "--n-train", "4096", "--n-dev",
+                   "512", "--max-steps", "250", "--learning-rate", "1e-4"]
 REHEARSAL_CHECKED = 4          # trained exact-run queries held on the CPU
 REP_STATS_ROWS = 204_800       # rep_stats' generator corpus on the card
 
@@ -1057,7 +1068,7 @@ def _plain_step_split(step_for, model, state, batch, torch):
 def _train_timing(tree, groups, toks, torch):
     """Steps/s, passages/s and tokens/s of the plain (padded to 128),
     packed (one row count for all its batches) and grad-cache steps in
-    bf16 at batch 24 (dropout 0.1, the documented lr): wall time over 15
+    bf16 at batch 24 (dropout 0.1, the documented lr): wall time over 10
     steps after 3 warm-up steps on batches of the timed shapes, and the
     spread of the steps (CUDA events between steps, no host wait between
     them); the host's time to issue a step of each kind, the card idle
@@ -1079,7 +1090,7 @@ def _train_timing(tree, groups, toks, torch):
     state = TrainState.create(model, OptimizerConfig(
         learning_rate=7e-6, warmup_steps=0, total_steps=1000,
         freeze_word_embeddings=True))
-    n_warm, n_timed = 3, 15
+    n_warm, n_timed = 3, 10
     q_flops = 24 * 32 * encode_flops_per_token(32)
     out = {"batch": 24, "passages_per_step": 192, "dtype": "bf16",
            "timed_steps": n_timed, "warm_up_steps": n_warm,
@@ -2742,6 +2753,556 @@ def phase_eval_path(args, root, torch):
           "(ColBERT card vs CPU), the CLI verbs' own seed 0",
           "colbert": colbert, "rerank_eval": rerank, "beir": beir,
           "launches": launches, "seconds": secs})
+    _FAMILY_WEIGHTS.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# family_path: dense, Aggretriever and DLR, with TCT and margin-KD training
+# --------------------------------------------------------------------------
+
+# the model flags of each variant: tools/pipeline_rehearsal.py:family_flags
+# (dlr: dhr's flags with --model dlr)
+FAMILY_VARIANTS = {
+    "dense-cls": ["--model", "dense", "--pooling", "cls"],
+    "dense-mean": ["--model", "dense", "--pooling", "mean"],
+    "agg-full": ["--model", "agg", "--agg-dim", "640"],
+    "agg-semi": ["--model", "agg", "--agg-dim", "640", "--semi-aggregate"],
+    "agg-skip-mlm": ["--model", "agg", "--agg-dim", "640", "--skip-mlm"],
+    "dlr": ["--model", "dlr", "--dlr-out-dim", str(LEX_DIM)],
+}
+FAMILY_COMMON = ["--add-pooler", "--projection-dim", "128"]
+# the CLI chains and what each trains with: agg margin-KD from bin_pairs,
+# dense the in-graph ColBERT teacher, dlr plain
+FAMILY_CHAINS = {"dense-cls": "tct", "agg-full": "kd", "dlr": "plain"}
+FAMILY_PASSAGES = 16_384       # encode_path's first passages
+FAMILY_QUERIES = 1_024         # drawn from passages: the qrels
+FAMILY_GROUPS = 1_024          # train groups (32 negatives, bin_pairs)
+FAMILY_STEPS = 40              # the CLI runs (warmup 10), as train_path's
+# the documented batch; lr 1e-4, the rehearsal's rate at this width: a
+# random dlr model's lexical scores start near 0 (softmax over 30,522
+# terms), and at 7e-6 its loss moves in the 7th digit in 40 steps
+FAMILY_TRAIN_FLAGS = [*TRAIN_FLAGS, "--learning-rate", "1e-4"]
+FAMILY_TIMED = 8_192           # passages of each variant's Encoder timing
+FAMILY_CHECKED = 4             # exact-run queries held on the CPU
+
+
+def _family_world(root, seed, np):
+    """encode_path's first 16,384 passages as a corpus, 1,024 train groups
+    (each query's ids drawn from its positive passage, 32 negatives, and
+    one bin set of (0, negative, margin) pairs for margin-KD) and 1,024
+    eval queries drawn from a passage each (their qrels)."""
+    from dhr_tpu_torch.data.examples import write_jsonl
+
+    toks, _ = _passage_tokens(np.random.default_rng(seed + 4),
+                              ENCODE_PASSAGES, np)
+    toks = toks[:FAMILY_PASSAGES]
+    rng = np.random.default_rng(seed + 14)
+    paths = {k: f"{root}/{k}.jsonl" for k in ("corpus", "train", "queries")}
+    paths["qrels"] = f"{root}/qrels.tsv"
+    write_jsonl(paths["corpus"], ({"text_id": str(i), "text": t.tolist()}
+                                  for i, t in enumerate(toks)))
+    groups = []
+    for _ in range(FAMILY_GROUPS):
+        pos = int(rng.integers(FAMILY_PASSAGES))
+        negs = rng.choice(FAMILY_PASSAGES - 1, TRAIN_NEGATIVES, replace=False)
+        negs = negs + (negs >= pos)
+        bins = [[[0, int(j), float(m)] for j, m in zip(
+            rng.integers(TRAIN_NEGATIVES, size=4), rng.uniform(lo, lo + 3, 4))]
+            for lo in (1.0, 4.0)]
+        groups.append({
+            "query": rng.choice(toks[pos], int(rng.integers(6, 31))).tolist(),
+            "positive_pids": [str(pos)],
+            "negative_pids": [str(int(n)) for n in negs],
+            "bin_pairs": [bins]})
+    write_jsonl(paths["train"], groups)
+    rel = rng.choice(FAMILY_PASSAGES, FAMILY_QUERIES, replace=False)
+    write_jsonl(paths["queries"], (
+        {"text_id": f"q{i}", "text": rng.choice(
+            toks[r], int(rng.integers(4, 21))).tolist()}
+        for i, r in enumerate(rel)))
+    with open(paths["qrels"], "w") as f:
+        f.writelines(f"q{i}\t0\t{int(r)}\t1\n" for i, r in enumerate(rel))
+    return paths, toks, groups
+
+
+_FAMILY_WEIGHTS: dict = {}
+
+
+def _family_model(variant, init, dtype, torch, dropout=True):
+    """``(BiEncoder with the export's weights, its config in ``dtype``)``:
+    the weights come through the CLI's own loader (``_load_init_params``)
+    once per variant; ``dropout=False`` zeroes both dropout rates."""
+    from dhr_tpu_torch.cli.main import (
+        _load_init_params, _model_cfg_from_args, build_parser)
+    from dhr_tpu_torch.models import BiEncoder
+
+    if variant not in _FAMILY_WEIGHTS:
+        args = build_parser().parse_args(
+            ["encode", *FAMILY_VARIANTS[variant], *FAMILY_COMMON,
+             "--model-name-or-path", init, "--input", "-", "--output", "-"])
+        cfg = _model_cfg_from_args(args)
+        _FAMILY_WEIGHTS[variant] = (
+            cfg, _load_init_params(args, cfg).state_dict())
+    cfg, state = _FAMILY_WEIGHTS[variant]
+    enc = dataclasses.replace(cfg.encoder, dtype=dtype)
+    if not dropout:
+        enc = dataclasses.replace(enc, hidden_dropout=0.0,
+                                  attention_dropout=0.0)
+    cfg = dataclasses.replace(cfg, encoder=enc)
+    model = BiEncoder(cfg)
+    model.load_state_dict(state)
+    return model, cfg
+
+
+def _family_reps(model, cfg, batches, dev, torch):
+    """The f32 reps a variant's planes come from, per side: dense its
+    vector; agg its vocabulary rep, CLS projection and folded lanes (full:
+    also the sign competition's two halves); dlr its vocabulary rep and
+    densified values and folds."""
+    from dhr_tpu_torch.models.transformer import compute_copy
+    from dhr_tpu_torch.ops.aggregate import _fold_max, aggregate
+    from dhr_tpu_torch.ops.densify import densify
+
+    m = compute_copy(model, cfg.encoder.dtype, torch.device(dev)).eval()
+    out = {}
+    for side, (b, is_q) in batches.items():
+        with torch.inference_mode():
+            r = m.encoder_q(torch.from_numpy(b["input_ids"]).to(dev),
+                            torch.from_numpy(b["attention_mask"]).to(dev),
+                            is_query=is_q)
+        if cfg.model_type == "dense":
+            out[side] = {"dense": r.dense}
+        elif cfg.model_type == "agg":
+            out[side] = {"lexical": r.lexical, "semantic": r.semantic,
+                         "lanes": aggregate(r.lexical, cfg.agg_dim,
+                                            full=not cfg.semi_aggregate)}
+            if not cfg.semi_aggregate:
+                half = _fold_max(r.lexical, 2 * cfg.agg_dim)
+                out[side].update(pos=half[..., 0::2], neg=half[..., 1::2])
+        else:
+            v, i = densify(r.lexical, cfg.dlr_out_dim, ENCODE_REMOVE_DIMS)
+            out[side] = {"lexical": r.lexical, "values": v, "folds": i}
+        out[side] = {k: t.float().cpu() for k, t in out[side].items()}
+    del m
+    return out
+
+
+def _family_card_vs_cpu(variant, init, toks, q_toks, torch, np):
+    """f32 reps of 8 passages x 128 and 8 queries x 32 on the card against
+    the CPU (one weight set), each within 1e-3 of its scale; dlr's folds
+    equal except at near ties (1e-5), agg-full's output lanes of the same
+    sign except where |pos - neg| <= 1e-5 |pos| (counted); the card's bf16
+    reps against its f32 reps (no bound).  agg-skip-mlm also backpropagates
+    through its scatter-max on both sides (every gradient within 1e-3,
+    relative L2)."""
+    from dhr_tpu_torch.data.collate import pad_token_batch
+
+    p_toks = [t.tolist() for t in toks[:8]]
+    p_toks[0] = np.resize(toks[8], 126).tolist()  # a full row
+    b_p = pad_token_batch(p_toks, 128, 0, 101, 102)
+    b_q = pad_token_batch([t.tolist() for t in q_toks], 32, 0, 101, 102)
+    batches = {"passage": (b_p, False), "query": (b_q, True)}
+    reps = {}
+    for name, dtype, dev in (("cpu_f32", torch.float32, "cpu"),
+                             ("card_f32", torch.float32, "cuda"),
+                             ("card_bf16", torch.bfloat16, "cuda")):
+        model, cfg = _family_model(variant, init, dtype, torch)
+        reps[name] = _family_reps(model, cfg, batches, dev, torch)
+    res = {"card_f32_vs_cpu_f32": {}, "card_bf16_vs_card_f32": {}}
+    for key, got_name, want_name in (
+            ("card_f32_vs_cpu_f32", "card_f32", "cpu_f32"),
+            ("card_bf16_vs_card_f32", "card_bf16", "card_f32")):
+        for side in batches:
+            got, want = reps[got_name][side], reps[want_name][side]
+            for k in want:
+                if k in ("folds", "pos", "neg"):
+                    continue
+                g, w = got[k], want[k]
+                if k == "lanes" and variant == "agg-full":
+                    # a near tie of the sign competition may pick the other
+                    # half: those lanes are counted below, not measured
+                    keep = ~_sign_near_tie(want)
+                    g, w = g[keep], w[keep]
+                res[key][f"{side}.{k}"] = _rel_diff(g, w, torch)
+            if variant == "agg-full":
+                res[key][f"{side}.lanes_of_other_sign"] = int((torch.sign(
+                    got["lanes"]) != torch.sign(want["lanes"])).sum())
+    worst = max(v for k, v in res["card_f32_vs_cpu_f32"].items()
+                if not k.endswith("_sign"))
+    if worst > 1e-3:
+        raise AssertionError(f"{variant} card vs CPU f32 reps: {res}")
+    for side in batches:
+        cpu, card = reps["cpu_f32"][side], reps["card_f32"][side]
+        if "folds" in cpu:  # dlr
+            folded = cpu["lexical"][:, ENCODE_REMOVE_DIMS:].reshape(
+                cpu["lexical"].shape[0], -1, LEX_DIM)
+            top2 = folded.topk(2, dim=1).values
+            tie = (top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs()
+            diff = card["folds"] != cpu["folds"]
+            res[f"{side}.unequal_folds"] = int(diff.sum())
+            res[f"{side}.unequal_folds_not_near_tie"] = int(
+                (diff & ~tie).sum())
+            if res[f"{side}.unequal_folds_not_near_tie"]:
+                raise AssertionError(f"{variant} folds differ beyond near "
+                                     f"ties: {res}")
+        if variant == "agg-full":
+            tie = _sign_near_tie(cpu)
+            flip = torch.sign(card["lanes"]) != torch.sign(cpu["lanes"])
+            res[f"{side}.sign_near_ties"] = int(tie.sum())
+            res[f"{side}.sign_flips"] = int(flip.sum())
+            res[f"{side}.sign_flips_not_near_tie"] = int((flip & ~tie).sum())
+            if res[f"{side}.sign_flips_not_near_tie"]:
+                raise AssertionError(f"agg-full lanes change sign beyond "
+                                     f"near ties: {res}")
+    if variant == "agg-skip-mlm":
+        res["scatter_max_grad_rel_l2"] = _skip_mlm_grads(
+            init, b_p, torch, np)
+        if res["scatter_max_grad_rel_l2"] > 1e-3:
+            raise AssertionError(f"skip-MLM backward, card vs CPU: {res}")
+    return res
+
+
+def _sign_near_tie(reps):
+    """agg-full's output lanes whose two halves lie within 1e-5 of
+    |pos|."""
+    return (reps["pos"] - reps["neg"]).abs() <= 1e-5 * reps["pos"].abs()
+
+
+def _skip_mlm_grads(init, b, torch, np):
+    """The gradients of a fixed random projection of the skip-MLM vocabulary
+    rep (its scatter-max, pads included), f32, dropout 0, on the card
+    against the CPU: the largest relative L2 difference over the
+    parameters (:func:`_grad_rel_diff`)."""
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (b["input_ids"].shape[0], 30522)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        model, _ = _family_model("agg-skip-mlm", init, torch.float32, torch,
+                                 dropout=False)
+        model = model.to(dev)
+        lex = model.encoder_q(torch.from_numpy(b["input_ids"]).to(dev),
+                              torch.from_numpy(b["attention_mask"]).to(dev)
+                              ).lexical
+        (lex * w.to(dev)).sum().backward()
+        grads[dev] = _grads(model)
+        del model
+    if "encoder_q.term_weight.linear.weight" not in grads["cpu"]:
+        raise AssertionError("skip-MLM: no term-weight gradient")
+    return _grad_rel_diff(grads["cuda"], grads["cpu"])[0]
+
+
+def _family_train_card_vs_cpu(variant, mode, init, teacher, corpus, groups,
+                              torch):
+    """One plain f32 step (dropout 0) at 4 queries x 4 passages on the card
+    and on the CPU from the same weights: agg with its batch's margin-KD
+    scores, dense with the in-graph ColBERT teacher, dlr plain.  Loss
+    within 1e-4 and every gradient within 1e-3 (relative L2)."""
+    from dhr_tpu_torch.cli.main import _build_teacher
+    from dhr_tpu_torch.data import SamplingConfig, TrainLoader
+    from dhr_tpu_torch.train.step import LossConfig, plain_loss, to_device
+
+    batch = next(iter(TrainLoader(groups[:8], SamplingConfig(
+        n_passages=4, q_max_len=32, p_max_len=128, seed=42, cls_id=101,
+        sep_id=102), batch_size=4, corpus=corpus, kd=mode == "kd").epoch(0)))
+    loss_cfg = LossConfig(n_passages=4, use_tct_teacher=mode == "tct")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model, cfg = _family_model(variant, init, torch.float32, torch,
+                                   dropout=False)
+        model = model.to(dev).train()
+        t = None
+        if mode == "tct":  # what train --tct builds
+            t = _build_teacher(argparse.Namespace(
+                model_name_or_path=None, teacher_path=teacher), cfg)
+            t = t.to(dev).eval()
+        loss, _ = plain_loss(model, cfg, loss_cfg, to_device(batch, dev),
+                             teacher=t)
+        loss.backward()
+        out[dev] = (loss.item(), _grads(model))
+        del model, t
+    torch.cuda.empty_cache()
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["cuda"]
+    l2, mx = _grad_rel_diff(g_card, g_cpu)
+    res = {"mode": mode, "queries": 4, "passages": 16,
+           "teacher_scores_in_batch": "teacher_scores" in batch,
+           "loss_cpu": l_cpu, "loss_card": l_card,
+           "loss_rel_diff": abs(l_card - l_cpu) / abs(l_cpu),
+           "grad_rel_l2_diff": l2, "grad_max_rel_diff": mx}
+    if (mode == "kd") != res["teacher_scores_in_batch"]:
+        raise AssertionError(f"{variant}: margin-KD scores {res}")
+    if not (res["loss_rel_diff"] < 1e-4 and l2 < 1e-3):
+        raise AssertionError(f"{variant} train step, card vs CPU f32: {res}")
+    return res
+
+
+def _family_encoder_rate(variant, init, toks, torch, np):
+    """Encoder passages/s of the variant (bf16, batch 256, length-bucketed)
+    over the first 8,192 passages, after one warm-up pass over 1,024."""
+    from dhr_tpu_torch.encode import (
+        EncodeConfig, Encoder, bucketed_encode_batches)
+
+    model, cfg = _family_model(variant, init, torch.bfloat16, torch)
+    enc = Encoder(model, cfg, EncodeConfig(batch_size=256,
+                                           remove_dims=ENCODE_REMOVE_DIMS))
+    texts = [t.tolist() for t in toks[:FAMILY_TIMED]]
+    ids = [str(i) for i in range(FAMILY_TIMED)]
+
+    def run(n):
+        batches, _ = bucketed_encode_batches(ids[:n], texts[:n], 256, 128,
+                                             101, 102)
+        t = time.perf_counter()
+        enc.encode_corpus(batches)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run(1_024)
+    wall = run(FAMILY_TIMED)
+    del enc, model
+    torch.cuda.empty_cache()
+    return {"passages": FAMILY_TIMED, "via": "Encoder",
+            "passages_per_s": FAMILY_TIMED / wall, "wall_s": wall}
+
+
+def _family_exact_vs_cpu(d, variant, run_path, torch, np):
+    """The card's exact run (``--IP``, or GIP at theta 0 for dlr) against
+    the CPU's brute force over the same planes and queries, on the first
+    queries, by :func:`_vs_exact`'s rule.  The IP brute force rounds both
+    sides to bf16, the search's product (f32 accumulation)."""
+    from dhr_tpu_torch.ops.gip import gip_scores_masked, pad_indices_for_cls
+    from dhr_tpu_torch.retrieval.index import PackedIndex
+
+    pk = PackedIndex.load(f"{d}/index.npz")
+    with np.load(f"{d}/q.npz") as z:
+        qv = z["values"][:FAMILY_CHECKED].astype(np.float32)
+        qi = z["indices"][:FAMILY_CHECKED].astype(np.int32) \
+            if "indices" in z.files else None
+    with open(f"{d}/q.npz.qids.json") as f:
+        qids = json.load(f)[:FAMILY_CHECKED]
+    with torch.inference_mode():
+        if variant == "dlr":
+            cls = pk.dim - pk.lex_dim
+            exact = gip_scores_masked(
+                torch.from_numpy(qv * pk.value_scales[None, :]),
+                pad_indices_for_cls(torch.from_numpy(qi), cls),
+                torch.from_numpy(pk.values).float(),
+                pad_indices_for_cls(torch.from_numpy(pk.indices).int(), cls))
+        else:
+            exact = (torch.from_numpy(qv).bfloat16().float()
+                     @ torch.from_numpy(pk.values.astype(np.float32))
+                     .bfloat16().float().T)
+    run = _read_run(run_path)
+    return _vs_exact(qids, {q: [doc for doc, _ in run[q]] for q in qids},
+                     {q: [s for _, s in run[q]] for q in qids},
+                     exact.numpy(), pk.docids, np)
+
+
+def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
+                  torch, np):
+    """``train`` (the documented 24 x 8 bf16 run, 40 steps: agg with
+    ``--kd``, dense with ``--tct --teacher-path``) -> ``encode`` (16,384
+    passages and 1,024 queries, bf16, batch 256, bucketed) -> ``index``
+    (dlr ``--quantize --lex-dim 768``) -> ``search`` (dense and agg
+    ``--IP``; dlr theta 0.3 with rerank and theta 0, K1 and K2 launched)
+    -> ``eval``; the eval-mode loss of the first 96 queries must fall, and
+    the exact run must equal the CPU's brute force on 4 queries.  Returns
+    the report and the K1 / K2 / K3 launches."""
+    from dhr_tpu_torch.data import SamplingConfig, TrainLoader
+    from dhr_tpu_torch.train.step import LossConfig, plain_loss, to_device
+
+    d = f"{root}/{variant}"
+    flags = [*FAMILY_VARIANTS[variant], *FAMILY_COMMON]
+    extra = {"kd": ["--kd"], "tct": ["--tct", "--teacher-path", teacher],
+             "plain": []}[mode]
+    secs = {}
+    t = time.perf_counter()
+    t_train = _run_cli(["train", *flags, "--model-name-or-path", init,
+                        "--train-path", paths["train"], "--corpus-path",
+                        paths["corpus"], *FAMILY_TRAIN_FLAGS, *extra,
+                        "--warmup-steps", "10", "--max-steps",
+                        str(FAMILY_STEPS), "--save-steps", str(FAMILY_STEPS),
+                        "--log-steps", "1", "--metrics-path",
+                        f"{d}.jsonl", "--output-dir", d], "train")
+    secs["train"] = time.perf_counter() - t
+    with open(f"{d}.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    if len(losses) != FAMILY_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{variant} train: {losses}")
+    step_ms = [1e3 / r["steps_per_sec"] for r in rows[-10:]]
+    # the loss the run trains with (margin-KD's from the batch), in eval
+    # mode and f32, before and after
+    t = time.perf_counter()
+    loader = TrainLoader(groups, SamplingConfig(
+        n_passages=8, q_max_len=32, p_max_len=128, seed=42, cls_id=101,
+        sep_id=102), batch_size=24, corpus=corpus, kd=mode == "kd")
+    batches = [to_device(b, "cuda") for b, _ in zip(loader.epoch(0),
+                                                    range(4))]
+    model, cfg = _family_model(variant, init, torch.float32, torch)
+    model = model.cuda().eval()
+
+    def eval_loss():  # the dense loss reads no teacher scores
+        with torch.no_grad():
+            return float(sum(plain_loss(model, cfg, LossConfig(), b)[0]
+                             .item() for b in batches) / 4)
+
+    before = eval_loss()
+    snap = torch.load(f"{d}/step_{FAMILY_STEPS:08d}/state.pt",
+                      map_location="cuda", weights_only=True)
+    model.load_state_dict(snap["model"])
+    after = eval_loss()
+    del model, snap, batches
+    torch.cuda.empty_cache()
+    secs["eval_loss"] = time.perf_counter() - t
+    if not after < before:
+        raise AssertionError(f"{variant}: the loss did not fall ({before} "
+                             f"-> {after})")
+
+    enc = ["encode", *flags, "--model-name-or-path", f"{d}/export", "--bf16",
+           "--batch-size", "256"]
+    t = time.perf_counter()
+    t_p = _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
+                    "--output", f"{d}/corpus.npz"], "encode")
+    t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
+                    f"{d}/q.npz", "--encode-is-qry"], "encode")
+    _run_cli(["index", "--inputs", f"{d}/corpus.npz", "--output",
+              f"{d}/index.npz", *(["--quantize", "--lex-dim", str(LEX_DIM)]
+                                  if variant == "dlr" else [])])
+    secs["encode_index"] = time.perf_counter() - t
+    with np.load(f"{d}/index.npz") as z:
+        planes = {k: [list(z[k].shape), str(z[k].dtype)] for k in z.files
+                  if k in ("values", "indices")}
+    want_d = {"dense-cls": 128, "agg-full": 640 + 128, "dlr": LEX_DIM}
+    if planes["values"][0] != [FAMILY_PASSAGES, want_d[variant]] or (
+            ("indices" in planes) != (variant == "dlr")):
+        raise AssertionError(f"{variant} index planes {planes}")
+    search = ["search", "--index-path", f"{d}/index.npz", "--query-path",
+              f"{d}/q.npz", "--topk", "1000", "--query-batch", "128"]
+    runs = ({"exact": ["--theta", "0"],
+             "staged": ["--theta", "0.3", "--rerank", "--agip-topk",
+                        "10000"]} if variant == "dlr" else {"exact": ["--IP"]})
+    launches = {k: 0 for k in _counters()}
+    out = {}
+    t = time.perf_counter()
+    for label, sflags in runs.items():
+        reset_launches()
+        t_s = _run_cli([*search, *sflags, "--output", f"{d}/{label}.trec"],
+                       "search")
+        got = read_launches()
+        if variant == "dlr" and not (got["partial_gip"] > 0 and (
+                got["rerank_gip"] > 0) == (label == "staged")):
+            raise AssertionError(f"dlr {label} launches {got}: K1 > 0, K2 "
+                                 "> 0 with rerank only")
+        for k in launches:
+            launches[k] += got[k]
+        _, metrics = _run_cli(["eval", "--qrels", paths["qrels"], "--run",
+                               f"{d}/{label}.trec"], stdout=True)
+        out[label] = {"flags": sflags, "qps": t_s["qps"], "launches": got,
+                      "metrics": metrics}
+    secs["search_eval"] = time.perf_counter() - t
+    run = _read_run(f"{d}/exact.trec")
+    if len(run) != FAMILY_QUERIES or any(
+            len(r) != 1000 or not np.isfinite([s for _, s in r]).all()
+            for r in run.values()):
+        raise AssertionError(f"{variant}: the run lacks queries, rows or "
+                             "finite scores")
+    t = time.perf_counter()
+    vs = _family_exact_vs_cpu(d, variant, f"{d}/exact.trec", torch, np)
+    secs["exact_vs_cpu"] = time.perf_counter() - t
+    if vs["scores_match_exact"] != FAMILY_CHECKED \
+            or vs["ranks_equal_up_to_ties"] != FAMILY_CHECKED:
+        raise AssertionError(f"{variant} exact run vs the CPU: {vs}")
+    if variant == "dlr":
+        staged, exact = _read_run(f"{d}/staged.trec"), run
+        qids = sorted(exact)
+        out["staged"]["agreement_vs_exact"] = agreement(
+            [np.array([x for x, _ in staged[q]]) for q in qids],
+            [np.array([x for x, _ in exact[q]]) for q in qids])
+    return {"mode": mode, "steps": len(losses),
+            "loss_first_last": [losses[0], losses[-1]],
+            "eval_loss_first_96_queries": [before, after],
+            "train_step_ms_median_last10": statistics.median(step_ms),
+            "train_wall_s": t_train["train_wall_s"],
+            "encode_passages_per_s_cli_b256_bucketed": t_p["items_per_s"],
+            "encode_queries_per_s_cli": t_q["items_per_s"],
+            "index_planes": planes, "search": out,
+            "exact_vs_cpu_4_queries": vs, "seconds": secs}, launches
+
+
+def phase_family_path(args, root, smi, torch):
+    """The retriever families at DistilBERT-base width from one random tree
+    (train_path's DHR tree, exported as an HF directory; each family loads
+    what it uses of it): for each of dense-cls, dense-mean, agg-full,
+    agg-semi, agg-skip-mlm and dlr, card against CPU f32 reps and the
+    passages/s at batch 256, bucketed, bf16 (the chains' encode verb, else
+    the Encoder); one f32 train step card against CPU for agg
+    (margin-KD), dense (TCT, the ColBERT tree of eval_path's check as the
+    teacher) and dlr; then the CLI chain train -> encode -> index ->
+    search -> eval for dense-cls, agg-full and dlr.  Returns the K1 / K2 /
+    K3 launches of the chains' searches."""
+    import numpy as np
+
+    from dhr_tpu_torch.data import Corpus
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from dhr_tpu_torch.train.checkpoint import export_hf_checkpoint
+
+    root = f"{root}/family"
+    os.makedirs(root)
+    secs = {}
+    t = time.perf_counter()
+    paths, toks, groups = _family_world(root, args.seed, np)
+    q_toks = [np.random.default_rng(args.seed + 15).integers(
+        ENCODE_REMOVE_DIMS, 30522, n) for n in (4, 9, 12, 17, 20, 25, 30, 30)]
+    for name, cfg, seed in (("init", _dhr_config(torch.float32), args.seed),
+                            ("teacher", _colbert_config(torch.float32),
+                             args.seed + 9)):
+        export_hf_checkpoint(f"{root}/{name}", load_flax_params(
+            BiEncoder(cfg), random_flax_params(
+                cfg, torch.Generator().manual_seed(seed))), cfg)
+    init, teacher = f"{root}/init", f"{root}/teacher"
+    secs["setup"] = time.perf_counter() - t
+    parity, rates = {}, {}
+    t = time.perf_counter()
+    for variant in FAMILY_VARIANTS:
+        parity[variant] = _family_card_vs_cpu(variant, init, toks, q_toks,
+                                              torch, np)
+        if variant not in FAMILY_CHAINS:  # a chain's encode verb times it
+            rates[variant] = _family_encoder_rate(variant, init, toks,
+                                                  torch, np)
+    secs["card_vs_cpu_and_rates"] = time.perf_counter() - t
+    t = time.perf_counter()
+    corpus = Corpus([str(i) for i in range(len(toks))],
+                    [x.tolist() for x in toks])
+    steps = {v: _family_train_card_vs_cpu(v, mode, init, teacher, corpus,
+                                          groups, torch)
+             for v, mode in FAMILY_CHAINS.items()}
+    secs["train_steps_card_vs_cpu"] = time.perf_counter() - t
+    chains, launches = {}, {k: 0 for k in _counters()}
+    for variant, mode in FAMILY_CHAINS.items():
+        t = time.perf_counter()
+        chains[variant], got = _family_chain(root, variant, mode, init,
+                                             teacher, paths, corpus, groups,
+                                             torch, np)
+        for k in launches:
+            launches[k] += got[k]
+        secs[f"chain_{variant}"] = time.perf_counter() - t
+        rates[variant] = {
+            "passages": FAMILY_PASSAGES, "via": "encode verb",
+            "passages_per_s":
+                chains[variant]["encode_passages_per_s_cli_b256_bucketed"]}
+    emit({"phase": "family_path", "card": smi,
+          "model": "distilbert-base (6x768, 12 heads, FFN 3072, vocab "
+          "30522): dense (cls / mean, projection 128), agg (agg_dim 640: "
+          "full, semi, skip-MLM; projection 128), dlr (768 lexical dims)",
+          "weights": f"random: train_path's DHR tree (seed {args.seed}) as "
+          f"an HF directory; teacher: ColBERT, seed {args.seed + 9}",
+          "world": {"passages": FAMILY_PASSAGES, "queries": FAMILY_QUERIES,
+                    "train_groups": FAMILY_GROUPS},
+          "card_vs_cpu": parity, "encoder_rate_b256_bucketed_bf16": rates,
+          "train_step_card_vs_cpu_f32": steps, "chains": chains,
+          "launches": launches, "seconds": secs})
     torch.cuda.empty_cache()
     return launches
 
@@ -4157,6 +4718,8 @@ def main() -> int:
                                         args, root, torch)
         eval_launches = timed("eval_path", phase_eval_path, args, root,
                               torch)
+        family_launches = timed("family_path", phase_family_path, args,
+                                root, smi, torch)
         t = time.perf_counter()
         index, queries, raw = small_world(args.seed + 1, torch)
         errs = (phase_k1(index, queries, torch),
@@ -4176,10 +4739,11 @@ def main() -> int:
         serve_launches = timed("serve_path", phase_serve_path, args, root,
                                paths, searcher, main_queries, smi, torch)
         # the kernels line counts every path: main, fused, rehearsal,
-        # densify, eval, serve and parallel
+        # densify, eval, family, serve and parallel
         for k in launches:
             launches[k] += (rehearsal_launches[k] + densify_launches[k]
-                            + eval_launches[k] + serve_launches[k])
+                            + eval_launches[k] + family_launches[k]
+                            + serve_launches[k])
         kernels = timed("timing", phase_timing, searcher, batch, launches,
                         errs, torch)
         ref = parallel_reference(searcher, main_queries, torch)

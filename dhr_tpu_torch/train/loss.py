@@ -10,8 +10,8 @@ Scores, softmaxes and reductions are f32 (matmuls without TF32).
 - one-hot KL (the softmax cross-entropy on the positives), KL against a
   teacher's softmax at a temperature;
 - DHR: the fused lexical + semantic scores, or, with teacher scores (TCT
-  distillation), KL at temperature splits 1 / 3/4 / 1/4 for fused /
-  semantic / lexical;
+  distillation, or margin-KD margins placed on the block diagonal), KL at
+  temperature splits 1 / 3/4 / 1/4 for fused / semantic / lexical;
 - Aggretriever: fused + 0.5 lexical + 0.5 semantic;
 - ColBERT: MaxSim(tokens) + MaxSim(CLS), CE or margin-KD with -20-padded
   teacher rows.
@@ -108,16 +108,31 @@ def dense_contrastive_loss(q_reps, p_reps, n_passages: int,
     return kl_onehot(listwise_ip(q_reps, p_reps), n_passages) * loss_scale
 
 
+def _teacher_kl(scores: torch.Tensor, teacher_scores: torch.Tensor,
+                temperature: float) -> torch.Tensor:
+    """:func:`kl_vs_teacher` against listwise teacher scores ``(B, B*n)``
+    (the in-graph TCT teacher's), or against margin-KD scores ``(B, n)``
+    from the data, which first go onto their block diagonal at the
+    temperature (:func:`expand_teacher_margins`, as the ColBERT loss
+    places them).  The reference broadcasts ``(B, n)`` margins against
+    ``(B, B*n)`` scores and fails for every batch of more than one query."""
+    if teacher_scores.shape[-1] == scores.shape[-1]:
+        return kl_vs_teacher(scores, teacher_scores, temperature)
+    return kl_vs_teacher(scores, expand_teacher_margins(
+        teacher_scores * temperature, scores.shape[-1]), 1.0)
+
+
 def _dhr_kl(scores, lexical_scores, semantic_scores, n_passages,
             teacher_scores, temperature):
-    """The DHR KL combination (one-hot, or the TCT temperature splits)."""
+    """The DHR KL combination (one-hot, or the teacher's temperature
+    splits)."""
     if teacher_scores is None:
         return kl_onehot(scores, n_passages)
-    return (kl_vs_teacher(scores, teacher_scores, temperature)
-            + 0.5 * kl_vs_teacher(semantic_scores, teacher_scores,
-                                  temperature * 3 / 4)
-            + 0.5 * kl_vs_teacher(lexical_scores, teacher_scores,
-                                  temperature * 1 / 4))
+    return (_teacher_kl(scores, teacher_scores, temperature)
+            + 0.5 * _teacher_kl(semantic_scores, teacher_scores,
+                                temperature * 3 / 4)
+            + 0.5 * _teacher_kl(lexical_scores, teacher_scores,
+                                temperature * 1 / 4))
 
 
 def dhr_loss(q_reps, p_reps, n_passages: int,
@@ -191,11 +206,11 @@ def _agg_kl(lexical_scores, semantic_scores, n_passages, teacher_scores,
     scores = (lexical_scores + semantic_scores if has_semantic
               else lexical_scores)
     if teacher_scores is not None:
-        loss = kl_vs_teacher(scores, teacher_scores, temperature)
+        loss = _teacher_kl(scores, teacher_scores, temperature)
         if has_semantic:
-            loss = loss + 0.5 * kl_vs_teacher(
+            loss = loss + 0.5 * _teacher_kl(
                 semantic_scores, teacher_scores, temperature * 3 / 4)
-        loss = loss + 0.5 * kl_vs_teacher(
+        loss = loss + 0.5 * _teacher_kl(
             lexical_scores, teacher_scores, temperature * 1 / 4)
     else:
         loss = kl_onehot(scores, n_passages)

@@ -162,7 +162,8 @@ def encode_batches(seed, n, max_len, bs):
 
 
 @pytest.mark.parametrize("case", ["dhr_pooler", "dlr_pooler", "agg_full",
-                                  "agg_skip_mlm", "dense_mean_pooler"])
+                                  "agg_semi", "agg_skip_mlm",
+                                  "dense_mean_pooler", "dense_cls_pooler"])
 def test_encoder_matches_reference(case):
     """Corpus and query planes of 21 items in batches of 8 (a ragged last
     batch), the reference padding it and the port not."""

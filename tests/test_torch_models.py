@@ -44,6 +44,7 @@ FIELDS = ("dense", "lexical", "semantic", "token", "token_cls")
 
 CASES = {
     "dense_cls": dict(model_type="dense"),
+    "dense_cls_pooler": dict(model_type="dense", add_pooler=True),
     "dense_mean_pooler": dict(model_type="dense", pooling="mean",
                               add_pooler=True),
     "dhr_pooler": dict(model_type="dhr", add_pooler=True, dlr_out_dim=OUT),

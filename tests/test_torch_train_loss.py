@@ -249,3 +249,64 @@ def test_packed_dhr_and_agg_losses(family, with_teacher):
                                   N_PSG, agg_dim=48, teacher_scores=jt)
     close(got[0], want[0])
     close(got[1], want[1])
+
+
+def _margin_kd_want(case, f, margins, temp, scale):
+    """The margin-KD loss from the reference's own pieces: its score
+    matrices, each component's KL against ``expand_teacher_margins`` of
+    the margins at that component's temperature (what its ColBERT loss
+    does with margins), in its temperature splits 1 / 3/4 / 1/4."""
+    fam, kw = LOSS_CASES[case]
+    q = {k: jnp.asarray(v) for k, v in f["q"].items()}
+    p = {k: jnp.asarray(v) for k, v in f["p"].items()}
+    sem = (jl.listwise_ip(q["semantic"], p["semantic"])
+           if "semantic" in q else None)
+    if fam == "dhr":
+        lex = (jl.listwise_gip(q["lexical"], p["lexical"], OUT, REMOVE)
+               if kw["dlr_out_dim"] else jl.listwise_ip(q["lexical"],
+                                                        p["lexical"]))
+        scores = lex + (0.0 if kw.get("combine_cls") is False else 1.0) * sem
+    else:
+        from dhr_tpu.ops.aggregate import aggregate as jagg
+
+        full = not kw.get("semi_aggregate", False)
+        lex = jl.listwise_ip(jagg(q["lexical"], 48, full=full),
+                             jagg(p["lexical"], 48, full=full))
+        scores = lex if sem is None else lex + sem
+
+    def kl(x, t):
+        return jl.kl_vs_teacher(x, jl.expand_teacher_margins(
+            jnp.asarray(margins) * t, P), 1.0)
+
+    loss = kl(scores, temp) + 0.5 * kl(lex, temp / 4)
+    if sem is not None:
+        loss = loss + 0.5 * kl(sem, temp * 3 / 4)
+    return loss * scale, scores
+
+
+@pytest.mark.parametrize("case", sorted(c for c in LOSS_CASES
+                                        if c != "colbert"))
+def test_margin_kd_of_dhr_and_agg(case):
+    """Margin-KD scores (B, n) from ``bin_pairs``: the reference's DHR and
+    Aggretriever losses broadcast them against the (B, B*n) score matrix
+    and fail; the port places them on the block diagonal at each
+    temperature, as the ColBERT loss does, and gives the loss built from
+    the reference's own pieces."""
+    f = reps_pair(11, "dhr")
+    if case == "agg_no_semantic":
+        f["q"].pop("semantic")
+        f["p"].pop("semantic")
+    t_fn, j_fn, kw = _loss_fns(case)
+    kw = dict(kw, temperature=0.5, loss_scale=2.0)
+    margins = teacher(11)
+    margins[:, 0] = 0.0  # the positive's margin, as the collator writes it
+    with pytest.raises((TypeError, ValueError)):
+        j_fn(*(JaxReps(**{k: jnp.asarray(v) for k, v in f[s].items()})
+               for s in ("q", "p")), N_PSG,
+             teacher_scores=jnp.asarray(margins), **kw)
+    (tq, _), (tp, _) = as_reps(f["q"]), as_reps(f["p"])
+    got, scores = t_fn(tq, tp, N_PSG, teacher_scores=torch.from_numpy(
+        margins), **kw)
+    want, want_scores = _margin_kd_want(case, f, margins, 0.5, 2.0)
+    close(got, want)
+    close(scores, want_scores)
