@@ -18,7 +18,7 @@ pool, exact rerank, top 1000):
 Before the search phases, ``encode_path`` runs the encode slice at
 DistilBERT-base width with random weights (no checkpoint is in the
 repository): the card against the CPU in f32, then the user's path through
-the CLI (``encode`` a 65,536-passage corpus and 1,024 queries, ``index
+the CLI (``encode`` a 32,768-passage corpus and 1,024 queries, ``index
 --quantize``, ``search`` at the bench point, K1 and K2 launched), then the
 ``Encoder``'s passages/s, stage times and achieved TFLOP/s.
 
@@ -44,7 +44,7 @@ run must equal the CPU's brute force on 4 queries.  ``rep_stats``' generator
 statistics and agreement run on the card at 204,800 rows beside it.
 
 ``densify_path`` comes next: the DLR paper's BM25 -> DLR front end on the
-port's C++ host runtime (65,536 synthetic whole-word passages of MS MARCO
+port's C++ host runtime (32,768 synthetic whole-word passages of MS MARCO
 length, Zipf words over 2^18 terms, so the fold planes are int16):
 ``simple_analyzer``, ``TermDictionary``, ``native.bm25_csr``, the vectors as
 JSONL, then ``densify`` -> ``index --quantize`` -> ``search`` with 1,024
@@ -53,7 +53,7 @@ the CPU's plain path.  ``eval_path`` then runs the evaluation verbs at
 DistilBERT-base width: ColBERT ``encode`` and ``colbert-score
 --full-ranking`` over the encode corpus (card against the CPU, host slabs
 against the resident plane, ``--pairs`` against the run; q/s and TFLOP/s),
-``rerank-eval`` over 32 x 1,000 candidate pairs, and ``evaluate_beir`` over
+``rerank-eval`` over 16 x 1,000 candidate pairs, and ``evaluate_beir`` over
 a SciFact-shaped BEIR directory at theta 0 (K1) and theta 0.3 with rerank
 (K1 and K2), each held against the brute force on the same planes, with no
 self-hit left.  ``family_path`` then runs the other retriever families at
@@ -132,7 +132,7 @@ K2_SOURCE = "dhr_tpu_torch/csrc/rerank_gip.cu"
 K3_SOURCE = "dhr_tpu_torch/csrc/gip_candidates.cu"
 SMALL_ROWS = 204_803
 H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
-ENCODE_PASSAGES = 65_536
+ENCODE_PASSAGES = 32_768
 ENCODE_QUERIES = 1_024
 ENCODE_TIMED = 16_384          # passages of the Encoder's timed passes
 ENCODE_REMOVE_DIMS = 570
@@ -145,7 +145,7 @@ TRAIN_FLAGS = ["--train-n-passages", "8", "--batch-size", "24",
                "--q-max-len", "32", "--bf16"]
 # densify_path: synthetic whole-word passages of MS MARCO length over a
 # vocabulary of 2^18 terms (folds well past 127: int16 planes)
-DENSIFY_PASSAGES = 65_536
+DENSIFY_PASSAGES = 32_768
 DENSIFY_VOCAB = 1 << 18
 DENSIFY_QUERIES = 1_024
 DENSIFY_SEARCH = ["--theta", "0.1", "--rerank", "--agip-topk", "10000"]
@@ -162,7 +162,7 @@ SERVE_TEXT_QUERIES = 128
 # EvalDataset holds ~1,000 candidates a query) and the SciFact-shaped BEIR
 # directory (Thakur et al., 2021, Table 1), 10 of its query ids also
 # document ids
-EVAL_RERANK_QUERIES = 32
+EVAL_RERANK_QUERIES = 16
 EVAL_RERANK_CANDIDATES = 1_000
 BEIR_DOCS = 5_183
 BEIR_QUERIES = 300
@@ -175,6 +175,18 @@ REHEARSAL_FLAGS = ["--n-corpus", "32768", "--n-train", "4096", "--n-dev",
                    "512", "--max-steps", "250", "--learning-rate", "1e-4"]
 REHEARSAL_CHECKED = 4          # trained exact-run queries held on the CPU
 REP_STATS_ROWS = 204_800       # rep_stats' generator corpus on the card
+# bert_path: bert-base-uncased's width (EncoderConfig.bert_base: 12 x 768,
+# 12 heads, FFN 3072, vocab 30522, 512 positions, 2 token types) with the
+# DHR flags of docs/pipeline.md:25-30, on family_path's world; TASB
+# clusters of its train groups (TASBSampler draws 24 a batch)
+BERT_DHR_FLAGS = ["--model", "dhr", "--add-pooler", "--projection-dim",
+                  "128", "--dlr-out-dim", "768", "--remove-dims", "570"]
+BERT_COLBERT_FLAGS = ["--model", "colbert", "--add-pooler",
+                      "--projection-dim", "128"]
+BERT_CLUSTERS = 64             # of 16 train-group indices each
+BERT_STEPS = 40                # each CLI train run (warmup 10)
+BERT_STEP_BATCH = 4            # queries (x 4 passages) of the CPU-held steps
+BERT_CHECKED = 4               # exact-run queries held on the CPU
 
 
 def emit(obj) -> None:
@@ -367,7 +379,7 @@ def _read_run(path):
 
 
 def _encode_corpus(root, seed, np):
-    """encode_path's synthetic corpus (65,536 passages, ids "0"...) and
+    """encode_path's synthetic corpus (32,768 passages, ids "0"...) and
     1,024 queries (4-20 ids, "q0"...), written as tokenized JSONL under
     ``root``: ``(corpus path, queries path, passage token arrays, passage
     lengths, query token arrays)``."""
@@ -637,7 +649,7 @@ def phase_encode_path(args, torch):
 
 
 def _train_data(root, seed, np):
-    """The corpus of ``encode_path``'s kind (65,536 passages) and 2,048
+    """The corpus of ``encode_path``'s kind (32,768 passages) and 2,048
     train groups: each query's 6-30 ids are drawn from its positive
     passage (so the positive can be learned), plus 32 negative pids."""
     from dhr_tpu_torch.data.examples import write_jsonl
@@ -1090,7 +1102,7 @@ def _train_timing(tree, groups, toks, torch):
     state = TrainState.create(model, OptimizerConfig(
         learning_rate=7e-6, warmup_steps=0, total_steps=1000,
         freeze_word_embeddings=True))
-    n_warm, n_timed = 3, 10
+    n_warm, n_timed = 3, 5
     q_flops = 24 * 32 * encode_flops_per_token(32)
     out = {"batch": 24, "passages_per_step": 192, "dtype": "bf16",
            "timed_steps": n_timed, "warm_up_steps": n_warm,
@@ -2467,7 +2479,7 @@ def _colbert_path(root, toks, q_toks, seed, torch, np):
 def _rerank_eval_path(root, seed, toks, q_toks, torch, np):
     """(b): ``make_pair_scorer`` on the card against the CPU in f32 (dhr on
     32 pairs, colbert on 8), then the ``rerank-eval`` verb (DHR
-    DistilBERT-base, bf16) over 32 queries x 1,000 candidates of the
+    DistilBERT-base, bf16) over 16 queries x 1,000 candidates of the
     corpus, 1-3 of them relevant."""
     from dhr_tpu_torch.data.collate import pad_token_batch
     from dhr_tpu_torch.data.examples import write_jsonl
@@ -2753,7 +2765,7 @@ def phase_eval_path(args, root, torch):
           "(ColBERT card vs CPU), the CLI verbs' own seed 0",
           "colbert": colbert, "rerank_eval": rerank, "beir": beir,
           "launches": launches, "seconds": secs})
-    _FAMILY_WEIGHTS.clear()
+    _CLI_WEIGHTS.clear()
     torch.cuda.empty_cache()
     return launches
 
@@ -2784,7 +2796,7 @@ FAMILY_STEPS = 40              # the CLI runs (warmup 10), as train_path's
 # random dlr model's lexical scores start near 0 (softmax over 30,522
 # terms), and at 7e-6 its loss moves in the 7th digit in 40 steps
 FAMILY_TRAIN_FLAGS = [*TRAIN_FLAGS, "--learning-rate", "1e-4"]
-FAMILY_TIMED = 8_192           # passages of each variant's Encoder timing
+FAMILY_TIMED = 4_096           # passages of each variant's Encoder timing
 FAMILY_CHECKED = 4             # exact-run queries held on the CPU
 
 
@@ -2827,25 +2839,32 @@ def _family_world(root, seed, np):
     return paths, toks, groups
 
 
-_FAMILY_WEIGHTS: dict = {}
+_CLI_WEIGHTS: dict = {}
 
 
 def _family_model(variant, init, dtype, torch, dropout=True):
-    """``(BiEncoder with the export's weights, its config in ``dtype``)``:
-    the weights come through the CLI's own loader (``_load_init_params``)
-    once per variant; ``dropout=False`` zeroes both dropout rates."""
+    """``(BiEncoder with the export's weights, its config in ``dtype``)``
+    of a family variant (:func:`_cli_model`)."""
+    return _cli_model([*FAMILY_VARIANTS[variant], *FAMILY_COMMON,
+                       "--model-name-or-path", init], dtype, torch, dropout)
+
+
+def _cli_model(flags, dtype, torch, dropout=True):
+    """``(BiEncoder, its config in ``dtype``)`` of the model flags
+    ``flags``: the weights come through the CLI's own loader
+    (``_load_init_params``) once per set of flags; ``dropout=False`` zeroes
+    both dropout rates."""
     from dhr_tpu_torch.cli.main import (
         _load_init_params, _model_cfg_from_args, build_parser)
     from dhr_tpu_torch.models import BiEncoder
 
-    if variant not in _FAMILY_WEIGHTS:
+    key = tuple(flags)
+    if key not in _CLI_WEIGHTS:
         args = build_parser().parse_args(
-            ["encode", *FAMILY_VARIANTS[variant], *FAMILY_COMMON,
-             "--model-name-or-path", init, "--input", "-", "--output", "-"])
+            ["encode", *flags, "--input", "-", "--output", "-"])
         cfg = _model_cfg_from_args(args)
-        _FAMILY_WEIGHTS[variant] = (
-            cfg, _load_init_params(args, cfg).state_dict())
-    cfg, state = _FAMILY_WEIGHTS[variant]
+        _CLI_WEIGHTS[key] = (cfg, _load_init_params(args, cfg).state_dict())
+    cfg, state = _CLI_WEIGHTS[key]
     enc = dataclasses.replace(cfg.encoder, dtype=dtype)
     if not dropout:
         enc = dataclasses.replace(enc, hidden_dropout=0.0,
@@ -3039,7 +3058,7 @@ def _family_train_card_vs_cpu(variant, mode, init, teacher, corpus, groups,
 
 def _family_encoder_rate(variant, init, toks, torch, np):
     """Encoder passages/s of the variant (bf16, batch 256, length-bucketed)
-    over the first 8,192 passages, after one warm-up pass over 1,024."""
+    over the first 4,096 passages, after one warm-up pass over 1,024."""
     from dhr_tpu_torch.encode import (
         EncodeConfig, Encoder, bucketed_encode_batches)
 
@@ -3065,11 +3084,12 @@ def _family_encoder_rate(variant, init, toks, torch, np):
             "passages_per_s": FAMILY_TIMED / wall, "wall_s": wall}
 
 
-def _family_exact_vs_cpu(d, variant, run_path, torch, np):
-    """The card's exact run (``--IP``, or GIP at theta 0 for dlr) against
-    the CPU's brute force over the same planes and queries, on the first
-    queries, by :func:`_vs_exact`'s rule.  The IP brute force rounds both
-    sides to bf16, the search's product (f32 accumulation)."""
+def _family_exact_vs_cpu(d, run_path, torch, np):
+    """The card's exact run (``--IP``, or GIP at theta 0 for planes with
+    folds: dlr, dhr) against the CPU's brute force over the same planes and
+    queries, on the first queries, by :func:`_vs_exact`'s rule.  The IP
+    brute force rounds both sides to bf16, the search's product (f32
+    accumulation)."""
     from dhr_tpu_torch.ops.gip import gip_scores_masked, pad_indices_for_cls
     from dhr_tpu_torch.retrieval.index import PackedIndex
 
@@ -3081,7 +3101,7 @@ def _family_exact_vs_cpu(d, variant, run_path, torch, np):
     with open(f"{d}/q.npz.qids.json") as f:
         qids = json.load(f)[:FAMILY_CHECKED]
     with torch.inference_mode():
-        if variant == "dlr":
+        if qi is not None:
             cls = pk.dim - pk.lex_dim
             exact = gip_scores_masked(
                 torch.from_numpy(qv * pk.value_scales[None, :]),
@@ -3208,7 +3228,7 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
         raise AssertionError(f"{variant}: the run lacks queries, rows or "
                              "finite scores")
     t = time.perf_counter()
-    vs = _family_exact_vs_cpu(d, variant, f"{d}/exact.trec", torch, np)
+    vs = _family_exact_vs_cpu(d, f"{d}/exact.trec", torch, np)
     secs["exact_vs_cpu"] = time.perf_counter() - t
     if vs["scores_match_exact"] != FAMILY_CHECKED \
             or vs["ranks_equal_up_to_ties"] != FAMILY_CHECKED:
@@ -3302,6 +3322,546 @@ def phase_family_path(args, root, smi, torch):
                     "train_groups": FAMILY_GROUPS},
           "card_vs_cpu": parity, "encoder_rate_b256_bucketed_bf16": rates,
           "train_step_card_vs_cpu_f32": steps, "chains": chains,
+          "launches": launches, "seconds": secs})
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# bert_path: BERT-base towers with token types; untied, TASB-batched DHR and
+# packed ColBERT training through the CLI chain
+# --------------------------------------------------------------------------
+
+
+TOKEN_TYPE_KEY = "bert.embeddings.token_type_embeddings.weight"
+
+
+def _bert_config(dtype, untie=False):
+    from dhr_tpu_torch.models import EncoderConfig
+
+    return dataclasses.replace(
+        _dhr_config(dtype), untie_encoder=untie,
+        encoder=dataclasses.replace(EncoderConfig.bert_base(), dtype=dtype))
+
+
+def _bert_setup(root, seed, torch, np):
+    """family_path's world (16,384 passages, 1,024 queries, 1,024 train
+    groups), TASB clusters (64 of 16 group indices, a permutation drawn
+    from the seed), a random BERT-base DHR tree exported as a ``bert`` HF
+    directory (the chains' init) and a random untied tree whose towers
+    come from two other seeds."""
+    from dhr_tpu_torch.models import (
+        BiEncoder, load_flax_params, random_flax_params)
+    from dhr_tpu_torch.train.checkpoint import export_hf_checkpoint
+
+    paths, toks, groups = _family_world(root, seed, np)
+    perm = np.random.default_rng(seed + 16).permutation(FAMILY_GROUPS)
+    clusters = [{"qidx": c.tolist()} for c in perm.reshape(BERT_CLUSTERS,
+                                                           -1)]
+    paths["clusters"] = f"{root}/clusters.jsonl"
+    with open(paths["clusters"], "w") as f:
+        f.writelines(json.dumps(c) + "\n" for c in clusters)
+    cfg = _bert_config(torch.float32)
+
+    def tree(s):
+        return random_flax_params(cfg, torch.Generator().manual_seed(s))
+
+    export_hf_checkpoint(f"{root}/init", load_flax_params(
+        BiEncoder(cfg), tree(seed + 17)), cfg, arch="bert")
+    untied = {"encoder_q": tree(seed + 18)["encoder_q"],
+              "encoder_p": tree(seed + 19)["encoder_q"]}
+    return paths, toks, groups, clusters, untied
+
+
+def _bert_card_vs_cpu(init, untied, toks, q_toks, torch, np):
+    """f32 reps of 8 passages x 128 and 8 queries x 32, each through its
+    side's tower, on the card against the CPU: the tied init (through the
+    CLI's loader) and the untied tree.  Lexical and CLS reps within 1e-3
+    of their scale, folds equal except at near ties (1e-5); the untied
+    towers' passage reps must differ."""
+    from dhr_tpu_torch.data.collate import pad_token_batch
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+    from dhr_tpu_torch.models.transformer import compute_copy
+    from dhr_tpu_torch.ops.densify import densify
+
+    p_toks = [t.tolist() for t in toks[:8]]
+    p_toks[0] = np.resize(toks[8], 126).tolist()  # a full row
+    sides = {"passage": pad_token_batch(p_toks, 128, 0, 101, 102),
+             "query": pad_token_batch([t.tolist() for t in q_toks], 32, 0,
+                                      101, 102)}
+    models = {"tied": _cli_model([*BERT_DHR_FLAGS, "--model-name-or-path",
+                                  init], torch.float32, torch)[0],
+              "untied": load_flax_params(BiEncoder(_bert_config(
+                  torch.float32, untie=True)), untied)}
+    res = {}
+    for name, model in models.items():
+        # (side, tower): each side through its tower; untied, the passages
+        # through the query tower too
+        views = [("passage", "passage"), ("query", "query")] + (
+            [("passage", "query")] if name == "untied" else [])
+        reps = {}
+        for dev in ("cpu", "cuda"):
+            m = compute_copy(model, torch.float32, torch.device(dev)).eval()
+            for side, tower in views:
+                if dev == "cpu" and side != tower:
+                    continue  # the towers' difference is read on the card
+                ids, mask = (torch.from_numpy(sides[side][k]).to(dev)
+                             for k in ("input_ids", "attention_mask"))
+                with torch.inference_mode():
+                    r = m.encoder(tower)(ids, mask, is_query=side == "query")
+                reps[dev, side, tower] = (r.lexical.float().cpu(),
+                                          r.semantic.float().cpu())
+            del m
+        out = {}
+        for role in sides:
+            (lex, sem), (w_lex, w_sem) = (reps["cuda", role, role],
+                                          reps["cpu", role, role])
+            folded = w_lex[:, ENCODE_REMOVE_DIMS:].reshape(
+                w_lex.shape[0], -1, LEX_DIM)
+            top2 = folded.topk(2, dim=1).values
+            tie = (top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs()
+            diff = (densify(lex, LEX_DIM, ENCODE_REMOVE_DIMS)[1]
+                    != densify(w_lex, LEX_DIM, ENCODE_REMOVE_DIMS)[1])
+            out[role] = {"lexical_max_rel_diff": _rel_diff(lex, w_lex, torch),
+                         "cls_max_rel_diff": _rel_diff(sem, w_sem, torch),
+                         "unequal_folds": int(diff.sum()),
+                         "unequal_folds_not_near_tie": int(
+                             (diff & ~tie).sum())}
+            if (max(out[role]["lexical_max_rel_diff"],
+                    out[role]["cls_max_rel_diff"]) > 1e-3
+                    or out[role]["unequal_folds_not_near_tie"]):
+                raise AssertionError(f"bert {name} {role} reps, card vs "
+                                     f"CPU f32: {out}")
+        if name == "untied":
+            out["passage_rel_diff_query_vs_passage_tower"] = _rel_diff(
+                reps["cuda", "passage", "query"][0],
+                reps["cuda", "passage", "passage"][0], torch)
+            if not out["passage_rel_diff_query_vs_passage_tower"] > 1e-2:
+                raise AssertionError(f"bert untied towers agree: {out}")
+        res[name] = out
+    del models
+    return res
+
+
+def _bert_batch(groups, corpus, torch, **kw):
+    """The first batch of ``BERT_STEP_BATCH`` queries x 4 passages (32 /
+    128 tokens, specials 101 / 102) of a loader over ``groups``."""
+    from dhr_tpu_torch.data import SamplingConfig, TrainLoader
+
+    return next(iter(TrainLoader(groups, SamplingConfig(
+        n_passages=4, q_max_len=32, p_max_len=128, seed=42, cls_id=101,
+        sep_id=102), batch_size=BERT_STEP_BATCH, corpus=corpus,
+        **kw).epoch(0)))
+
+
+def _grads_vs_f64(got, want, ref):
+    """f32 gradients ``got`` (the card's) against ``want`` (the CPU's, or
+    the plain step's), each tensor within family_path's bar (1e-3,
+    relative L2) widened by four times ``want``'s own distance from the
+    f64 step's ``ref``.  Where f32 resolves a gradient that is the family
+    bar; where its sums cancel to their rounding the rounding sets the bar
+    (an untied passage tower's pooler bias has a gradient of exactly 0:
+    each query's in-batch softmax is blind to a shift shared by every
+    passage; its last LayerNorm bias keeps only a small lexical share).
+    The attention-key biases are left out (:func:`_grad_rel_diff`)."""
+    res = {"tensors": 0, "within_1e-4_of_f64": 0, "grad_rel_l2_diff_max":
+           0.0, "worst_of_bar": {}}
+    ratio = {}
+    for n, r in ref.items():
+        if "attention.key.bias" in n or not r.abs().max() > 0:
+            continue
+        res["tensors"] += 1
+        e_want = float((want[n].double() - r).norm() / r.norm())
+        d = float((got[n] - want[n]).norm() / want[n].norm())
+        res["within_1e-4_of_f64"] += e_want <= 1e-4
+        res["grad_rel_l2_diff_max"] = max(res["grad_rel_l2_diff_max"], d)
+        ratio[n] = (d / (1e-3 + 4 * e_want), d, e_want)
+    for n, (q, d, e) in sorted(ratio.items(), key=lambda kv: -kv[1][0])[:3]:
+        res["worst_of_bar"][n] = {"diff_over_bar": q, "diff": d,
+                                  "want_vs_f64": e}
+    if max(q for q, _, _ in ratio.values()) >= 1.0:
+        raise AssertionError(f"gradients: {res}")
+    return res
+
+
+def _bert_steps_card_vs_cpu(init, untied, clusters, corpus, groups, torch):
+    """Steps at 4 queries x 4 passages, dropout 0: the untied tree's plain
+    step on the first TASB batch and a ColBERT model's (the init's encoder
+    and pooler) packed step, each in f32 on the card against the CPU, and
+    the packed step against the plain one on the card.  The loss within
+    1e-4 of max(|loss|, 1) and the gradients by :func:`_grads_vs_f64`,
+    with the same step in f64 on the card as the reference.  ColBERT's
+    MaxSim scores (a sum over 32 query tokens) saturate its softmax at
+    random weights, so the f32 gradient of its loss is rounding; its
+    gradients are those of a fixed random projection of the step's scores
+    (the same graph below the softmax), and the scores are held within
+    1e-4 of their scale."""
+    from dhr_tpu_torch.data import TASBSampler
+    from dhr_tpu_torch.models import BiEncoder, load_flax_params
+    from dhr_tpu_torch.train.step import (
+        LossConfig, packed_loss, plain_loss, to_device)
+
+    loss_cfg = LossConfig(n_passages=4)
+    tasb = TASBSampler(clusters, seed=42)
+    batches = {"untied_plain": _bert_batch(groups, corpus, torch, tasb=tasb),
+               "colbert_plain": _bert_batch(groups, corpus, torch),
+               "colbert_packed": _bert_batch(groups, corpus, torch,
+                                             pack_passages=True)}
+    colbert_flags = [*BERT_COLBERT_FLAGS, "--model-name-or-path", init]
+    runs = {}
+    for name, dev, dtype in (
+            ("untied_plain", "cpu", torch.float32),
+            ("untied_plain", "cuda", torch.float32),
+            ("untied_plain", "cuda", torch.float64),
+            ("colbert_packed", "cpu", torch.float32),
+            ("colbert_packed", "cuda", torch.float32),
+            ("colbert_plain", "cuda", torch.float32),
+            ("colbert_plain", "cuda", torch.float64)):
+        if name == "untied_plain":
+            cfg = _bert_config(dtype, untie=True)
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, hidden_dropout=0.0, attention_dropout=0.0))
+            model = load_flax_params(BiEncoder(cfg), untied)
+        else:
+            model, cfg = _cli_model(colbert_flags, dtype, torch,
+                                    dropout=False)
+        fn = packed_loss if name == "colbert_packed" else plain_loss
+        model = model.to(dev, dtype).train()
+        loss, scores = fn(model, cfg, loss_cfg, to_device(batches[name],
+                                                          dev))
+        if name == "untied_plain":
+            loss.backward()
+        else:
+            w = torch.randn(scores.shape, generator=torch.Generator()
+                            .manual_seed(7), dtype=torch.float64)
+            (scores.to(dtype) * w.to(dev, dtype)).sum().backward()
+        runs[name, dev, dtype] = (loss.item(), {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}, scores.detach().double().cpu())
+        del model
+    torch.cuda.empty_cache()
+    f32, f64 = torch.float32, torch.float64
+    res = {"tasb_first_batch_indices": tasb.batch_indices(
+               0, BERT_STEP_BATCH),
+           "packed_rows": int(batches["colbert_packed"]["packed_passage"]
+                              ["input_ids"].shape[0])}
+    for label, got, want, ref in (
+            ("untied_tasb_card_vs_cpu", ("untied_plain", "cuda", f32),
+             ("untied_plain", "cpu", f32), ("untied_plain", "cuda", f64)),
+            ("colbert_packed_card_vs_cpu", ("colbert_packed", "cuda", f32),
+             ("colbert_packed", "cpu", f32), ("colbert_plain", "cuda", f64)),
+            ("colbert_packed_vs_plain_card", ("colbert_packed", "cuda", f32),
+             ("colbert_plain", "cuda", f32),
+             ("colbert_plain", "cuda", f64))):
+        (l_got, g_got, s_got), (l_want, g_want, s_want) = runs[got], \
+            runs[want]
+        res[label] = {"loss": l_got, "loss_want": l_want,
+                      "loss_f64": runs[ref][0],
+                      "loss_diff_of_max_1": abs(l_got - l_want)
+                      / max(abs(l_want), 1.0),
+                      "scores_max_rel_diff": _rel_diff(s_got, s_want, torch)}
+        if not (res[label]["loss_diff_of_max_1"] < 1e-4
+                and res[label]["scores_max_rel_diff"] < 1e-4):
+            raise AssertionError(f"bert {label}: {res}")
+        try:
+            res[label]["grads"] = _grads_vs_f64(g_got, g_want, runs[ref][1])
+        except AssertionError as e:
+            raise AssertionError(f"bert {label}: {e}") from e
+    towers = {n.split(".")[0] for n in runs["untied_plain", "cpu", f32][1]}
+    if towers != {"encoder_q", "encoder_p"}:
+        raise AssertionError(f"bert untied step: gradients of {towers}")
+    return res
+
+
+def _bert_train(d, flags, init, paths, extra, torch, np):
+    """``train`` (the documented 24 x 8 bf16 batch, lr 1e-4, 40 steps,
+    warmup 10) from ``init`` through the CLI: ``(its DHR_TIMING line, the
+    per-step losses, the median ms of the last 10 steps, the process's
+    peak allocated GB during the run)``."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_train = _run_cli(["train", *flags, "--model-name-or-path", init,
+                        "--train-path", paths["train"], "--corpus-path",
+                        paths["corpus"], *FAMILY_TRAIN_FLAGS, *extra,
+                        "--warmup-steps", "10", "--max-steps",
+                        str(BERT_STEPS), "--log-steps", "1", "--metrics-path", f"{d}.jsonl",
+                        "--output-dir", d], "train")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with open(f"{d}.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    if len(losses) != BERT_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"bert train {flags}: {losses}")
+    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in rows[-10:])
+    return t_train, losses, step_ms, peak
+
+
+def _bert_eval_loss(d, flags, init, groups, corpus, torch):
+    """The f32 eval-mode loss of the first 96 queries (4 plain batches of
+    24 x 8) before and after the run at ``d``; it must fall."""
+    from dhr_tpu_torch.data import SamplingConfig, TrainLoader
+    from dhr_tpu_torch.train.step import LossConfig, plain_loss, to_device
+
+    loader = TrainLoader(groups, SamplingConfig(
+        n_passages=8, q_max_len=32, p_max_len=128, seed=42, cls_id=101,
+        sep_id=102), batch_size=24, corpus=corpus)
+    batches = [to_device(b, "cuda") for b, _ in zip(loader.epoch(0),
+                                                    range(4))]
+    model, cfg = _cli_model([*flags, "--model-name-or-path", init],
+                            torch.float32, torch)
+    model = model.cuda().eval()
+
+    def eval_loss():
+        with torch.no_grad():
+            return float(sum(plain_loss(model, cfg, LossConfig(), b)[0]
+                             .item() for b in batches) / 4)
+
+    before = eval_loss()
+    snap = torch.load(f"{d}/step_{BERT_STEPS:08d}/state.pt",
+                      map_location="cuda", weights_only=True)
+    model.load_state_dict(snap["model"])
+    after = eval_loss()
+    del model, snap, batches
+    torch.cuda.empty_cache()
+    if not after < before:
+        raise AssertionError(f"bert {flags}: the loss did not fall "
+                             f"({before} -> {after})")
+    return [before, after]
+
+
+def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
+    """``train --untie-encoder --query-cluster-path`` (TASB batches) ->
+    ``encode`` (16,384 passages by the passage tower, bucketed, and 1,024
+    queries by the query tower) -> ``index --quantize`` -> ``search`` at
+    theta 0 (K1) and at theta 0.3 with rerank (K1 + K2) -> ``eval``.  The
+    export must hold both towers with token types; the exact run must
+    equal the CPU's brute force on 4 queries.  Returns the report and the
+    chain's K1 / K2 / K3 launches."""
+    from dhr_tpu_torch.models.hf_io import load_hf_state_dict
+
+    d = f"{root}/dhr"
+    flags = [*BERT_DHR_FLAGS, "--untie-encoder"]
+    secs = {}
+    t = time.perf_counter()
+    t_train, losses, step_ms, peak = _bert_train(
+        d, flags, init, paths, ["--query-cluster-path", paths["clusters"]],
+        torch, np)
+    secs["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    eval_loss = _bert_eval_loss(d, flags, init, groups, corpus, torch)
+    secs["eval_loss"] = time.perf_counter() - t
+    export = f"{d}/export"
+    layout = {tower: TOKEN_TYPE_KEY in load_hf_state_dict(
+        f"{export}/{tower}") for tower in ("query_model", "passage_model")}
+    if not all(layout.values()) or os.path.exists(f"{export}/config.json"):
+        raise AssertionError(f"bert untied export: {layout}")
+
+    enc = ["encode", *flags, "--model-name-or-path", export, "--bf16",
+           "--batch-size", "256"]
+    t = time.perf_counter()
+    t_p = _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
+                    "--output", f"{d}/corpus.npz"], "encode")
+    t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
+                    f"{d}/q.npz", "--encode-is-qry"], "encode")
+    _run_cli(["index", "--inputs", f"{d}/corpus.npz", "--output",
+              f"{d}/index.npz", "--quantize"])
+    secs["encode_index"] = time.perf_counter() - t
+    with np.load(f"{d}/index.npz") as z:
+        planes = {k: [list(z[k].shape), str(z[k].dtype)] for k in
+                  ("values", "indices")}
+    if planes["values"] != [[FAMILY_PASSAGES, LEX_DIM + 128], "int8"] \
+            or planes["indices"][0] != [FAMILY_PASSAGES, LEX_DIM]:
+        raise AssertionError(f"bert index planes {planes}")
+    search = ["search", "--index-path", f"{d}/index.npz", "--query-path",
+              f"{d}/q.npz", "--topk", "1000", "--query-batch", "128"]
+    launches = {k: 0 for k in _counters()}
+    out = {}
+    t = time.perf_counter()
+    for label, sflags in (("exact", ["--theta", "0"]),
+                          ("staged", ["--theta", "0.3", "--rerank",
+                                      "--agip-topk", "10000"])):
+        reset_launches()
+        t_s = _run_cli([*search, *sflags, "--output", f"{d}/{label}.trec"],
+                       "search")
+        got = read_launches()
+        if not (got["partial_gip"] > 0 and (
+                got["rerank_gip"] > 0) == (label == "staged")):
+            raise AssertionError(f"bert {label} launches {got}: K1 > 0, "
+                                 "K2 > 0 with rerank only")
+        for k in launches:
+            launches[k] += got[k]
+        _, metrics = _run_cli(["eval", "--qrels", paths["qrels"], "--run",
+                               f"{d}/{label}.trec"], stdout=True)
+        out[label] = {"flags": sflags, "qps": t_s["qps"], "launches": got,
+                      "metrics": metrics}
+    secs["search_eval"] = time.perf_counter() - t
+    run, staged = _read_run(f"{d}/exact.trec"), _read_run(
+        f"{d}/staged.trec")
+    if len(run) != FAMILY_QUERIES or any(
+            len(r) != 1000 or not np.isfinite([s for _, s in r]).all()
+            for r in run.values()):
+        raise AssertionError("bert: the run lacks queries, rows or finite "
+                             "scores")
+    qids = sorted(run)
+    out["staged"]["agreement_vs_exact"] = agreement(
+        [np.array([x for x, _ in staged[q]]) for q in qids],
+        [np.array([x for x, _ in run[q]]) for q in qids])
+    t = time.perf_counter()
+    vs = _family_exact_vs_cpu(d, f"{d}/exact.trec", torch, np)
+    secs["exact_vs_cpu"] = time.perf_counter() - t
+    if vs["scores_match_exact"] != BERT_CHECKED \
+            or vs["ranks_equal_up_to_ties"] != BERT_CHECKED:
+        raise AssertionError(f"bert exact run vs the CPU: {vs}")
+    return {"flags": flags, "steps": len(losses),
+            "loss_first_last": [losses[0], losses[-1]],
+            "eval_loss_first_96_queries": eval_loss,
+            "train_step_ms_median_last10": step_ms,
+            "train_peak_allocated_gb": peak,
+            "train_wall_s": t_train["train_wall_s"],
+            "export_token_types": layout,
+            "encode_passages_per_s_cli_b256_bucketed": t_p["items_per_s"],
+            "encode_queries_per_s_cli": t_q["items_per_s"],
+            "index_planes": planes, "search": out,
+            "exact_vs_cpu_4_queries": vs, "seconds": secs}, launches
+
+
+def _bert_colbert_chain(root, init, paths, corpus, groups, torch, np):
+    """``train --model colbert --pack-passages`` from the BERT init (bf16,
+    40 steps; the f32 eval loss must fall) -> ``encode --model colbert``
+    (16,384 passages, 1,024 queries) -> ``colbert-score --full-ranking
+    --topk 1000``, held against the CPU's plain ``full_ranking`` of every
+    passage on 4 queries (:func:`_vs_exact`)."""
+    from dhr_tpu_torch.models.hf_io import load_hf_state_dict
+    from dhr_tpu_torch.retrieval.colbert import full_ranking
+
+    d = f"{root}/colbert"
+    secs = {}
+    t = time.perf_counter()
+    t_train, losses, step_ms, peak = _bert_train(
+        d, BERT_COLBERT_FLAGS, init, paths, ["--pack-passages"], torch, np)
+    secs["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    eval_loss = _bert_eval_loss(d, BERT_COLBERT_FLAGS, init, groups, corpus,
+                                torch)
+    secs["eval_loss"] = time.perf_counter() - t
+    export = f"{d}/export"
+    if TOKEN_TYPE_KEY not in load_hf_state_dict(export):
+        raise AssertionError("bert ColBERT export lacks token types")
+    enc = ["encode", *BERT_COLBERT_FLAGS, "--model-name-or-path", export,
+           "--bf16", "--batch-size", "256"]
+    t = time.perf_counter()
+    t_p = _run_cli([*enc, "--input", paths["corpus"], "--output",
+                    f"{d}/p_reps"], "encode")
+    t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
+                    f"{d}/q_reps", "--encode-is-qry"], "encode")
+    secs["encode"] = time.perf_counter() - t
+    with np.load(f"{d}/p_reps.npz") as z:
+        p_reps = z["token"]
+    with np.load(f"{d}/q_reps.npz") as z:
+        q_reps = z["token"]
+    if (p_reps.shape != (FAMILY_PASSAGES, 128, 128)
+            or q_reps.shape != (FAMILY_QUERIES, 32, 128)):
+        raise AssertionError(f"bert ColBERT reps {p_reps.shape} / "
+                             f"{q_reps.shape}")
+    t = time.perf_counter()
+    t_full = _run_cli(["colbert-score", "--passage-reps", f"{d}/p_reps",
+                       "--query-reps", f"{d}/q_reps", "--full-ranking",
+                       "--topk", "1000", "--output", f"{d}/colbert.trec"],
+                      "colbert-score")
+    secs["full_ranking"] = time.perf_counter() - t
+    run = _read_run(f"{d}/colbert.trec")
+    qids = [f"q{i}" for i in range(FAMILY_QUERIES)]
+    if sorted(run) != sorted(qids) or any(
+            len(run[q]) != 1000
+            or not np.isfinite([s for _, s in run[q]]).all() for q in qids):
+        raise AssertionError("bert ColBERT run lacks queries, rows or "
+                             "finite scores")
+    # every passage's score on the CPU's plain path, held by PR 9's rule:
+    # trained token reps tie more often than random ones, in chains
+    t = time.perf_counter()
+    cpu_s, cpu_r = full_ranking(q_reps[:BERT_CHECKED], p_reps,
+                                topk=FAMILY_PASSAGES, device="cpu")
+    exact = np.empty_like(cpu_s)
+    np.put_along_axis(exact, cpu_r, cpu_s, axis=1)
+    checked = qids[:BERT_CHECKED]
+    vc = _vs_exact(checked, {q: [doc for doc, _ in run[q]] for q in checked},
+                   {q: [sc for _, sc in run[q]] for q in checked}, exact,
+                   [str(i) for i in range(FAMILY_PASSAGES)], np)
+    secs["cpu_plain_4"] = time.perf_counter() - t
+    if vc["scores_match_exact"] != BERT_CHECKED \
+            or vc["ranks_equal_up_to_ties"] != BERT_CHECKED:
+        raise AssertionError(f"bert ColBERT run vs CPU plain: {vc}")
+    _, metrics = _run_cli(["eval", "--qrels", paths["qrels"], "--run",
+                           f"{d}/colbert.trec"], stdout=True)
+    del p_reps, q_reps
+    return {"flags": [*BERT_COLBERT_FLAGS, "--pack-passages"],
+            "steps": len(losses), "loss_first_last": [losses[0], losses[-1]],
+            "eval_loss_first_96_queries": eval_loss,
+            "train_step_ms_median_last10": step_ms,
+            "train_peak_allocated_gb": peak,
+            "train_wall_s": t_train["train_wall_s"],
+            "encode_passages_per_s_cli_b256": t_p["items_per_s"],
+            "encode_queries_per_s_cli_b256": t_q["items_per_s"],
+            "full_ranking_qps": t_full["qps"], "metrics": metrics,
+            "vs_cpu_plain_4_queries": vc, "seconds": secs}
+
+
+def phase_bert_path(args, root, smi, torch):
+    """BERT-base width (12 layers, token types) with random weights: card
+    against CPU f32 reps of the tied init and of an untied tree, an untied
+    step on a TASB batch and a packed ColBERT step (against the CPU and
+    the plain step); then the untied, TASB-batched DHR chain and the packed
+    ColBERT chain through the CLI from the ``bert`` init directory.
+    Returns the K1 / K2 / K3 launches of the DHR chain's searches."""
+    import numpy as np
+
+    from dhr_tpu_torch.data import Corpus
+
+    root = f"{root}/bert"
+    os.makedirs(root)
+    secs = {}
+    t = time.perf_counter()
+    paths, toks, groups, clusters, untied = _bert_setup(root, args.seed,
+                                                        torch, np)
+    init = f"{root}/init"
+    corpus = Corpus([str(i) for i in range(len(toks))],
+                    [x.tolist() for x in toks])
+    q_toks = [np.random.default_rng(args.seed + 15).integers(
+        ENCODE_REMOVE_DIMS, 30522, n) for n in (4, 9, 12, 17, 20, 25, 30, 30)]
+    secs["setup"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parity = _bert_card_vs_cpu(init, untied, toks, q_toks, torch, np)
+    secs["reps_card_vs_cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    steps = _bert_steps_card_vs_cpu(init, untied, clusters, corpus, groups,
+                                    torch)
+    del untied
+    secs["steps_card_vs_cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dhr, launches = _bert_dhr_chain(root, init, paths, corpus, groups, torch,
+                                    np)
+    secs["dhr_chain"] = time.perf_counter() - t
+    t = time.perf_counter()
+    colbert = _bert_colbert_chain(root, init, paths, corpus, groups, torch,
+                                  np)
+    secs["colbert_chain"] = time.perf_counter() - t
+    _CLI_WEIGHTS.clear()
+    emit({"phase": "bert_path", "card": smi,
+          "model": "bert-base (12x768, 12 heads, FFN 3072, vocab 30522, "
+          "512 positions, 2 token types, eps 1e-12): DHR (768 lexical + "
+          "128 CLS dims, untied towers) and ColBERT (projection 128)",
+          "weights": f"random: the init (seed {args.seed + 17}) as a bert "
+          f"HF directory; the untied tree's towers seeds {args.seed + 18} "
+          f"and {args.seed + 19}",
+          "world": {"passages": FAMILY_PASSAGES, "queries": FAMILY_QUERIES,
+                    "train_groups": FAMILY_GROUPS,
+                    "tasb_clusters": BERT_CLUSTERS},
+          "card_vs_cpu_f32": parity, "steps_f32": steps,
+          "dhr_chain": dhr, "colbert_chain": colbert,
+          "encode_passages_per_s_b256_bucketed_bf16":
+              dhr["encode_passages_per_s_cli_b256_bucketed"],
+          "untied_step_ms_median": dhr["train_step_ms_median_last10"],
+          "untied_step_peak_allocated_gb": dhr["train_peak_allocated_gb"],
           "launches": launches, "seconds": secs})
     torch.cuda.empty_cache()
     return launches
@@ -3905,12 +4465,12 @@ def phase_serve_path(args, root, paths, searcher, main_queries, smi, torch):
 
 PARALLEL_RANKS = 2
 PARALLEL_AGREE = 64          # queries held against the one-process results
-PARALLEL_PASSES = 4          # one warm-up, three timed
+PARALLEL_PASSES = 2          # one warm-up, one timed
 PARALLEL_ENCODE = 1_024      # passages of the Encoder(mesh=) check
 PARALLEL_CLI_QUERIES = 64    # densified-index queries of the sharded CLI
 PARALLEL_SERVE_REQUESTS = 64
 FSDP_MAX_GRAD_NORM = 1e-3    # below the step's gradient norm: the clip acts
-TP_TIMED_STEPS = 3           # the TP and one-process step walls: median
+TP_TIMED_STEPS = 1           # the TP and one-process step walls: median
 TP_HALVE_ABOVE_S = 10.0      # a slower TP step times a half batch instead
 
 
@@ -4720,6 +5280,8 @@ def main() -> int:
                               torch)
         family_launches = timed("family_path", phase_family_path, args,
                                 root, smi, torch)
+        bert_launches = timed("bert_path", phase_bert_path, args, root,
+                              smi, torch)
         t = time.perf_counter()
         index, queries, raw = small_world(args.seed + 1, torch)
         errs = (phase_k1(index, queries, torch),
@@ -4739,11 +5301,11 @@ def main() -> int:
         serve_launches = timed("serve_path", phase_serve_path, args, root,
                                paths, searcher, main_queries, smi, torch)
         # the kernels line counts every path: main, fused, rehearsal,
-        # densify, eval, family, serve and parallel
+        # densify, eval, family, bert, serve and parallel
         for k in launches:
             launches[k] += (rehearsal_launches[k] + densify_launches[k]
                             + eval_launches[k] + family_launches[k]
-                            + serve_launches[k])
+                            + bert_launches[k] + serve_launches[k])
         kernels = timed("timing", phase_timing, searcher, batch, launches,
                         errs, torch)
         ref = parallel_reference(searcher, main_queries, torch)

@@ -147,9 +147,24 @@ def _check_special_ids(args, vocab_size: int) -> None:
             )
 
 
+def _tower_dirs(path: str) -> tuple[str, str] | None:
+    """The ``query_model/`` and ``passage_model/`` directories of an untied
+    export (upstream's probe, DHR/modeling.py:499-548), or None when
+    ``path`` does not hold both."""
+    import os
+
+    dirs = (os.path.join(path, "query_model"),
+            os.path.join(path, "passage_model"))
+    return dirs if all(os.path.isdir(d) for d in dirs) else None
+
+
 def _model_cfg_from_args(args):
     """DistilBERT-base computes in bf16; an HF-loaded model in f32 unless
-    ``--bf16``; ``--tiny`` always in f32 (the reference's rule)."""
+    ``--bf16``; ``--tiny`` always in f32 (the reference's rule).  An
+    untied export (``--untie-encoder``) gives its ``query_model``'s
+    ``config.json``."""
+    import os
+
     import torch
 
     from dhr_tpu_torch.models.retrievers import RetrieverConfig
@@ -158,8 +173,14 @@ def _model_cfg_from_args(args):
     if args.model_name_or_path:
         from dhr_tpu_torch.models.hf_io import encoder_config_from_hf
 
+        path = args.model_name_or_path
+        towers = _tower_dirs(path)
+        if towers and not args.untie_encoder and not os.path.exists(
+                os.path.join(path, "config.json")):
+            raise SystemExit(f"{path} is an untied export (query_model/, "
+                             "passage_model/): pass --untie-encoder")
         enc = encoder_config_from_hf(
-            args.model_name_or_path,
+            towers[0] if towers and args.untie_encoder else path,
             dtype=torch.bfloat16 if args.bf16 else torch.float32,
         )
     elif args.tiny:
@@ -187,7 +208,10 @@ def _model_cfg_from_args(args):
 def _load_init_params(args, model_cfg):
     """A ``BiEncoder`` with random weights (a fixed seed), then, given
     ``--model-name-or-path``, the HF checkpoint's backbone and its sidecar
-    heads."""
+    heads.  Untied (``model_cfg.untie_encoder``), an export holding
+    ``query_model/`` and ``passage_model/`` gives each tower its own
+    backbone and the root sidecars their q and p halves; a tied directory
+    gives both towers the same backbone."""
     import torch
 
     from dhr_tpu_torch.models.flax_params import (
@@ -207,15 +231,18 @@ def _load_init_params(args, model_cfg):
     path = args.model_name_or_path
     if not path:
         return model
-    sd = load_hf_state_dict(path)
-    sides = [model.encoder_q] + ([model.encoder_p]
-                                 if model_cfg.untie_encoder else [])
-    for enc in sides:
+    towers = (model_cfg.untie_encoder and _tower_dirs(path)) or (path, path)
+    sides = [(model.encoder_q, towers[0])] + (
+        [(model.encoder_p, towers[1])] if model_cfg.untie_encoder else [])
+    state_dicts: dict[str, dict] = {}
+    for enc, d in sides:
+        if d not in state_dicts:
+            state_dicts[d] = load_hf_state_dict(d)
         try:
-            load_hf_backbone(enc.backbone, sd, model_cfg.encoder)
+            load_hf_backbone(enc.backbone, state_dicts[d], model_cfg.encoder)
         except ValueError as e:
             raise SystemExit(f"--model {model_cfg.model_type} with "
-                             f"{path}: {e}") from e
+                             f"{d}: {e}") from e
     for name, key in (("pooler", "pooler"), ("TermWeightTrans", "term_weight")):
         head = load_sidecar_head(path, name)
         if head is None:
@@ -1035,7 +1062,9 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
                    choices=["dense", "dhr", "dlr", "agg", "colbert"])
     p.add_argument("--model-name-or-path", default=None,
                    help="local HF checkpoint directory (+ pooler.pt / "
-                        "TermWeightTrans.pt); default: random weights")
+                        "TermWeightTrans.pt), or with --untie-encoder an "
+                        "untied export (query_model/, passage_model/); "
+                        "default: random weights")
     p.add_argument("--untie-encoder", action="store_true")
     p.add_argument("--add-pooler", action="store_true")
     p.add_argument("--projection-dim", type=int, default=128)

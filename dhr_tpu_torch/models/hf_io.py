@@ -11,7 +11,9 @@ the port's modules and back, from local directories only:
   package) or ``pytorch_model.bin`` with ``torch.load``;
 - :func:`load_hf_backbone` loads such a state dict into an
   ``EncoderWithMLM`` or a ``TransformerEncoder``, refusing an MLM
-  projector that is not tied to the word embeddings;
+  projector that is not tied to the word embeddings (a bare ``BertModel``
+  state dict, without the ``bert.`` prefix, loads as an encoder-only
+  checkpoint);
 - :func:`export_hf_mlm` is the way back (the MLM keys are omitted for an
   encoder-only backbone);
 - :func:`load_sidecar_head` / :func:`save_sidecar_head` handle the heads.
@@ -217,6 +219,10 @@ def hf_mlm_to_state_dict(sd: dict[str, np.ndarray], cfg: EncoderConfig
     EncoderWithMLM, has_mlm)``; without the MLM head (an encoder-only
     checkpoint) only the ``encoder.*`` keys are filled."""
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    if not any(k.startswith(("bert.", "distilbert.")) for k in sd):
+        # a bare BertModel's keys (``embeddings.*``, ``encoder.layer.*``),
+        # as ``convert_dpr_checkpoint`` writes DPR's towers
+        sd = {f"bert.{k}": v for k, v in sd.items()}
     arch = ("distilbert" if any(k.startswith("distilbert.") for k in sd)
             else "bert")
     has_mlm = f"{next(iter(_MLM[arch]))}.weight" in sd  # the transform

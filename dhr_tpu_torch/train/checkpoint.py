@@ -232,19 +232,33 @@ def hf_config_of(enc_cfg, arch: str = "distilbert") -> dict:
     }
 
 
+def export_arch(enc_cfg, hf_config: dict | None = None) -> str:
+    """The key layout of an export: the ``model_type`` of the init's
+    ``config.json`` when one is given, else ``bert`` for an encoder with
+    token-type embeddings and ``distilbert`` without."""
+    if hf_config and "model_type" in hf_config:
+        return hf_config["model_type"]
+    return "bert" if enc_cfg.type_vocab_size > 0 else "distilbert"
+
+
 def export_hf_checkpoint(out_dir: str, model, retriever_cfg: Any,
                          hf_config: dict | None = None,
-                         arch: str = "distilbert") -> None:
+                         arch: str | None = None) -> None:
     """Write ``model`` (a ``BiEncoder``) in the reference's HF layout:
     ``pytorch_model.bin`` + ``config.json`` (under ``query_model`` /
     ``passage_model`` when untied), and the ``TermWeightTrans`` / ``pooler``
-    sidecars.  Families without an MLM head export encoder-only weights."""
+    sidecars.  Families without an MLM head export encoder-only weights.
+    ``arch`` None takes :func:`export_arch`'s, so a model trained from a
+    BERT init writes ``bert.*`` keys, token types included, beside the
+    init's ``config.json``."""
     from dhr_tpu_torch.models.hf_io import export_hf_mlm, save_sidecar_head
 
     os.makedirs(out_dir, exist_ok=True)
     untied = retriever_cfg.untie_encoder
     enc_q = model.encoder("query")
     enc_p = model.encoder("passage") if untied else None
+    if arch is None:
+        arch = export_arch(retriever_cfg.encoder, hf_config)
     if hf_config is None:
         hf_config = hf_config_of(retriever_cfg.encoder, arch)
 

@@ -47,6 +47,9 @@ VARIANTS = {
                  "--semi-aggregate"],
     "agg_skip_mlm": ["--model", "agg", "--agg-dim", str(AGG), "--skip-mlm"],
     "dlr": ["--model", "dlr", "--dlr-out-dim", str(OUT)],
+    # DHR with a tower each (tests/test_torch_family_bert.py)
+    "dhr_untied": ["--model", "dhr", "--dlr-out-dim", str(OUT),
+                   "--untie-encoder"],
 }
 COMMON = ["--add-pooler", "--projection-dim", "16", "--remove-dims",
           str(REMOVE), *SPECIALS]
@@ -139,8 +142,8 @@ def _verbs(main, who, root, paths, variant, export, searches, capsys):
             main(pack)
     else:
         main(pack)
-    index = (["--quantize", "--lex-dim", str(OUT)] if variant == "dlr"
-             else [])
+    index = {"dlr": ["--quantize", "--lex-dim", str(OUT)],
+             "dhr_untied": ["--quantize"]}.get(variant, [])
     main(["index", "--inputs", str(d / "corpus.npz"), "--output",
           str(d / "index.npz"), *index])
     out = {}
@@ -173,8 +176,9 @@ def assert_runs_equal_up_to_ties(got_path, want_path, rel=1e-4):
             [d for (d, _), u in zip(w, untied) if u], q
 
 
-def _port_lexical(export, variant, texts, max_len):
-    """The port model's f32 lexical reps of ``texts`` (for near ties)."""
+def _port_lexical(export, variant, texts, max_len, role="passage"):
+    """The port model's f32 lexical reps of ``texts`` by the ``role``'s
+    tower (for near ties)."""
     from dhr_tpu_torch.cli.main import (
         _load_init_params, _model_cfg_from_args, build_parser)
 
@@ -184,9 +188,9 @@ def _port_lexical(export, variant, texts, max_len):
     model = _load_init_params(args, _model_cfg_from_args(args))
     b = collate.pad_token_batch(texts, max_len, 0, 1, 2)
     with torch.no_grad():
-        return model.encoder_q(torch.from_numpy(b["input_ids"]),
-                               torch.from_numpy(b["attention_mask"])
-                               ).lexical.numpy()
+        return model.encoder(role)(torch.from_numpy(b["input_ids"]),
+                                   torch.from_numpy(b["attention_mask"])
+                                   ).lexical.numpy()
 
 
 def check_chains(root, paths, variant, export, searches, capsys) -> dict:
@@ -206,10 +210,13 @@ def check_chains(root, paths, variant, export, searches, capsys) -> dict:
                 as g:
             assert sorted(g.files) == sorted(w.files)
             assert_f16_within_one_ulp(g["values"], w["values"])
-            if variant == "dlr":
-                assert g["values"].shape[1] == OUT  # lexical only
+            if variant in ("dlr", "dhr_untied"):  # planes with folds
+                if variant == "dlr":
+                    assert g["values"].shape[1] == OUT  # lexical only
                 _, texts = examples.load_tokenized_corpus(paths[src])
-                lex = _port_lexical(export, variant, texts, max_len)
+                lex = _port_lexical(export, variant, texts, max_len,
+                                    "query" if src == "queries" else
+                                    "passage")
                 ties = near_ties(lex, OUT, REMOVE)
                 assert g["indices"].dtype == w["indices"].dtype == np.uint8
                 assert not ((g["indices"] != w["indices"]) & ~ties).any()
