@@ -1,0 +1,12 @@
+"""The whole encode's share of the card's bf16 peak over the window: the
+model FLOPs of every passage's real tokens (``roofline.tower_flops``) over
+989 TFLOP/s times the window's length."""
+
+from benchmarks.roofline import H100_BF16_FLOPS_PER_S
+
+
+def read(run):
+    flops = run.work.get("flops")
+    if not flops or not run.window_s:
+        return None
+    return 100.0 * flops / (H100_BF16_FLOPS_PER_S * run.window_s)
