@@ -1014,14 +1014,18 @@ def _timed_batches(groups, toks, n, torch, packed=False):
     return batches
 
 
-def _plain_step_split(step_for, model, state, batch, torch):
-    """``make_train_step``'s own step by parts, by CUDA events at its phase
-    marks (``on_phase``) and at the transformer stack's calls (forward
-    hooks: the queries', then the passages'); the backward splits where
-    autograd reaches the passages' hidden states (a tensor hook): before
-    it, the loss and the passages' head (with whatever of the small query
-    tower autograd interleaves); after it, the transformers.  And the
-    host's time to enqueue that step.  Median of 5 after a warm-up."""
+def _plain_step_split(step_fn, model, state, batch, torch):
+    """``make_train_step``'s own step by parts, by the CUDA events of its
+    recorder spans (``train.step`` and the ends of ``train.forward``,
+    ``train.loss``, ``train.backward``, ``train.optimizer``) and at the
+    transformer stack's calls (forward hooks: the queries', then the
+    passages'); the backward splits where autograd reaches the passages'
+    hidden states (a tensor hook): before it, the loss and the passages'
+    head (with whatever of the small query tower autograd interleaves);
+    after it, the transformers.  And the host's time to enqueue that step.
+    Median of 5 after a warm-up."""
+    from dhr_tpu_torch.utils import profiling
+
     ev = {}
 
     def mark(name):
@@ -1045,7 +1049,6 @@ def _plain_step_split(step_for, model, state, batch, torch):
 
     hooks = [stack.register_forward_pre_hook(pre),
              stack.register_forward_hook(post)]
-    step_fn = step_for(mark)
     bounds = (("start", "passage_in", "forward_queries"),
               ("passage_in", "passage_out", "forward_passage_transformer"),
               ("passage_out", "forward", "forward_passage_head"),
@@ -1062,10 +1065,14 @@ def _plain_step_split(step_for, model, state, batch, torch):
         calls.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mark("start")
         step_fn(state, batch, 0)
         host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
+        [step] = profiling.spans("train.step", t0)
+        ev["start"] = step.start_event
+        for name in ("forward", "loss", "backward", "optimizer"):
+            [span] = profiling.spans(f"train.{name}", t0)
+            ev[name] = span.end_event
         if i:  # the first is a warm-up
             for a, b, k in bounds:
                 parts[k].append(ev[a].elapsed_time(ev[b]))
@@ -1166,8 +1173,8 @@ def _train_timing(tree, groups, toks, torch):
         if not math.isfinite(out[name]["last_loss"]):
             raise AssertionError(f"{name}: the loss is not finite")
     out.update(_plain_step_split(
-        lambda mark: make_train_step(model, cfg, loss_cfg, on_phase=mark),
-        model, state, _timed_batches(groups, toks, 1, torch)[0], torch))
+        make_train_step(model, cfg, loss_cfg), model, state,
+        _timed_batches(groups, toks, 1, torch)[0], torch))
     del model, state
     torch.cuda.empty_cache()
     return out
@@ -1734,18 +1741,19 @@ def agreement(staged, exact, ks=(10, 100, 1000)):
         for a, b in zip(staged, exact)])) for k in ks}
 
 
-def _counters():
-    from dhr_tpu_torch.ops.gip_candidates import gip_candidates
-    from dhr_tpu_torch.ops.partial_gip import partial_gip
-    from dhr_tpu_torch.ops.rerank_gip import rerank_gip
+def _counters() -> tuple[str, ...]:
+    """The kernels whose launches the recorder counts."""
+    from dhr_tpu_torch.ops import kernel_launches
 
-    return {"partial_gip": partial_gip, "rerank_gip": rerank_gip,
-            "gip_candidates": gip_candidates}
+    return tuple(kernel_launches())
 
 
 def reset_launches() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
+    """Zero the recorder: its launch counts, with its other counters and
+    its spans."""
+    from dhr_tpu_torch.utils import profiling
+
+    profiling.reset()
 
 
 def read_launches() -> dict:
@@ -2698,7 +2706,6 @@ def _beir_path(root, seed, torch, np):
             ("theta0.3_rerank", SearchConfig(topk=1000, theta=0.3,
                                              rerank=True, agip_topk=10000,
                                              query_batch=64))):
-        profiling.reset()
         t = time.perf_counter()
         reset_launches()
         with _BeirCapture() as cap:
@@ -2708,7 +2715,8 @@ def _beir_path(root, seed, torch, np):
         got = read_launches()
         wall = time.perf_counter() - t
         split = {k.split(".")[1]: v["total_s"]
-                 for k, v in profiling.report().items()}
+                 for k, v in profiling.report().items()
+                 if k.startswith("beir.")}
         split["encode"] -= split["tokenize"]  # tokenize runs inside encode
         results, _ = cap.results
         vs = _vs_brute_force(cap, torch, np)

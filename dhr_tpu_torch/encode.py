@@ -43,6 +43,7 @@ from dhr_tpu_torch.models.transformer import compute_copy
 from dhr_tpu_torch.ops.aggregate import aggregate, merge_reps
 from dhr_tpu_torch.ops.densify import densify
 from dhr_tpu_torch.retrieval.index import PackedIndex
+from dhr_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,14 +174,13 @@ class Encoder:
     def _copy_back(self, tensors):
         """Start copying ``tensors`` (None kept) to the host; returns
         ``(event or None, host tensors)``: the event marks the copies done
-        on the card."""
-        host = [None if t is None else t.to("cpu", non_blocking=True)
-                for t in tensors]
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return done, host
+        on the card (the end event of the ``encode.copy_back`` device
+        span)."""
+        with span("encode.copy_back", device=True) as copies:
+            host = [None if t is None else t.to("cpu", non_blocking=True)
+                    for t in tensors]
+        return (copies.end_event if self.device.type == "cuda" else None,
+                host)
 
     def encode_corpus_packed(self, batches: Iterable[dict]) -> PackedIndex:
         """Encode token-packed batches from :func:`packed_encode_batches`:
@@ -243,21 +243,27 @@ class Encoder:
         ``planes_of(batch)`` queues a batch's planes and returns ``(planes,
         rows kept or None for all, ids)``.  Each batch's planes start
         copying back before the next batch is queued and are read after
-        it, so the device does not wait on the host."""
+        it, so the device does not wait on the host.  Spans of the
+        recorder (``utils.profiling``): ``encode.issue`` (a batch queued),
+        ``encode.copy_back`` (its copies, on the device), ``encode.wait``
+        (the host waiting for the copies) and ``encode.collect`` (the
+        planes joined)."""
         values_out, indices_out, ids_out = [], [], []
         pending = None
 
         def drain(pending):
             keep, (done, (vals, idxs)) = pending
             if done is not None:
-                done.synchronize()
+                with span("encode.wait"):
+                    done.synchronize()
             keep = slice(None) if keep is None else keep
             values_out.append(vals.numpy()[keep])
             if idxs is not None:
                 indices_out.append(idxs.numpy()[keep])
 
         for batch in batches:
-            planes, keep, ids = planes_of(batch)
+            with span("encode.issue"):
+                planes, keep, ids = planes_of(batch)
             planes = self._copy_back(planes)
             if pending is not None:
                 drain(pending)
@@ -265,8 +271,10 @@ class Encoder:
             ids_out.extend(ids)
         if pending is not None:
             drain(pending)
-        values = np.concatenate(values_out, axis=0)
-        indices = np.concatenate(indices_out, axis=0) if indices_out else None
+        with span("encode.collect"):
+            values = np.concatenate(values_out, axis=0)
+            indices = (np.concatenate(indices_out, axis=0) if indices_out
+                       else None)
         return values, indices, ids_out
 
     def _plain(self, role: str) -> Callable:
@@ -363,21 +371,26 @@ def bucketed_encode_batches(
     reps equal the pad-to-``max_len`` path's.
 
     Returns ``(batches, order)``: a generator of ``collate_encode`` batches
-    and the item order they cover.
+    and the item order they cover.  The plan and each batch's collation
+    are ``encode.buckets`` spans of the recorder (``utils.profiling``).
     """
     from dhr_tpu_torch.data.collate import collate_encode, wrap_specials
 
-    plan, order = plan_length_buckets(
-        [len(t) + 2 for t in toks], batch_size, max_len
-    )
+    with span("encode.buckets"):
+        plan, order = plan_length_buckets(
+            [len(t) + 2 for t in toks], batch_size, max_len
+        )
 
     def gen():
         for sel, blen in plan:
-            yield collate_encode(
-                [ids[i] for i in sel],
-                [wrap_specials(toks[i], blen, cls_id, sep_id) for i in sel],
-                blen,
-            )
+            with span("encode.buckets"):
+                batch = collate_encode(
+                    [ids[i] for i in sel],
+                    [wrap_specials(toks[i], blen, cls_id, sep_id)
+                     for i in sel],
+                    blen,
+                )
+            yield batch
 
     return gen(), order
 

@@ -17,7 +17,7 @@ queries are drawn from the collection (arguana, quora).
 
 Nothing is fetched from the network: :func:`download_beir_dataset` reuses
 an extracted directory or unzips a zip already in the download directory.
-:func:`evaluate_beir` times its stages under ``beir.*`` names of
+:func:`evaluate_beir` records its stages as ``beir.*`` spans of
 :mod:`dhr_tpu_torch.utils.profiling`.
 """
 
@@ -30,7 +30,7 @@ import os
 
 from dhr_tpu_torch.data.collate import collate_encode, wrap_specials
 from dhr_tpu_torch.eval.metrics import ndcg_at_k, recall_at_k, recall_cap_at_k
-from dhr_tpu_torch.utils.profiling import phase
+from dhr_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -137,10 +137,10 @@ def _tokenize_batches(items: dict[str, str], tokenizer, max_len: int,
 
 
 def _timed(batches, name: str):
-    """``batches``, each one's production timed under ``phase(name)``."""
+    """``batches``, each one's production a span ``name``."""
     it = iter(batches)
     while True:
-        with phase(name):
+        with span(name):
             batch = next(it, None)
         if batch is None:
             return
@@ -171,15 +171,16 @@ def evaluate_beir(
     the index and the searcher live on ``device`` (default: the
     encoder's).  ``mesh``: the index is row-sharded over its ranks (every
     rank calls this with the same arguments; give the encoder the mesh
-    too to encode data-parallel).  Phases: ``beir.tokenize`` (inside ``beir.encode``),
-    ``beir.encode``, ``beir.index``, ``beir.search``, ``beir.metrics``.
+    too to encode data-parallel).  Spans: ``beir.tokenize`` (inside
+    ``beir.encode``), ``beir.encode``, ``beir.index``, ``beir.search``,
+    ``beir.metrics``.
     """
     from dhr_tpu_torch.retrieval import DeviceIndex, Searcher
 
     device = encoder.device if device is None else device
     corpus, queries, qrels = load_beir_dir(dataset_dir, split)
     bs = encoder.encode_cfg.batch_size
-    with phase("beir.encode"):
+    with span("beir.encode"):
         if pack:
             # token packing beats bucketing when documents are much
             # shorter than p_max_len; the corpus is keyed by id
@@ -187,7 +188,7 @@ def evaluate_beir(
             from dhr_tpu_torch.encode import packed_encode_batches
 
             doc_ids = list(corpus.keys())
-            with phase("beir.tokenize"):
+            with span("beir.tokenize"):
                 toks = [_tokenize(tokenizer, corpus[i], p_max_len)
                         for i in doc_ids]
             gen, _ = packed_encode_batches(doc_ids, toks, bs, p_max_len,
@@ -200,12 +201,12 @@ def evaluate_beir(
         qv, qi, qids = encoder.encode_queries(_timed(_tokenize_batches(
             queries, tokenizer, q_max_len, bs, cls_id, sep_id,
             length_bucketing=length_bucketing), "beir.tokenize"))
-    with phase("beir.index"):
+    with span("beir.index"):
         index = DeviceIndex.from_packed(packed, device=device, mesh=mesh)
-    with phase("beir.search"):
+    with span("beir.search"):
         searcher = Searcher(index, search_config, device=device)
         results, scores = searcher.search_run(qids, qv, qi)
-    with phase("beir.metrics"):
+    with span("beir.metrics"):
         # self-hit filter, then the metrics
         run = {qid: {d: s for d, s in zip(results[qid], scores[qid])
                      if d != qid}

@@ -21,15 +21,17 @@ from dhr_tpu_torch.ops.partial_gip import partial_gip, partial_gip_scores
 from dhr_tpu_torch.ops.quantize import quantize_per_dim, quantize_per_dim_np
 from dhr_tpu_torch.ops.rerank_gip import rerank_gip
 from dhr_tpu_torch.ops.topk import blockwise_topk, merge_topk
+from dhr_tpu_torch.utils.profiling import counters
 
 
 def kernel_launches() -> dict:
-    """This process's launch counts of the CUDA kernels: K1
-    ``partial_gip``, K2 ``rerank_gip``, K3 ``gip_candidates`` (each
-    wrapper counts where it launches its kernel, never on the CPU)."""
-    return {"partial_gip": partial_gip.launches,
-            "rerank_gip": rerank_gip.launches,
-            "gip_candidates": gip_candidates.launches}
+    """This process's launch counts of the CUDA kernels since the
+    recorder's last reset: K1 ``partial_gip``, K2 ``rerank_gip``, K3
+    ``gip_candidates`` (each wrapper counts ``launches.<kernel>`` where it
+    launches its kernel, never on the CPU)."""
+    got = counters()
+    return {k: int(got.get(f"launches.{k}", 0))
+            for k in ("partial_gip", "rerank_gip", "gip_candidates")}
 
 
 __all__ = [

@@ -32,8 +32,10 @@ arithmetic, keeps the running maxima in registers and writes each reduced
 lane once.  Planes as K1's: each row 16-byte aligned on the card.
 
 Routing: a CPU tensor goes to :func:`gip_candidates_plain`; a CUDA tensor
-launches the kernel or raises.  ``gip_candidates.launches`` counts launches
-(one per query chunk of the plan).
+launches the kernel or raises.  The recorder's counter
+``launches.gip_candidates`` counts launches (one per query chunk of the
+plan), and the plan's reads and its gap count as K1's do
+(``ops.partial_gip``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from dhr_tpu_torch.ops.partial_gip import (
     staged_bytes,
     staging_plan,
 )
+from dhr_tpu_torch.utils import profiling
 
 LANE = 128
 # The kernel's launch limits, as csrc gip_candidates_limits reports them
@@ -178,12 +181,15 @@ def gip_candidates(imp_vals, imp_dims, imp_gates, values_T, indices_T,
                                                device=dev)
     if B == 0 or N == 0:
         return vals if packed_ids else (vals, rows)
-    if plan is None:
+    made = plan is None
+    if made:
         plan = candidates_plan(imp_vals, imp_dims, imp_gates, D, lex_dim,
                                values_T.element_size(),
                                indices_T.element_size())
     launch = _launcher()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if made:
+        profiling.record("search.plan_gap", plan.read_at)
     for c in plan.chunks:
         err = launch(
             plan.entries[c.start].data_ptr(), plan.counts[c.start].data_ptr(),
@@ -199,11 +205,8 @@ def gip_candidates(imp_vals, imp_dims, imp_gates, values_T, indices_T,
         if err:
             raise RuntimeError(f"gip_candidates kernel launch failed: CUDA "
                                f"error {err}")
-        gip_candidates.launches += 1
+        profiling.count("launches.gip_candidates")
     return vals if packed_ids else (vals, rows)
-
-
-gip_candidates.launches = 0
 
 
 def kernel_limits() -> tuple[int, int]:

@@ -24,19 +24,25 @@ on the card each row must start 16-byte aligned (``DeviceIndex`` pads the
 pitch to a multiple of 128 elements, ``retrieval.index.dim_major``).
 
 Routing: a CPU tensor goes to :func:`partial_gip_plain`; a CUDA tensor
-launches the kernel or raises.  ``partial_gip.launches`` counts launches
-(one per query chunk of the plan).
+launches the kernel or raises.  The recorder's counter
+``launches.partial_gip`` counts launches (one per query chunk of the
+plan); each read of the device's data by :func:`staging_plan` counts
+under ``search.host_reads``, and the host's time from the plan's last read
+to the first launch, when the device has nothing queued, is the span
+``search.plan_gap`` (``utils.profiling``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from dhr_tpu_torch.ops import _build
+from dhr_tpu_torch.utils import profiling
 
 VALUE_DTYPES = (torch.int8, torch.bfloat16, torch.float16, torch.float32)
 INDEX_DTYPES = (torch.int8, torch.int16)
@@ -89,13 +95,16 @@ class StagingPlan:
     ``entries`` / ``counts``: the kernel's per-query work
     (:func:`kernel_entries`); ``order``: each chunk's queries (numbered
     from its start) by their count, the order the kernel takes them in, so
-    the queries that share a warp have similar counts."""
+    the queries that share a warp have similar counts.  ``read_at``: the
+    host clock (``time.perf_counter``) as the plan's last read of the
+    device returned."""
 
     slots: torch.Tensor
     chunks: tuple[Chunk, ...]
     entries: torch.Tensor
     counts: torch.Tensor
     order: torch.Tensor
+    read_at: float = 0.0
 
 
 def staged_bytes(n_dims: int, n_lex: int, tile: int, value_bytes: int,
@@ -154,18 +163,23 @@ def staging_plan(imp_vals, imp_dims, imp_gates, dim: int, lex_dim: int,
                                      lex_dim, index_bytes)
     order = torch.argsort(counts).int()
     n_u, n_lex = torch.stack([union.sum(), union[:lex_dim].sum()]).tolist()
+    read_at = time.perf_counter()
+    profiling.count("search.host_reads")
     if pick is None:
         pick = lambda u, lx, nq, *a: pick_tile(u, lx, *a)  # noqa: E731
     fits = lambda u, lx, nq: pick(u, lx, nq, value_bytes,  # noqa: E731
                                   index_bytes, smem_bytes)
     if fits(n_u, n_lex, B) is not None:
         chunk = Chunk(0, B, dims[:n_u], n_lex, fits(n_u, n_lex, B))
-        return StagingPlan(slots, (chunk,), entries, counts, order)
+        return StagingPlan(slots, (chunk,), entries, counts, order, read_at)
     chunks = []
-    for start, stop in _split(present[:, :dim].cpu().numpy(), lex_dim,
-                              fits):
+    present_host = present[:, :dim].cpu().numpy()
+    profiling.count("search.host_reads")
+    for start, stop in _split(present_host, lex_dim, fits):
         u = present[start:stop, :dim].any(0)
         n_u, n_lex = torch.stack([u.sum(), u[:lex_dim].sum()]).tolist()
+        read_at = time.perf_counter()
+        profiling.count("search.host_reads")
         slots[start:stop] = _slot_table(u)[d[start:stop]]
         chunks.append(Chunk(start, stop,
                             torch.nonzero_static(u, size=n_u).flatten().int(),
@@ -174,7 +188,8 @@ def staging_plan(imp_vals, imp_dims, imp_gates, dim: int, lex_dim: int,
                                      lex_dim, index_bytes)
     order = torch.cat([torch.argsort(counts[c.start:c.stop]).int()
                        for c in chunks])
-    return StagingPlan(slots, tuple(chunks), entries, counts, order)
+    return StagingPlan(slots, tuple(chunks), entries, counts, order,
+                       read_at)
 
 
 def _slot_table(union: torch.Tensor) -> torch.Tensor:
@@ -306,11 +321,14 @@ def partial_gip(imp_vals, imp_dims, imp_gates, values_T, indices_T,
         return out
     if n_imp == 0:
         return out.zero_()
-    if plan is None:
+    made = plan is None
+    if made:
         plan = staging_plan(imp_vals, imp_dims, imp_gates, D, lex_dim,
                             values_T.element_size(), indices_T.element_size())
     launch = _launcher()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if made:
+        profiling.record("search.plan_gap", plan.read_at)
     for c in plan.chunks:
         err = launch(
             plan.entries[c.start].data_ptr(), plan.counts[c.start].data_ptr(),
@@ -324,11 +342,8 @@ def partial_gip(imp_vals, imp_dims, imp_gates, values_T, indices_T,
         if err:
             raise RuntimeError(f"partial_gip kernel launch failed: CUDA "
                                f"error {err}")
-        partial_gip.launches += 1
+        profiling.count("launches.partial_gip")
     return out
-
-
-partial_gip.launches = 0
 
 
 def _launcher():

@@ -23,7 +23,8 @@ never materialises the ``(B, K, D)`` gather.  It sums in its own order
 (fused multiply-adds), within ``1e-4`` relative of the plain version.
 
 Routing: a CPU tensor goes to :func:`rerank_gip_plain`; a CUDA tensor
-launches the kernel or raises.  ``rerank_gip.launches`` counts launches.
+launches the kernel or raises.  The recorder's counter
+``launches.rerank_gip`` counts launches (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from dhr_tpu_torch.ops import _build
 from dhr_tpu_torch.ops.partial_gip import INDEX_DTYPES, VALUE_DTYPES
+from dhr_tpu_torch.utils import profiling
 
 _CAND_PER_BLOCK = 128   # 8 warps x 16 candidates (csrc/rerank_gip.cu)
 _MAX_GRID = 65535
@@ -114,11 +116,8 @@ def rerank_gip(qv, qi, rows, values, indices, lex_dim: int) -> torch.Tensor:
     if err:
         raise RuntimeError(f"rerank_gip kernel launch failed: CUDA error "
                            f"{err}")
-    rerank_gip.launches += 1
+    profiling.count("launches.rerank_gip")
     return out
-
-
-rerank_gip.launches = 0
 
 
 def _launcher():

@@ -66,6 +66,7 @@ from dhr_tpu_torch.ops.pq import pq_ip_scores, pq_luts
 from dhr_tpu_torch.ops.rerank_gip import rerank_gip
 from dhr_tpu_torch.ops.topk import merge_topk
 from dhr_tpu_torch.retrieval.index import DeviceIndex
+from dhr_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -469,19 +470,25 @@ class Searcher:
                     np.zeros((0,), np.float32))
         outs = [self.search_batch(qv[s:s + bs], qv1[s:s + bs], qi[s:s + bs])
                 for s in range(0, qv.shape[0], bs)]
-        return tuple(torch.cat([o[i] for o in outs]).cpu().numpy()
-                     for i in range(3))
+        with span("search.copy_back", device=True):
+            return tuple(torch.cat([o[i] for o in outs]).cpu().numpy()
+                         for i in range(3))
 
     def search(self, query_values, query_indices=None):
         """Search a query set; returns ``(scores f32, rows int64)`` numpy.
-        ``last_timing`` covers the whole call, escalation included."""
+        ``last_timing`` covers the whole call, escalation included.  The
+        call is a ``search.call`` span of the recorder, the queries'
+        preparation a ``search.prepare`` one and the results' copy to the
+        host a ``search.copy_back`` device span (``utils.profiling``)."""
         t0 = time.perf_counter()
-        prepped = self.prepare_queries(query_values, query_indices)
-        self._warn_truncated_scan(prepped[1])
-        scores, rows, floors = self._run(prepped)
-        n_esc = 0
-        if self._tier2 is not None:
-            n_esc = self._escalate(prepped, scores, rows, floors)
+        with span("search.call"):
+            with span("search.prepare"):
+                prepped = self.prepare_queries(query_values, query_indices)
+            self._warn_truncated_scan(prepped[1])
+            scores, rows, floors = self._run(prepped)
+            n_esc = 0
+            if self._tier2 is not None:
+                n_esc = self._escalate(prepped, scores, rows, floors)
         dt = time.perf_counter() - t0
         B = scores.shape[0]
         self.last_timing = {

@@ -11,7 +11,9 @@ serve_client.py`` speaks it):
                          --query-encoder``): tokenize + encode + search in
                          one round trip
 - ``GET /healthz``       {"status": "ok", "rows": N}
-- ``GET /stats``         index and service counters
+- ``GET /stats``         index and service counters, and the quantiles of
+                         the recorder's ``serve.queue_wait`` and
+                         ``serve.encode_lock_wait`` spans
 - ``POST /admin/reload`` {"index_path": "...", "free_first": bool} (needs
                          ``serve --allow-reload``): load a new index and
                          swap it in without a restart (see
@@ -46,6 +48,8 @@ from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 
 import numpy as np
 import torch
+
+from dhr_tpu_torch.utils import profiling
 
 logger = logging.getLogger("dhr_tpu_torch.serve")
 
@@ -192,7 +196,11 @@ class MicroBatcher:
         # another client's rows
         qids, values, indices = _validate_queries(qids, values, indices)
         done = threading.Event()
-        slot: dict = {}
+        # the submit's time and the request's trace: the worker records the
+        # request's ``serve.queue_wait`` as its pool starts
+        req = profiling.current()
+        slot: dict = {"queued": (time.perf_counter(),
+                                 None if req is None else req.trace)}
         try:
             self._q.put_nowait((qids, values, indices, done, slot))
         except queue.Full:
@@ -263,6 +271,9 @@ class MicroBatcher:
                     break
                 batch.append(item)
                 n += len(item[0])
+            for _, _, _, _, slot in batch:
+                queued, trace = slot["queued"]
+                profiling.record("serve.queue_wait", queued, trace=trace)
             try:
                 self._run(batch)
             except BaseException as e:  # noqa: BLE001 - keep the worker alive
@@ -286,7 +297,8 @@ class MicroBatcher:
     def _per_request(self, batch):
         for qids, values, indices, done, slot in batch:
             try:
-                r, s = self.searcher.search_run(qids, values, indices)
+                with profiling.span("serve.search_run"):
+                    r, s = self.searcher.search_run(qids, values, indices)
                 slot["results"], slot["scores"] = r, s
             except Exception as e:  # noqa: BLE001 - reported to its caller
                 slot["error"] = e
@@ -314,7 +326,8 @@ class MicroBatcher:
                     and len(uids) <= self.small.config.query_batch):
                 engine = self.small
                 self.small_batches_run += 1
-            results, scores = engine.search_run(uids, values, indices)
+            with profiling.span("serve.search_run"):
+                results, scores = engine.search_run(uids, values, indices)
             self.batches_run += 1
             self.queries_run += len(uids)
             self.max_batch_seen = max(self.max_batch_seen, len(uids))
@@ -496,15 +509,17 @@ class SearchService:
         if self.searcher is None:
             raise ValueError("no index loaded (a free_first reload "
                              "failed); POST /admin/reload again")
-        return self.searcher.search_run(qids, values, indices)
+        with profiling.span("serve.search_run"):
+            return self.searcher.search_run(qids, values, indices)
 
     def search(self, payload: dict) -> dict:
-        values = np.asarray(payload["values"], np.float32)
-        indices = payload.get("indices")
-        if indices is not None:
-            indices = np.asarray(indices, np.int32)
-        qids = payload.get("qids") or [str(i) for i in range(len(values))]
-        results, scores = self._run(qids, values, indices)
+        with profiling.span("serve.request"):
+            values = np.asarray(payload["values"], np.float32)
+            indices = payload.get("indices")
+            if indices is not None:
+                indices = np.asarray(indices, np.int32)
+            qids = payload.get("qids") or [str(i) for i in range(len(values))]
+            results, scores = self._run(qids, values, indices)
         return {"results": results, "scores": scores}
 
     def search_text(self, payload: dict) -> dict:
@@ -514,9 +529,15 @@ class SearchService:
             )
         queries = payload["queries"]
         qids = payload.get("qids") or [str(i) for i in range(len(queries))]
-        with self._encode_lock:
-            values, indices = self.query_encoder(list(queries))
-        results, scores = self._run(qids, values, indices)
+        with profiling.span("serve.request"):
+            with profiling.span("serve.encode_lock_wait"):
+                self._encode_lock.acquire()
+            try:
+                with profiling.span("serve.encode"):
+                    values, indices = self.query_encoder(list(queries))
+            finally:
+                self._encode_lock.release()
+            results, scores = self._run(qids, values, indices)
         return {"results": results, "scores": scores}
 
     def reload(self, payload: dict) -> dict:
@@ -622,16 +643,30 @@ class SearchService:
                 small.escalated_queries if small is not None else 0)
         if self.index_loader is not None:
             out["reloads"] = self.reloads
+        if self.query_encoder is not None:
+            out["encode_lock_wait_ms"] = _quantiles_ms(
+                "serve.encode_lock_wait")
         if batcher is not None:
             out["micro_batches_run"] = batcher.batches_run
             out["micro_batch_max_queries"] = batcher.max_batch_seen
             out["queue_depth"] = batcher._q.qsize()
             out["max_pending"] = int(batcher._q.maxsize)
             out["rejects"] = batcher.rejects
+            out["queue_wait_ms"] = _quantiles_ms("serve.queue_wait")
             if small is not None:
                 out["low_latency_batches_run"] = batcher.small_batches_run
                 out["low_latency_batch"] = int(small.config.query_batch)
         return out
+
+
+def _quantiles_ms(name: str) -> dict:
+    """``{n, p50, p95}`` of the host ms of the recorder's kept ``name``
+    spans (None without any)."""
+    ms = [s.host_ms for s in profiling.spans(name)]
+    if not ms:
+        return {"n": 0, "p50": None, "p95": None}
+    p50, p95 = np.percentile(ms, [50, 95])
+    return {"n": len(ms), "p50": float(p50), "p95": float(p95)}
 
 
 def make_handler(service: SearchService):

@@ -48,6 +48,7 @@ from dhr_tpu_torch.models.retrievers import BiEncoder, Reps, RetrieverConfig
 from dhr_tpu_torch.models.transformer import RowShard
 from dhr_tpu_torch.train import loss as losses
 from dhr_tpu_torch.train.state import TrainState
+from dhr_tpu_torch.utils.profiling import span
 
 REP_FIELDS = ("dense", "lexical", "semantic", "token", "token_cls")
 
@@ -166,45 +167,42 @@ def plain_loss(model: BiEncoder, cfg: RetrieverConfig, loss_cfg: LossConfig,
                         _teacher_scores(batch, loss_cfg, teacher))
 
 
-def _no_phase(name: str) -> None:
-    pass
-
-
 def make_train_step(model: BiEncoder, cfg: RetrieverConfig,
-                    loss_cfg: LossConfig, teacher: BiEncoder | None = None,
-                    on_phase: Callable[[str], None] | None = None
+                    loss_cfg: LossConfig, teacher: BiEncoder | None = None
                     ) -> Callable:
     """The plain step: ``train_step(state, batch, seed) -> loss``.
-    ``teacher`` is an in-graph ColBERT teacher for TCT distillation.
-    ``on_phase(name)`` is called as each part of the step has been queued:
-    ``ready`` (batch on the device, gradients cleared), ``forward``,
-    ``loss``, ``backward``, ``optimizer`` (a profiler records CUDA events
-    there)."""
+    ``teacher`` is an in-graph ColBERT teacher for TCT distillation.  Each
+    step is a ``train.step`` span over its parts, each a device span of
+    the recorder (``utils.profiling``): ``train.prep`` (the batch to the
+    device, the dropout generator, the gradients cleared),
+    ``train.forward`` (the towers and the reps' gather), ``train.loss``,
+    ``train.backward`` and ``train.optimizer``."""
     if teacher is not None:
         teacher.eval()
-    mark = on_phase or _no_phase
 
     def train_step(state: TrainState, batch: dict, seed: int):
-        model.train()
-        dev = state_device(model)
-        batch = to_device(batch, dev)
-        group = state.data_group
-        gen = dropout_gen(state, seed, device=dev)
-        state.zero_grad()
-        mark("ready")
-        q_reps, p_reps = model(query=batch["query"],
-                               passage=batch["passage"], gen=gen)
-        q_reps, p_reps = gather_reps(q_reps, group), gather_reps(p_reps, group)
-        mark("forward")
-        loss, _ = compute_loss(cfg, loss_cfg, q_reps, p_reps,
-                               _teacher_scores(batch, loss_cfg, teacher,
-                                               group))
-        mark("loss")
-        loss.backward()
-        mark("backward")
-        state.apply_gradients()
-        mark("optimizer")
-        return loss.detach()
+        with span("train.step", device=True):
+            with span("train.prep", device=True):
+                model.train()
+                dev = state_device(model)
+                batch = to_device(batch, dev)
+                group = state.data_group
+                gen = dropout_gen(state, seed, device=dev)
+                state.zero_grad()
+            with span("train.forward", device=True):
+                q_reps, p_reps = model(query=batch["query"],
+                                       passage=batch["passage"], gen=gen)
+                q_reps = gather_reps(q_reps, group)
+                p_reps = gather_reps(p_reps, group)
+            with span("train.loss", device=True):
+                loss, _ = compute_loss(cfg, loss_cfg, q_reps, p_reps,
+                                       _teacher_scores(batch, loss_cfg,
+                                                       teacher, group))
+            with span("train.backward", device=True):
+                loss.backward()
+            with span("train.optimizer", device=True):
+                state.apply_gradients()
+            return loss.detach()
 
     return train_step
 

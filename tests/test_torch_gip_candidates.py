@@ -15,6 +15,7 @@ import torch
 from dhr_tpu.ops.pallas_gip import decode_packed_candidates as jax_decode
 from dhr_tpu.ops.pallas_gip import partial_gip_candidates_pallas
 from dhr_tpu.retrieval.searcher import _partial_gip_scores
+from dhr_tpu_torch.ops import kernel_launches
 from dhr_tpu_torch.ops.gip_candidates import (
     LANE,
     decode_packed_candidates,
@@ -141,10 +142,10 @@ def test_first_max_wins_on_ties():
 
 def test_cpu_tensors_take_the_plain_path(rng):
     inputs = _inputs(rng, 2, 512)
-    before = gip_candidates.launches
+    before = kernel_launches()["gip_candidates"]
     _port(inputs, 4, True)
     _port(inputs, 4, False, torch.bfloat16)
-    assert gip_candidates.launches == before
+    assert kernel_launches()["gip_candidates"] == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(rng):

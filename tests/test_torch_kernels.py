@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dhr_tpu_torch.ops import kernel_launches
 from dhr_tpu_torch.ops.gip_candidates import (
     MAX_GROUP,
     QUERY_ROWS,
@@ -101,10 +102,10 @@ def test_partial_gip_kernel_matches_plain(cuda, N, vdt, idt, out):
     qi[:, 1:lex:11] -= 1 << 16   # low 16 bits a fold's: never open
     for n_imp in (48, D):
         imp = [x.to(cuda) for x in select_important(qv, qi, n_imp)]
-        before = partial_gip.launches
+        before = kernel_launches()["partial_gip"]
         got = partial_gip(*imp, vt, it, lex, out)
         torch.cuda.synchronize()
-        assert partial_gip.launches == before + 1
+        assert kernel_launches()["partial_gip"] == before + 1
         want = partial_gip_plain(*imp, vt, it, lex, out)
         assert torch.equal(got, want)
 
@@ -120,10 +121,10 @@ def test_partial_gip_kernel_split_batch(cuda, N):
     imp = [x.to(cuda) for x in select_important(qv, qi, 48)]
     plan = staging_plan(*imp, D, lex, 1, 1, smem_bytes=16 * 2 * 64)
     assert len(plan.chunks) > 1
-    before = partial_gip.launches
+    before = kernel_launches()["partial_gip"]
     got = partial_gip(*imp, vt, it, lex, torch.float32, plan=plan)
     torch.cuda.synchronize()
-    assert partial_gip.launches == before + len(plan.chunks)
+    assert kernel_launches()["partial_gip"] == before + len(plan.chunks)
     assert torch.equal(got, partial_gip_plain(*imp, vt, it, lex))
 
 
@@ -153,11 +154,11 @@ def test_rerank_gip_kernel_matches_plain(cuda, K, vdt, idt):
         np.random.default_rng(2).integers(0, N, (B, K)).astype(np.int64))
     rows[0, 0] = N       # out of range: never read, scores -inf
     rows[1, 1] = -1
-    before = rerank_gip.launches
+    before = kernel_launches()["rerank_gip"]
     got = rerank_gip(qv.to(cuda), qi.to(cuda), rows.to(cuda),
                      values.to(cuda), indices.to(cuda), lex)
     torch.cuda.synchronize()
-    assert rerank_gip.launches == before + 1
+    assert kernel_launches()["rerank_gip"] == before + 1
     want = rerank_gip_plain(qv, qi, rows, values, indices, lex)
     _close(got, want, 1e-4)
 
@@ -180,10 +181,10 @@ def test_gip_candidates_kernel_matches_plain(cuda, N, vdt, idt, G, packed,
     for n_imp in (12, D):
         imp = select_important(qv, qi, n_imp)
         imp_d = [x.to(cuda) for x in imp]
-        before = gip_candidates.launches
+        before = kernel_launches()["gip_candidates"]
         got = gip_candidates(*imp_d, vt_d, it_d, lex, G, packed, out)
         torch.cuda.synchronize()
-        assert gip_candidates.launches == before + 1
+        assert kernel_launches()["gip_candidates"] == before + 1
         want = gip_candidates_plain(*imp, vt, it, lex, G, packed, out)
         if packed:
             assert torch.equal(got.cpu().view(torch.int32),
@@ -219,10 +220,10 @@ def test_rerank_gip_kernel_full_width(cuda, D, vdt, idt):
         np.random.default_rng(5).integers(0, N, (B, K)).astype(np.int64))
     rows[0, 0], rows[1, 17], rows[2, K - 1] = N, -1, 1 << 40
     qv, qi, rows = qv.to(cuda), qi.to(cuda), rows.to(cuda)
-    before = rerank_gip.launches
+    before = kernel_launches()["rerank_gip"]
     got = rerank_gip(qv, qi, rows, values, indices, lex)
     torch.cuda.synchronize()
-    assert rerank_gip.launches == before + 1
+    assert kernel_launches()["rerank_gip"] == before + 1
     want = rerank_gip_plain(qv, qi, rows, values, indices, lex)
     assert bool(torch.isneginf(got[[0, 1, 2], [0, 17, K - 1]]).all())
     _close(got, want, 1e-4)
@@ -248,10 +249,10 @@ def test_gip_candidates_kernel_full_width(cuda, N, G, split):
     if G & (G - 1) == 0:
         forms.append((True, torch.float32))
     for packed, out in forms:
-        before = gip_candidates.launches
+        before = kernel_launches()["gip_candidates"]
         got = gip_candidates(*imp, vt, it, lex, G, packed, out, plan=plan)
         torch.cuda.synchronize()
-        assert gip_candidates.launches == before + len(plan.chunks)
+        assert kernel_launches()["gip_candidates"] == before + len(plan.chunks)
         want = gip_candidates_plain(*imp, vt, it, lex, G, packed, out)
         if packed:
             assert torch.equal(got.view(torch.int32), want.view(torch.int32))

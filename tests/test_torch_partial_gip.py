@@ -9,7 +9,8 @@ import torch
 from dhr_tpu.ops import gip_scores_masked, pad_indices_for_cls
 from dhr_tpu.ops.pallas_gip import partial_gip_scores_pallas
 from dhr_tpu.retrieval.searcher import _partial_gip_scores
-from dhr_tpu_torch.ops.partial_gip import partial_gip, partial_gip_scores
+from dhr_tpu_torch.ops import kernel_launches
+from dhr_tpu_torch.ops.partial_gip import partial_gip_scores
 
 
 def _inputs(rng, B, N, lex, cls, k, idx_dtype=np.int8):
@@ -101,10 +102,10 @@ def test_plain_k1_ragged_rows(rng, N):
 
 def test_cpu_tensors_take_the_plain_path(rng):
     qv, qi, vt, it = _inputs(rng, 2, 64, 8, 2, 3)
-    before = partial_gip.launches
+    before = kernel_launches()["partial_gip"]
     _port(qv, qi, vt, it, 8, 4)
     _port(qv, qi, vt, it, 8, 10, torch.bfloat16)
-    assert partial_gip.launches == before
+    assert kernel_launches()["partial_gip"] == before
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(rng):

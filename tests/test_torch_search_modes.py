@@ -23,9 +23,8 @@ from dhr_tpu.retrieval import PackedIndex as JaxPacked
 from dhr_tpu.retrieval import SearchConfig as JaxConfig
 from dhr_tpu.retrieval import Searcher as JaxSearcher
 from dhr_tpu.retrieval import calibrate_pool as jax_calibrate_pool
+from dhr_tpu_torch.ops import kernel_launches
 from dhr_tpu_torch.ops import pq as tpq
-from dhr_tpu_torch.ops.gip_candidates import gip_candidates
-from dhr_tpu_torch.ops.partial_gip import partial_gip
 from dhr_tpu_torch.retrieval import (
     DeviceIndex,
     PackedIndex,
@@ -104,10 +103,10 @@ def test_fused_search_matches_reference(rng, G, approx):
                candidate_slices=4 if approx else "auto")
     jax_extra = dict(use_pallas=True, pallas_interpret=True,
                      pallas_n_tile=1024, candidate_recall=0.99)
-    before = gip_candidates.launches, partial_gip.launches
+    before = kernel_launches()
     got, want, searcher = _both(packed, qv, qi, jax_extra=jax_extra, **cfg)
     assert searcher._fused and searcher._packed_ids
-    assert (gip_candidates.launches, partial_gip.launches) == before
+    assert kernel_launches() == before
     _assert_rankings_equal(got[0][:, :10], got[1][:, :10],
                            want[0][:, :10], want[1][:, :10])
 

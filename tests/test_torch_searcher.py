@@ -20,8 +20,7 @@ from dhr_tpu.retrieval import PackedIndex as JaxPacked
 from dhr_tpu.retrieval import SearchConfig as JaxConfig
 from dhr_tpu.retrieval import Searcher as JaxSearcher
 from dhr_tpu.retrieval import write_run as jax_write_run
-from dhr_tpu_torch.ops.partial_gip import partial_gip
-from dhr_tpu_torch.ops.rerank_gip import rerank_gip
+from dhr_tpu_torch.ops import kernel_launches
 from dhr_tpu_torch.retrieval import (
     DeviceIndex,
     PackedIndex,
@@ -102,13 +101,13 @@ def test_theta_rerank_bf16_candidates_final_ranking(world):
     jidx, tidx, qv, qi = world
     cfg = SearchConfig(theta=0.3, rerank=True, agip_topk=AGIP, topk=TOPK,
                        max_important_dims=24, query_batch=16)
-    before = (partial_gip.launches, rerank_gip.launches)
+    before = kernel_launches()
     s16, r16 = Searcher(tidx, cfg, device="cpu").search(qv, qi)
     s32, r32 = Searcher(tidx, dataclasses.replace(cfg, candidate_bf16=False),
                         device="cpu").search(qv, qi)
     overlap = np.mean([len(set(a) & set(b)) / TOPK for a, b in zip(r16, r32)])
     assert overlap >= 0.99
-    assert (partial_gip.launches, rerank_gip.launches) == before
+    assert kernel_launches() == before
 
 
 def test_trec_run_matches_reference(world, tmp_path):
@@ -167,12 +166,12 @@ def test_empty_query_set_returns_zero_rows(world, cfg):
     """0 queries: (0, topk) f32 scores and int64 rows, no kernel launched;
     the reference also returns (0, topk)."""
     jidx, tidx, qv, qi = world
-    before = (partial_gip.launches, rerank_gip.launches)
+    before = kernel_launches()
     s, r = Searcher(tidx, SearchConfig(**cfg), device="cpu").search(
         qv[:0], qi[:0])
     assert s.shape == r.shape == (0, TOPK)
     assert s.dtype == np.float32 and r.dtype == np.int64
-    assert (partial_gip.launches, rerank_gip.launches) == before
+    assert kernel_launches() == before
     js, jr = JaxSearcher(jidx, JaxConfig(**cfg)).search(qv[:0], qi[:0])
     assert np.asarray(js).shape == np.asarray(jr).shape == (0, TOPK)
 

@@ -10,7 +10,8 @@ cases (``tests/test_serve.py``) on the port: coalescing and demux, overflow
 carry, mixed widths, duplicate qids, 503 shedding, token refusal, reload
 under load, free-first release / failure / recovery, the listen backlog,
 ``tools/serve_client.py`` unchanged, a serialised query encoder under
-concurrent text requests, and the ``serve`` verb in-process (stub
+concurrent text requests, the recorder's queue and encoder-lock waits in
+``/stats``, and the ``serve`` verb in-process (stub
 tokenizer) and as a process stopped by SIGINT.
 """
 
@@ -63,6 +64,7 @@ from dhr_tpu_torch.serve import (
     SearchService,
     make_handler,
 )
+from dhr_tpu_torch.utils import profiling
 from tests.test_torch_models import OUT, REMOVE, batch, configs, flax_tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -194,9 +196,21 @@ def test_search_matches_reference_service(rng, name, micro_batch_ms):
         for p in payloads:
             _assert_same_results(_post(tp, "/search", p),
                                  _post(jp, "/search", p))
-        assert _get(tp, "/stats") == _get(jp, "/stats")
+        assert _shared(_get(tp, "/stats")) == _get(jp, "/stats")
         assert _get(tp, "/healthz") == _get(jp, "/healthz")
     assert port.stats()["sharded_over"] == 1
+
+
+def _shared(stats: dict) -> dict:
+    """The port's ``/stats`` without the keys the reference lacks (the
+    recorder's wait quantiles), each checked for its shape."""
+    out = dict(stats)
+    for key in ("queue_wait_ms", "encode_lock_wait_ms"):
+        if key in out:
+            q = out.pop(key)
+            assert set(q) == {"n", "p50", "p95"}
+            assert q["n"] == 0 or 0 <= q["p50"] <= q["p95"]
+    return out
 
 
 def test_stats_match_reference_with_both_routes_and_escalation(rng):
@@ -222,7 +236,7 @@ def test_stats_match_reference_with_both_routes_and_escalation(rng):
                     "indices": qi[:1].tolist()})  # low-latency route
         svc.search({"qids": ["a", "b", "c"], "values": qv.tolist(),
                     "indices": qi.tolist()})     # main route
-    assert port.stats() == ref.stats()
+    assert _shared(port.stats()) == ref.stats()
     assert port.stats()["escalated_queries"] == 4
     assert port.stats()["low_latency_batches_run"] == 1
 
@@ -241,7 +255,7 @@ def test_reload_matches_reference(rng, tmp_path):
         body = {"index_path": path, "free_first": free_first}
         assert port.reload(body) == ref.reload(body)
         _assert_same_results(port.search(p), ref.search(p))
-        assert port.stats() == ref.stats()
+        assert _shared(port.stats()) == ref.stats()
     assert port.search(p)["results"]["a"][0] == "new0"
 
 
@@ -349,6 +363,75 @@ def test_search_text_serialises_the_encoder_under_concurrent_requests():
     assert max(seen) == 1 and len(seen) == 12
     for i in range(12):
         assert got[i]["results"]["q"] == want[i]
+
+
+def test_queue_wait_and_encode_lock_wait_reach_stats(rng):
+    """A searcher that holds its first pool makes the second request wait
+    in the queue: ``serve.queue_wait`` records that wait on the worker
+    under the request's own trace, and ``/stats`` reports it and the
+    encoder lock's wait."""
+    packed = _packed(rng, 32, "d")
+    real = _searcher(packed, topk=5, theta=0.0, query_batch=1)
+    entered, release = threading.Event(), threading.Event()
+
+    class Holding:
+        config, index, escalated_queries = real.config, real.index, 0
+
+        def search_run(self, qids, values, indices):
+            entered.set()
+            assert release.wait(30)
+            return real.search_run(qids, values, indices)
+
+    service = SearchService(Holding(), micro_batch_ms=0.5,
+                            query_encoder=lambda qs: _q(packed,
+                                                        [0] * len(qs)))
+    qv, qi = _q(packed, [1])
+    profiling.reset()
+    out = {}
+    with running(service) as port:
+        first = threading.Thread(target=lambda: out.setdefault(
+            "text", _post(port, "/search_text",
+                          {"queries": ["a"], "qids": ["a"]})))
+        second = threading.Thread(target=lambda: out.setdefault(
+            "vec", _post(port, "/search", {"values": qv.tolist(),
+                                           "indices": qi.tolist(),
+                                           "qids": ["b"]})))
+        first.start()
+        assert entered.wait(30)
+        second.start()
+        deadline = time.monotonic() + 30
+        while service.batcher._q.qsize() == 0:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        time.sleep(0.05)
+        release.set()
+        for t in (first, second):
+            t.join(30)
+            assert not t.is_alive()
+        stats = _get(port, "/stats")
+    assert out["text"]["results"]["a"][0] == "d0"
+    assert out["vec"]["results"]["b"][0] == "d1"
+    waits = profiling.spans("serve.queue_wait")
+    requests = profiling.spans("serve.request")
+    assert len(waits) == len(requests) == 2
+    assert sorted(w.trace for w in waits) == sorted(r.trace
+                                                    for r in requests)
+    assert all(w.thread == service.batcher._worker.ident for w in waits)
+    by_trace = {w.trace: w for w in waits}
+    held = by_trace[max(requests, key=lambda r: r.start).trace]
+    assert held.host_ms >= 50
+    ms = [w.host_ms for w in waits]
+    assert stats["queue_wait_ms"] == {
+        "n": 2, "p50": pytest.approx(float(np.percentile(ms, 50))),
+        "p95": pytest.approx(float(np.percentile(ms, 95)))}
+    locks = profiling.spans("serve.encode_lock_wait")
+    assert len(locks) == 1 and stats["encode_lock_wait_ms"]["n"] == 1
+    assert stats["encode_lock_wait_ms"]["p50"] == pytest.approx(
+        locks[0].host_ms)
+    assert len(profiling.spans("serve.encode")) == 1
+    assert len(profiling.spans("serve.search_run")) == 2
+    service.close()
+    profiling.reset()
 
 
 # --------------------------------------------------- behavioural cases --

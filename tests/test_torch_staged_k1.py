@@ -17,6 +17,7 @@ import torch
 
 from dhr_tpu.ops.pallas_gip import partial_gip_scores_pallas
 from dhr_tpu.retrieval.searcher import _partial_gip_scores
+from dhr_tpu_torch.ops import kernel_launches
 from dhr_tpu_torch.ops.partial_gip import (
     SMEM_BYTES,
     SMEM_TWO_BLOCKS,
@@ -285,7 +286,7 @@ def test_plan_argument_on_the_cpu_takes_the_plain_path(rng):
     imp = _imp(qv, qi, 4)
     vt, it = torch.from_numpy(vt), torch.from_numpy(it)
     plan = staging_plan(*imp, 10, 8, 4, 1)
-    before = partial_gip.launches
+    before = kernel_launches()["partial_gip"]
     got = partial_gip(*imp, vt, it, 8, torch.float32, plan=plan)
-    assert partial_gip.launches == before
+    assert kernel_launches()["partial_gip"] == before
     assert torch.equal(got, partial_gip_plain(*imp, vt, it, 8))

@@ -20,6 +20,7 @@ import torch
 
 from dhr_tpu.ops.pallas_gip import partial_gip_candidates_pallas
 from dhr_tpu.retrieval.searcher import _partial_gip_scores
+from dhr_tpu_torch.ops import kernel_launches
 from dhr_tpu_torch.ops.gip_candidates import (
     LANE,
     QUERY_ROWS,
@@ -303,9 +304,9 @@ def test_plan_argument_on_the_cpu_takes_the_plain_path(rng):
     imp = _imp(qv, qi, 4)
     vt, it = torch.from_numpy(vt), torch.from_numpy(it)
     plan = candidates_plan(*imp, 10, 8, 4, 1)
-    before = gip_candidates.launches
+    before = kernel_launches()["gip_candidates"]
     got = gip_candidates(*imp, vt, it, 8, 4, True, plan=plan)
-    assert gip_candidates.launches == before
+    assert kernel_launches()["gip_candidates"] == before
     _equal(got, gip_candidates_plain(*imp, vt, it, 8, 4, True), True)
 
 

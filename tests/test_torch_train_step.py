@@ -269,21 +269,30 @@ def test_grad_cache_refuses_chunks_that_do_not_divide_the_batch(q_chunks,
 
 
 def test_plain_step_marks_its_phases_in_order():
-    """``make_train_step`` calls ``on_phase`` after each part, around the
-    same loss and update as ``plain_loss`` then ``apply_gradients``."""
+    """``make_train_step`` records its five parts as spans, in order, under
+    one ``train.step`` of the same trace, around the same loss and update
+    as ``plain_loss`` then ``apply_gradients``."""
     from dhr_tpu_torch.train.state import TrainState
+    from dhr_tpu_torch.utils import profiling
 
     jcfg, tcfg = configs(FAMILIES["dhr"])
     tree = flax_tree(jcfg, 11)
     loss_cfg = LossConfig(n_passages=N_PSG, remove_dims=REMOVE)
     opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10)
     batch = plain_batch(12)
-    marks = []
     model = port_model(tcfg, tree)
     state = TrainState.create(model, opt)
-    loss = tstep.make_train_step(model, tcfg, loss_cfg,
-                                 on_phase=marks.append)(state, batch, 0)
-    assert marks == ["ready", "forward", "loss", "backward", "optimizer"]
+    profiling.reset()
+    loss = tstep.make_train_step(model, tcfg, loss_cfg)(state, batch, 0)
+    [step] = profiling.spans("train.step")
+    parts = ["train.prep", "train.forward", "train.loss", "train.backward",
+             "train.optimizer"]
+    got = [s for name in parts for s in profiling.spans(name)]
+    assert [s.name for s in got] == parts
+    assert all(s.parent == step.id and s.trace == step.trace == step.id
+               for s in got)
+    assert step.start <= got[0].start and got[-1].end <= step.end
+    assert all(a.end <= b.start for a, b in zip(got, got[1:]))
     ref = port_model(tcfg, tree)
     ref_state = TrainState.create(ref, opt)
     want, _ = port_loss_and_grads(ref, lambda: tstep.plain_loss(
