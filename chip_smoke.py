@@ -94,7 +94,10 @@ and (c) ``serve --shard-over-devices`` (64 requests equal to
 ``search_run``, SIGINT) on the densified index.
 
 It checks each path's kernel launch counts and its staged-vs-exact ranking
-agreement.  On a 204,803-row slice it also holds the other search modes
+agreement.  K4, the lexical head's pool, runs wherever a model in eval mode
+encodes without autograd (encode, eval, family, bert, serve, the
+rehearsal's verbs), never in a train step; ``k4_vs_plain`` holds it against its plain version and times it at
+the encode cell's batch.  On a 204,803-row slice it also holds the other search modes
 (row-chunked ip, pq, two-tier escalation) on the card against the same
 search on the CPU's plain path, and on the full index it times ip (dim- and
 row-major) and pq (m=64) with rerank.
@@ -130,6 +133,7 @@ TPU_AGREEMENT = {"10": 1.0, "100": 0.9994, "1000": 0.9969}  # BENCH_r05.json
 K1_SOURCE = "dhr_tpu_torch/csrc/partial_gip.cu"
 K2_SOURCE = "dhr_tpu_torch/csrc/rerank_gip.cu"
 K3_SOURCE = "dhr_tpu_torch/csrc/gip_candidates.cu"
+K4_SOURCE = "dhr_tpu_torch/csrc/lexical_pool.cu"
 SMALL_ROWS = 204_803
 H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 ENCODE_PASSAGES = 32_768
@@ -399,8 +403,9 @@ def _encode_corpus(root, seed, np):
 
 def _encode_user_path(root, seed, torch, np):
     """encode (corpus, bf16, batch 32) -> encode --encode-is-qry -> index
-    --quantize -> search at the bench point, through the CLI; K1 and K2
-    must launch.  Then the exact brute force for the agreement."""
+    --quantize -> search at the bench point, through the CLI; K4 must
+    launch once a batch of the two encodes, K1 and K2 in the search.  Then
+    the exact brute force for the agreement."""
     corpus, queries, toks, lens, _ = _encode_corpus(root, seed, np)
     model = ["--model", "dhr", "--add-pooler", "--projection-dim", "128",
              "--dlr-out-dim", str(LEX_DIM), "--batch-size", "32"]
@@ -411,15 +416,23 @@ def _encode_user_path(root, seed, torch, np):
                     f"{root}/corpus.npz"], "encode")
     t_q = _run_cli(["encode", *model, "--input", queries, "--output",
                     f"{root}/q.npz", "--encode-is-qry"], "encode")
+    encode_launches = read_launches()
+    batches = -(-ENCODE_PASSAGES // 32) + -(-ENCODE_QUERIES // 32)
+    if encode_launches != {"partial_gip": 0, "rerank_gip": 0,
+                           "gip_candidates": 0, "lexical_pool": batches}:
+        raise AssertionError(f"encode launches {encode_launches}: K4 "
+                             f"{batches} times (once a batch), K1-K3 never")
+    reset_launches()
     _run_cli(["index", "--inputs", f"{root}/corpus.npz", "--output",
               f"{root}/index.npz", "--quantize"])
     t_s = _run_cli([*search, "--theta", "0.3", "--max-important-dims", "48",
                     "--agip-topk", "10000", "--rerank", "--output",
                     f"{root}/run.trec"], "search")
     launches = read_launches()
-    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
+    if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0
+            and launches["lexical_pool"] == 0):
         raise AssertionError(f"encode path launches {launches}: K1 and K2 "
-                             "must launch")
+                             "must launch, K4 not")
     reset_launches()
     _run_cli([*search, "--brute-force", "--exact-candidates",
               "--no-candidate-bf16", "--output", f"{root}/exact.trec"],
@@ -459,7 +472,8 @@ def _encode_user_path(root, seed, torch, np):
         "passages_per_s_cli_b32": t_p["items_per_s"],
         "encode_wall_s_cli_b32": t_p["encode_wall_s"],
         "queries_per_s_cli_encode": t_q["items_per_s"],
-        "search_qps": t_s["qps"], "launches": launches,
+        "search_qps": t_s["qps"], "encode_launches": encode_launches,
+        "launches": launches,
         "exact_launches": exact_launches, "planes": shapes,
         "staged_vs_brute_force_informative_only": agree,
     }, toks
@@ -548,10 +562,11 @@ def _encode_timing(tree, toks, torch, np):
                     lambda: [t.cpu() for t in enc.planes(reps)
                              if t is not None], 5, torch),
             }
-        # the head runs on positions 1..127; its composite passes over the
-        # (B, 127, V) plane: logits written (bf16), the bias add read and
-        # written (bf16), softmax read (bf16) and written (f32), the
-        # weighting read and written (f32), the max read (f32)
+        # the head runs on positions 1..127; the eager chain's passes over
+        # the (B, 127, V) plane (logits written (bf16), the bias add read
+        # and written (bf16), softmax read (bf16) and written (f32), the
+        # weighting read and written (f32), the max read (f32)) against
+        # the projection written and K4's two reads (bf16)
         t_flops = bs * 128 * transformer_flops_per_token(128)
         h_flops = bs * 127 * head_flops_per_token()
         stage.update({
@@ -560,8 +575,9 @@ def _encode_timing(tree, toks, torch, np):
             * 1e3,
             "head_tflops": h_flops / stage["mlm_head_softmax_max"] / 1e9,
             "head_flop_bound_ms": h_flops / H100_BF16_FLOPS_PER_S * 1e3,
-            "head_plane_passes_gb": bs * 127 * 30522 * (2 + 4 + 6 + 8 + 4)
-            / 1e9,
+            "head_plane_passes_gb_eager_chain": bs * 127 * 30522
+            * (2 + 4 + 6 + 8 + 4) / 1e9,
+            "head_plane_passes_gb_k4": bs * 127 * 30522 * (2 + 2 + 2) / 1e9,
         })
         out[f"b{bs}_stage_ms_per_batch_padded128"] = stage
         out[f"b{bs}_split_ms_padded128"] = _encode_split(e, hidden, x, m,
@@ -573,15 +589,21 @@ def _encode_timing(tree, toks, torch, np):
 
 def _encode_split(e, hidden, x, m, torch):
     """Where a padded batch's device time goes, by CUDA events: one layer
-    and its attention; the head's passes one by one (the logits GEMM with
-    its bias add, the f32 softmax, the weighting, the max over positions);
-    and the host's time to enqueue the whole transformer, which, near its
-    device time, says the host holds the card back."""
+    and its attention; the head as it runs (the projection, K4's pool) and
+    the eager chain's passes one by one (the logits GEMM with its bias add,
+    the f32 softmax, the weighting, the max over positions); and the
+    host's time to enqueue the whole transformer, which, near its device
+    time, says the host holds the card back."""
     import torch.nn.functional as F
+
+    from dhr_tpu_torch.ops.lexical_pool import lexical_pool
 
     layer = e.backbone.encoder.layers[0]
     bias = torch.where(m[:, None, None, :] > 0, 0.0, -1e9).to(hidden.dtype)
     with torch.inference_mode():
+        proj = e.backbone.projection(hidden[:, 1:])
+        w_pos = (e.term_weight(hidden[:, 1:])[..., 0].float()
+                 * m[:, 1:].float())
         logits = e.backbone.logits(hidden[:, 1:])
         probs = torch.softmax(logits, dim=-1, dtype=torch.float32)
         w = (e.term_weight(hidden[:, 1:]).float()
@@ -592,6 +614,11 @@ def _encode_split(e, hidden, x, m, torch):
                 lambda: layer.attention(hidden, bias), 5, torch),
             "one_layer_ffn_gelu": cuda_ms(
                 lambda: layer.ffn_out(F.gelu(layer.ffn_in(hidden))), 5,
+                torch),
+            "head_projection": cuda_ms(
+                lambda: e.backbone.projection(hidden[:, 1:]), 5, torch),
+            "head_lexical_pool_k4": cuda_ms(
+                lambda: lexical_pool(proj, e.backbone.mlm.bias, w_pos), 5,
                 torch),
             "head_logits_and_bias": cuda_ms(
                 lambda: e.backbone.logits(hidden[:, 1:]), 5, torch),
@@ -618,7 +645,8 @@ def phase_encode_path(args, torch):
     DHR head: 768 lexical dims + a 128-dim CLS projection), random weights
     from ``--seed`` in the Flax layout loaded by ``load_flax_params``:
     card against CPU, the user path through the CLI (encode -> index ->
-    search, K1 and K2 launched), and the Encoder's speed."""
+    search, K4, K1 and K2 launched), and the Encoder's speed.  Returns the
+    user path's launches (its encodes' and its search's)."""
     import tempfile
 
     import numpy as np
@@ -641,6 +669,8 @@ def phase_encode_path(args, torch):
           "seconds": {"card_vs_cpu": t1 - t0, "user_path": t2 - t1,
                       "timing": time.perf_counter() - t2}})
     torch.cuda.empty_cache()
+    return {k: user["encode_launches"][k] + user["launches"][k]
+            for k in user["launches"]}
 
 
 # --------------------------------------------------------------------------
@@ -786,7 +816,8 @@ def _packed_and_grad_cache_vs_plain(tree, groups, toks, torch):
     1e-4 and every tensor's gradient within 1e-3 (L2, relative); for
     grad-cache at 4 / 8, whose chunks change the GEMM shapes and so the
     rounding that decides near-tie folds, within 1e-2 (its 1 / 1 twin, the
-    same two passes at the plain shapes, holds 1e-3)."""
+    same two passes at the plain shapes, holds 1e-3).  K4 must not launch:
+    a train step's no-grad pass 1 keeps the eager head, as its pass 2."""
     from dhr_tpu_torch.models import BiEncoder, load_flax_params
     from dhr_tpu_torch.train.step import (
         LossConfig, grad_cache_backward, packed_loss, plain_loss, to_device)
@@ -806,6 +837,7 @@ def _packed_and_grad_cache_vs_plain(tree, groups, toks, torch):
              1e-3),
             ("grad_cache", (4, 8), 1e-2), ("grad_cache_1_1", (1, 1), 1e-3))
     grads, losses = {}, {}
+    reset_launches()
     for name, fn, _ in runs:
         model.zero_grad(set_to_none=True)
         if isinstance(fn, tuple):
@@ -815,6 +847,9 @@ def _packed_and_grad_cache_vs_plain(tree, groups, toks, torch):
             loss.backward()
         losses[name] = loss.item()
         grads[name] = _grads(model)
+    res["lexical_pool_launches"] = read_launches()["lexical_pool"]
+    if res["lexical_pool_launches"]:
+        raise AssertionError(f"train steps launched K4: {res}")
     for name, _, tol in runs[1:]:
         worst = {}
         l2, mx = _grad_rel_diff(grads[name], grads["plain"], worst)
@@ -1568,6 +1603,91 @@ def phase_k3(index, queries, torch):
     return worst
 
 
+def _pool_inputs(B, T, V, dtype, torch, pitch=None, full=False, seed=0):
+    """A projection plane (B, T, V) of ``dtype`` at row pitch ``pitch``,
+    its bias and weights (term weights about 1, every third of the first
+    passage's negative, a ragged mask unless ``full``) on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    proj = (torch.randn(B, T, pitch or V, generator=g, device="cuda") * 3
+            ).to(dtype)[..., :V]
+    bias = torch.randn(V, generator=g, device="cuda").to(dtype)
+    tw = torch.randn(B, T, generator=g, device="cuda") * 0.5 + 1
+    tw[0, ::3] = -tw[0, ::3].abs()
+    lengths = (torch.full((B,), T, device="cuda") if full else
+               torch.randint(1, T + 1, (B,), generator=g, device="cuda"))
+    mask = torch.arange(T, device="cuda")[None] < lengths[:, None]
+    return proj, bias, tw * mask.float()
+
+
+def phase_k4(torch):
+    """K4 vs plain: the encode cell's batch (256, 79, 30,522), (1, 7),
+    (3, 511), an odd pitch (element loads) in bf16, and f16 / f32 at a
+    small shape, ragged masks and negative term weights; each value within
+    3e-5 of its own magnitude (sums of exponentials in another order).
+    Then, at the cell's batch with every position live, K4's ms beside its
+    bound (one read of the bf16 plane and the (B, V) f32 write at
+    3.35 TB/s), the plain version's, and the head before and after: the
+    MLM transform, the projection and the pool, against today's chain of
+    passes (logits with the bias, f32 softmax, weighting, max)."""
+    import torch.nn.functional as F
+
+    from dhr_tpu_torch.models.transformer import EncoderConfig, MLMHead
+    from dhr_tpu_torch.ops.lexical_pool import (
+        lexical_pool, lexical_pool_plain)
+
+    rtol, worst, cases = 3e-5, 0.0, 0
+    for B, T, V, pitch, dt in (
+            (256, 79, 30522, None, torch.bfloat16),
+            (1, 7, 30522, None, torch.bfloat16),
+            (3, 511, 30522, None, torch.bfloat16),
+            (4, 33, 30522, 30525, torch.bfloat16),
+            (3, 17, 30522, None, torch.float16),
+            (3, 17, 30522, None, torch.float32)):
+        proj, bias, w = _pool_inputs(B, T, V, dt, torch, pitch)
+        got = lexical_pool(proj, bias, w)
+        want = lexical_pool_plain(proj, bias, w)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        if not torch.allclose(got, want, rtol=rtol, atol=1e-30):
+            raise AssertionError(f"lexical_pool {(B, T, V, pitch, dt)}: "
+                                 f"max relative gap {rel}")
+        worst, cases = max(worst, rel), cases + 1
+        del proj, bias, w, got, want
+
+    B, T, V, H = 256, 79, 30522, 768
+    proj, bias, w = _pool_inputs(B, T, V, torch.bfloat16, torch, full=True)
+    ms = cuda_ms(lambda: lexical_pool(proj, bias, w), 20, torch)
+    plain_ms = cuda_ms(lambda: lexical_pool_plain(proj, bias, w), 3, torch)
+    nbytes = B * T * V * 2 + V * 2 + B * T * 4 + B * V * 4
+    del proj
+    head = MLMHead(EncoderConfig(), tied=False).cuda()
+    head.decoder.to(torch.bfloat16)
+    head.transform.to(torch.bfloat16)
+    head.bias.data = bias
+    hidden = torch.randn(B, T, H, device="cuda").to(torch.bfloat16)
+    tw = w[..., None]
+    with torch.inference_mode():
+        chain_ms = cuda_ms(lambda: torch.softmax(
+            head(hidden), dim=-1, dtype=torch.float32).mul_(tw).amax(-2),
+            3, torch)
+        head_ms = cuda_ms(lambda: lexical_pool(head.projection(hidden),
+                                               head.bias, w), 5, torch)
+        gemm_ms = cuda_ms(lambda: F.linear(hidden, head.decoder.weight), 5,
+                          torch)
+    out = {"phase": "k4_vs_plain", "cases": cases, "max_rel_err": worst,
+           "tol": f"rtol {rtol} (f32 sums of exponentials in another "
+                  "order)",
+           "shape": [B, T, V], "bytes_each_input_once": nbytes,
+           "head_ms_now": head_ms, "head_ms_chain_before": chain_ms,
+           "vocab_gemm_ms": gemm_ms}
+    kernel = {"max_rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "library_ms": None, "chain_ms": chain_ms}
+    emit({**out, **kernel})
+    return kernel
+
+
 def phase_search_vs_plain(index, queries_raw, torch):
     """The whole search on the card against the same search on the CPU's
     plain PyTorch path, over the 204,803-row corpus: same final scores at
@@ -1718,7 +1838,7 @@ def phase_modes_full(searcher, queries, torch):
         reset_launches()
         qps, scores, rows = timed_passes(s, qv, qf, n_passes - 1)
         launches = read_launches()
-        want = {"partial_gip": 0, "gip_candidates": 0,
+        want = {"partial_gip": 0, "gip_candidates": 0, "lexical_pool": 0,
                 "rerank_gip": n_passes * -(-qv.shape[0] // base.query_batch)}
         if launches != want:
             raise AssertionError(f"{name} launches {launches}, expected "
@@ -1815,9 +1935,11 @@ def phase_main(args, torch):
     want_launches = n_passes * -(-args.queries // cfg.query_batch)
     emit({"phase": "kernels", "path": "main", "launches": launches,
           "expected": {"partial_gip": want_launches,
-                       "rerank_gip": want_launches, "gip_candidates": 0}})
+                       "rerank_gip": want_launches, "gip_candidates": 0,
+                       "lexical_pool": 0}})
     if launches != {"partial_gip": want_launches,
-                    "rerank_gip": want_launches, "gip_candidates": 0}:
+                    "rerank_gip": want_launches, "gip_candidates": 0,
+                    "lexical_pool": 0}:
         raise AssertionError(f"main path launches {launches}, expected K1 "
                              f"and K2 {want_launches} times, K3 never")
     check_result(scores, rows, args.queries, cfg.topk, args.rows)
@@ -1831,7 +1953,7 @@ def phase_main(args, torch):
     emit({"phase": "kernels", "path": "exact_brute_force",
           "launches": exact_launches})
     if exact_launches != {"partial_gip": 1, "rerank_gip": 0,
-                          "gip_candidates": 0}:
+                          "gip_candidates": 0, "lexical_pool": 0}:
         raise AssertionError(f"exact search launches {exact_launches}, "
                              "expected K1 once, K2 and K3 never")
     agree = agreement(rows[:n_agree], erows)
@@ -1892,7 +2014,7 @@ def phase_fused(searcher, queries, torch):
     launches = read_launches()
     n_batches = n_passes * -(-qv.shape[0] // cfg.query_batch)
     want = {"partial_gip": 0, "rerank_gip": n_batches,
-            "gip_candidates": n_batches}
+            "gip_candidates": n_batches, "lexical_pool": 0}
     emit({"phase": "kernels", "path": "fused", "launches": launches,
           "expected": want})
     if launches != want:
@@ -3135,7 +3257,8 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
     ``--IP``; dlr theta 0.3 with rerank and theta 0, K1 and K2 launched)
     -> ``eval``; the eval-mode loss of the first 96 queries must fall, and
     the exact run must equal the CPU's brute force on 4 queries.  Returns
-    the report and the K1 / K2 / K3 launches."""
+    the report and the launches: K4 in the encodes (the MLM families
+    only), K1 / K2 / K3 in the searches."""
     from dhr_tpu_torch.data import SamplingConfig, TrainLoader
     from dhr_tpu_torch.train.step import LossConfig, plain_loss, to_device
 
@@ -3190,10 +3313,14 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
     enc = ["encode", *flags, "--model-name-or-path", f"{d}/export", "--bf16",
            "--batch-size", "256"]
     t = time.perf_counter()
+    reset_launches()
     t_p = _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
                     "--output", f"{d}/corpus.npz"], "encode")
     t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
                     f"{d}/q.npz", "--encode-is-qry"], "encode")
+    launches = read_launches()   # K4 where the family has an MLM head
+    if (launches["lexical_pool"] > 0) != (variant != "dense-cls"):
+        raise AssertionError(f"{variant} encode launches {launches}")
     _run_cli(["index", "--inputs", f"{d}/corpus.npz", "--output",
               f"{d}/index.npz", *(["--quantize", "--lex-dim", str(LEX_DIM)]
                                   if variant == "dlr" else [])])
@@ -3210,7 +3337,6 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
     runs = ({"exact": ["--theta", "0"],
              "staged": ["--theta", "0.3", "--rerank", "--agip-topk",
                         "10000"]} if variant == "dlr" else {"exact": ["--IP"]})
-    launches = {k: 0 for k in _counters()}
     out = {}
     t = time.perf_counter()
     for label, sflags in runs.items():
@@ -3267,8 +3393,8 @@ def phase_family_path(args, root, smi, torch):
     the Encoder); one f32 train step card against CPU for agg
     (margin-KD), dense (TCT, the ColBERT tree of eval_path's check as the
     teacher) and dlr; then the CLI chain train -> encode -> index ->
-    search -> eval for dense-cls, agg-full and dlr.  Returns the K1 / K2 /
-    K3 launches of the chains' searches."""
+    search -> eval for dense-cls, agg-full and dlr.  Returns the chains'
+    launches: K4 in their encodes, K1 / K2 / K3 in their searches."""
     import numpy as np
 
     from dhr_tpu_torch.data import Corpus
@@ -3644,7 +3770,7 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
     theta 0 (K1) and at theta 0.3 with rerank (K1 + K2) -> ``eval``.  The
     export must hold both towers with token types; the exact run must
     equal the CPU's brute force on 4 queries.  Returns the report and the
-    chain's K1 / K2 / K3 launches."""
+    chain's launches (K4 in the encodes, K1 / K2 / K3 in the searches)."""
     from dhr_tpu_torch.models.hf_io import load_hf_state_dict
 
     d = f"{root}/dhr"
@@ -3667,10 +3793,14 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
     enc = ["encode", *flags, "--model-name-or-path", export, "--bf16",
            "--batch-size", "256"]
     t = time.perf_counter()
+    reset_launches()
     t_p = _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
                     "--output", f"{d}/corpus.npz"], "encode")
     t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
                     f"{d}/q.npz", "--encode-is-qry"], "encode")
+    launches = read_launches()   # K4, once a batch
+    if not launches["lexical_pool"] > 0:
+        raise AssertionError(f"bert encode launches {launches}")
     _run_cli(["index", "--inputs", f"{d}/corpus.npz", "--output",
               f"{d}/index.npz", "--quantize"])
     secs["encode_index"] = time.perf_counter() - t
@@ -3682,7 +3812,6 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
         raise AssertionError(f"bert index planes {planes}")
     search = ["search", "--index-path", f"{d}/index.npz", "--query-path",
               f"{d}/q.npz", "--topk", "1000", "--query-batch", "128"]
-    launches = {k: 0 for k in _counters()}
     out = {}
     t = time.perf_counter()
     for label, sflags in (("exact", ["--theta", "0"]),
@@ -3820,7 +3949,8 @@ def phase_bert_path(args, root, smi, torch):
     step on a TASB batch and a packed ColBERT step (against the CPU and
     the plain step); then the untied, TASB-batched DHR chain and the packed
     ColBERT chain through the CLI from the ``bert`` init directory.
-    Returns the K1 / K2 / K3 launches of the DHR chain's searches."""
+    Returns the DHR chain's launches: K4 in its encodes, K1 / K2 / K3 in
+    its searches."""
     import numpy as np
 
     from dhr_tpu_torch.data import Corpus
@@ -4533,7 +4663,7 @@ def _par_search(job, z, dev, torch, np):
     launches = read_launches()
     n_batches = PARALLEL_PASSES * -(-qv.shape[0] // cfg.query_batch)
     want = {"partial_gip": n_batches, "rerank_gip": n_batches,
-            "gip_candidates": 0}
+            "gip_candidates": 0, "lexical_pool": 0}
     if launches != want:
         raise AssertionError(f"rank {rank}: sharded main path launches "
                              f"{launches}, expected {want}")
@@ -4567,7 +4697,7 @@ def _par_search(job, z, dev, torch, np):
     fqps, _, frows = timed_passes(fused, qv, qf, PARALLEL_PASSES - 1)
     fused_launches = read_launches()
     fwant = {"partial_gip": 0, "rerank_gip": n_batches,
-             "gip_candidates": n_batches}
+             "gip_candidates": n_batches, "lexical_pool": 0}
     if fused_launches != fwant:
         raise AssertionError(f"rank {rank}: sharded fused launches "
                              f"{fused_launches}, expected {fwant}")
@@ -5277,7 +5407,7 @@ def main() -> int:
 
     name, smi = phase_device(torch)
     timed("build", phase_build)
-    timed("encode_path", phase_encode_path, args, torch)
+    encode_launches = timed("encode_path", phase_encode_path, args, torch)
     timed("train_path", phase_train_path, args, torch)
     with tempfile.TemporaryDirectory() as root:
         rehearsal_launches = timed("rehearsal_path", phase_rehearsal_path,
@@ -5295,6 +5425,7 @@ def main() -> int:
         errs = (phase_k1(index, queries, torch),
                 phase_k2(index, queries, args.seed, torch),
                 phase_k3(index, queries, torch))
+        k4 = phase_k4(torch)
         phase_search_vs_plain(index, raw, torch)
         phase_modes(index, raw, torch)
         del index, queries, raw
@@ -5308,14 +5439,18 @@ def main() -> int:
         walls["main_fused_modes_full"] = time.perf_counter() - t
         serve_launches = timed("serve_path", phase_serve_path, args, root,
                                paths, searcher, main_queries, smi, torch)
-        # the kernels line counts every path: main, fused, rehearsal,
-        # densify, eval, family, bert, serve and parallel
+        # the kernels line counts every path: encode, main, fused,
+        # rehearsal, densify, eval, family, bert, serve and parallel
         for k in launches:
-            launches[k] += (rehearsal_launches[k] + densify_launches[k]
+            launches[k] += (encode_launches[k]
+                            + rehearsal_launches[k] + densify_launches[k]
                             + eval_launches[k] + family_launches[k]
                             + bert_launches[k] + serve_launches[k])
         kernels = timed("timing", phase_timing, searcher, batch, launches,
                         errs, torch)
+        kernels.append({"name": "lexical_pool", "route": "cuda",
+                        "source": K4_SOURCE, "replaces": None,
+                        "launches": launches["lexical_pool"], **k4})
         ref = parallel_reference(searcher, main_queries, torch)
         # the ranks hold the index (half each): free the parent's first
         del searcher, batch, main_queries

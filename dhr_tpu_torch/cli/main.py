@@ -458,10 +458,13 @@ def cmd_encode(args):
                     f" (packed, <={args.pack_segments} docs/row)"
                     if args.pack else "", args.output)
     enc_wall = time.perf_counter() - t_enc0
+    from dhr_tpu_torch.ops import kernel_launches
+
     print("DHR_TIMING " + json.dumps({
         "verb": "encode", "items": len(ids), "device": str(device),
         "encode_wall_s": enc_wall,
         "items_per_s": len(ids) / max(enc_wall, 1e-9),
+        "launches": kernel_launches(),
     }), file=sys.stderr)
 
 

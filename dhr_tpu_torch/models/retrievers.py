@@ -32,6 +32,7 @@ from torch import nn
 from dhr_tpu_torch.models.heads import Projector, TermWeightTrans
 from dhr_tpu_torch.ops.aggregate import aggregate
 from dhr_tpu_torch.ops.densify import densify
+from dhr_tpu_torch.ops.lexical_pool import lexical_pool, weighted_softmax
 from dhr_tpu_torch.models.transformer import (
     EncoderConfig,
     EncoderWithMLM,
@@ -156,10 +157,19 @@ class RetrieverEncoder(nn.Module):
             # softmax over the vocabulary in f32, weighted by the term
             # weight and the attention mask, max over positions 1..L-1.
             # The MLM head runs on those positions only: position 0's
-            # logits are never read.
-            weighted = _weighted(self.backbone.logits(hidden[:, 1:]), tw,
-                                 attention_mask[:, 1:, None])
-            lexical = weighted.amax(dim=-2)
+            # logits are never read.  In inference (eval mode, autograd
+            # off), one pool (K4 on the card) over the projection;
+            # otherwise the passes autograd differentiates.  A train
+            # step's no-grad encode (the gradient cache's pass 1) keeps
+            # the passes, so that its pass 2 recomputes the same reps.
+            if self.training or torch.is_grad_enabled():
+                weighted = _weighted(self.backbone.logits(hidden[:, 1:]),
+                                     tw, attention_mask[:, 1:, None])
+                lexical = weighted.amax(dim=-2)
+            else:
+                w = tw[..., 0].float() * attention_mask[:, 1:].float()
+                lexical = lexical_pool(self.backbone.projection(hidden[:, 1:]),
+                                       self.backbone.mlm.bias, w)
         else:
             # skip-MLM: scatter-max raw term weights at the input token ids
             # over a zero floor; pad positions scatter into their id too
@@ -313,9 +323,7 @@ def _weighted(logits, tw, token_ok):
     """f32 ``softmax(logits) * tw * token_ok`` over the vocabulary, in
     place outside autograd (``tw * token_ok`` first: the same values,
     signed zeros included, for a 0/1 mask)."""
-    probs = torch.softmax(logits, dim=-1, dtype=torch.float32)
-    w = tw.float() * token_ok.float()
-    return probs * w if torch.is_grad_enabled() else probs.mul_(w)
+    return weighted_softmax(logits, tw.float() * token_ok.float())
 
 
 def _take_slots(hidden: torch.Tensor, seg_start: torch.Tensor):

@@ -283,14 +283,19 @@ class MLMHead(nn.Module):
             self.decoder = Dense(H, cfg.vocab_size, bias=False)
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
 
-    def forward(self, hidden: torch.Tensor,
-                shared_embedding: torch.Tensor | None = None):
+    def projection(self, hidden: torch.Tensor,
+                   shared_embedding: torch.Tensor | None = None):
+        """The vocabulary projection before the bias, in the compute
+        dtype: the logits are ``projection + bias`` (``forward``)."""
         h = self.layer_norm(F.gelu(self.transform(hidden)))
         if shared_embedding is not None:
-            logits = F.linear(h, shared_embedding.to(h.dtype))
-        else:
-            logits = self.decoder(h)
-        return logits + self.bias.to(h.dtype)
+            return F.linear(h, shared_embedding.to(h.dtype))
+        return self.decoder(h)
+
+    def forward(self, hidden: torch.Tensor,
+                shared_embedding: torch.Tensor | None = None):
+        proj = self.projection(hidden, shared_embedding)
+        return proj + self.bias.to(proj.dtype)
 
 
 class EncoderWithMLM(nn.Module):
@@ -304,10 +309,16 @@ class EncoderWithMLM(nn.Module):
         self.mlm = MLMHead(cfg, tied=tie_word_embeddings)
         self.eval()
 
+    def _shared(self) -> torch.Tensor | None:
+        return (self.encoder.word_embedding_table
+                if self.tie_word_embeddings else None)
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        shared = (self.encoder.word_embedding_table
-                  if self.tie_word_embeddings else None)
-        return self.mlm(hidden, shared)
+        return self.mlm(hidden, self._shared())
+
+    def projection(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The logits before the MLM bias (``MLMHead.projection``)."""
+        return self.mlm.projection(hidden, self._shared())
 
     def forward(self, input_ids, attention_mask, position_ids=None,
                 segment_ids=None, gen=None):

@@ -20,7 +20,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("partial_gip", "rerank_gip", "gip_candidates")  # csrc/<name>.cu
+KERNELS = ("partial_gip", "rerank_gip", "gip_candidates",
+           "lexical_pool")  # csrc/<name>.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

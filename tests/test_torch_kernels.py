@@ -1,4 +1,5 @@
-"""CUDA kernels K1 / K2 / K3 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1 / K2 / K3 / K4 against their plain PyTorch versions, on
+the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a GPU and no JAX it runs with
@@ -23,6 +24,7 @@ from dhr_tpu_torch.ops.gip_candidates import (
     gip_candidates_plain,
     kernel_limits,
 )
+from dhr_tpu_torch.ops.lexical_pool import lexical_pool, lexical_pool_plain
 from dhr_tpu_torch.ops.partial_gip import (
     partial_gip,
     partial_gip_plain,
@@ -304,3 +306,190 @@ def test_kernels_raise_on_bad_input(cuda):
         gip_candidates(*imp, vt.to(cuda), it.to(cuda), lex, 3, True)
     with pytest.raises(ValueError):
         gip_candidates(*imp, vt.to(cuda), it, lex, 8, False)  # mixed devices
+
+
+# ---- K4: the lexical head's pool ------------------------------------------
+
+# The pool's sums of V exponentials run in another order than PyTorch's
+# softmax (a lane adds its groups of 16, ~V / 512 of them, then a warp
+# tree), and its exponential may differ from PyTorch's by an ulp or two:
+# each value within 3e-5 of its own magnitude.  The floor covers values
+# in the subnormal range, where a relative bound means nothing.
+POOL_RTOL, POOL_ATOL = 3e-5, 1e-30
+
+
+def _pool_inputs(B, T, V, dtype, pitch=None, seed=0):
+    """A projection plane (B, T, V) of ``dtype`` on the card with row
+    pitch ``pitch`` (>= V), the bias, and weights with a ragged mask,
+    negative and zero term weights and, from B = 3 on, a passage with
+    every position masked."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    P = pitch or V
+    proj = (torch.randn(B, T, P, generator=g, device="cuda") * 3
+            ).to(dtype)[..., :V]
+    bias = torch.randn(V, generator=g, device="cuda").to(dtype)
+    tw = torch.randn(B, T, generator=g, device="cuda") * 0.5 + 1
+    tw[0, ::3] = -tw[0, ::3].abs()
+    tw[:, 1::7] = 0.0
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+    mask = torch.arange(T, device="cuda")[None] < lengths[:, None]
+    if B >= 3:
+        mask[2] = False
+    return proj, bias, tw * mask.float()
+
+
+def _pool_close(got, want):
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert torch.allclose(got, want, rtol=POOL_RTOL, atol=POOL_ATOL), \
+        float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("B,T,V,pitch,dtype", [
+    (256, 79, 30522, None, torch.bfloat16),   # the encode cell's batch
+    (1, 7, 30522, None, torch.bfloat16),
+    (3, 511, 30522, None, torch.bfloat16),    # the longest rows BERT takes
+    (4, 33, 30522, 30525, torch.bfloat16),    # an odd pitch: element loads
+    (5, 12, 1001, None, torch.bfloat16),      # an odd vocabulary
+    (2, 3, 30, 32, torch.bfloat16),           # under one strip, padded
+    (3, 17, 30522, None, torch.float16),
+    (3, 17, 30522, None, torch.float32),
+    (3, 17, 1001, 1003, torch.float32),
+])
+def test_lexical_pool_kernel_matches_plain(cuda, B, T, V, pitch, dtype):
+    proj, bias, w = _pool_inputs(B, T, V, dtype, pitch)
+    got = lexical_pool(proj, bias, w)
+    torch.cuda.synchronize()
+    want = lexical_pool_plain(proj, bias, w)
+    _pool_close(got, want)
+    if B >= 3:   # all positions masked: the max of zeros
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+def test_lexical_pool_counts_one_launch_per_call(cuda):
+    proj, bias, w = _pool_inputs(2, 5, 30522, torch.bfloat16)
+    before = kernel_launches()["lexical_pool"]
+    for _ in range(3):
+        lexical_pool(proj, bias, w)
+    torch.cuda.synchronize()
+    assert kernel_launches()["lexical_pool"] == before + 3
+
+
+def test_lexical_pool_refuses_autograd_and_bad_input(cuda):
+    proj, bias, w = _pool_inputs(2, 5, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lexical_pool(proj, bias, w.requires_grad_())
+    with pytest.raises(ValueError):
+        lexical_pool(proj, bias.cpu(), w.detach())      # mixed devices
+    with pytest.raises(ValueError, match="contiguous"):
+        lexical_pool(proj.transpose(1, 2), bias[:5],
+                     torch.ones(2, 64, device="cuda"))
+
+
+@pytest.mark.parametrize("family", ["dhr", "agg"])
+def test_encode_goes_through_lexical_pool_without_autograd(cuda, family):
+    """``Encoder.encode_batch`` (inference mode) launches K4 once a batch
+    and matches the eager passes; a forward with autograd on does not
+    launch it."""
+    from dhr_tpu_torch.encode import EncodeConfig, Encoder
+    from dhr_tpu_torch.models import BiEncoder, EncoderConfig, RetrieverConfig
+
+    cfg = RetrieverConfig(model_type=family, add_pooler=True, agg_dim=640,
+                          encoder=EncoderConfig.tiny(vocab_size=30522))
+    torch.manual_seed(0)
+    enc = Encoder(BiEncoder(cfg), cfg, EncodeConfig(batch_size=8),
+                  device=cuda)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 30522, (8, 20))
+    mask = (np.arange(20)[None] < rng.integers(2, 21, 8)[:, None]
+            ).astype(np.int64)
+    before = kernel_launches()["lexical_pool"]
+    enc.encode_batch(ids, mask, "passage")
+    torch.cuda.synchronize()
+    assert kernel_launches()["lexical_pool"] == before + 1
+    tower = enc.model.encoder("passage")
+    x, m = torch.from_numpy(ids).to(cuda), torch.from_numpy(mask).to(cuda)
+    with torch.no_grad():
+        hidden = tower.hidden_states(x, m)
+        got = tower.reps(hidden, x, m).lexical
+    want = tower.reps(hidden, x, m).lexical     # autograd on: the passes
+    torch.cuda.synchronize()
+    assert want.requires_grad
+    assert kernel_launches()["lexical_pool"] == before + 2
+    _pool_close(got, want.detach())
+
+
+def test_grad_cache_step_keeps_the_eager_head(cuda, monkeypatch):
+    """The gradient cache's pass 1 runs in training mode without autograd:
+    it takes the eager head, as its pass 2 does, so K4 does not launch and
+    every chunk's pass-2 reps equal its pass-1 reps bit for bit (dropout
+    on).  With dropout off the step's loss and gradients match the plain
+    step's on the same batch."""
+    from dhr_tpu_torch.data.collate import collate_train
+    from dhr_tpu_torch.models import BiEncoder, EncoderConfig, RetrieverConfig
+    from dhr_tpu_torch.train import step as tstep
+
+    rng = np.random.default_rng(3)
+    ex = [(rng.integers(570, 30522, 7).tolist(),
+           [rng.integers(570, 30522, rng.integers(4, 20)).tolist()
+            for _ in range(4)], None) for _ in range(4)]
+    batch = tstep.to_device(collate_train(ex, 16, 32, cls_id=101,
+                                          sep_id=102), cuda)
+    loss_cfg = tstep.LossConfig(n_passages=4, remove_dims=570)
+
+    def model_of(dropout):
+        cfg = RetrieverConfig(
+            model_type="dhr", add_pooler=True, dlr_out_dim=768,
+            encoder=EncoderConfig.tiny(vocab_size=30522,
+                                       hidden_dropout=dropout,
+                                       attention_dropout=dropout))
+        torch.manual_seed(0)
+        return BiEncoder(cfg).to(cuda).train(), cfg
+
+    seen, real = [], tstep._encode
+
+    def record(model, chunk, is_query, gen):
+        r = real(model, chunk, is_query, gen)
+        seen.append((torch.is_grad_enabled(),
+                     {f: getattr(r, f).detach().clone()
+                      for f in tstep.REP_FIELDS
+                      if getattr(r, f) is not None}))
+        return r
+
+    model, cfg = model_of(0.1)
+    monkeypatch.setattr(tstep, "_encode", record)
+    before = kernel_launches()["lexical_pool"]
+    tstep.grad_cache_backward(model, cfg, loss_cfg, batch, seed=3, step=5,
+                              q_chunks=2, p_chunks=4)
+    torch.cuda.synchronize()
+    assert kernel_launches()["lexical_pool"] == before
+    first = [r for g, r in seen if not g]
+    second = [r for g, r in seen if g]
+    assert len(first) == len(second) == 6
+    for a, b in zip(first, second):
+        assert a.keys() == b.keys() and "lexical" in a
+        for f in a:
+            assert torch.equal(a[f], b[f]), f
+    monkeypatch.setattr(tstep, "_encode", real)
+
+    model, cfg = model_of(0.0)
+    want_loss = tstep.plain_loss(model, cfg, loss_cfg, batch)[0]
+    want_loss.backward()
+    want = {n: p.grad.clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    # one chunk a side: the plain step's shapes, so that no fold's winner
+    # turns on the rounding of other GEMM shapes (the tiny model's lexical
+    # values lie close together)
+    loss = tstep.grad_cache_backward(model, cfg, loss_cfg, batch, seed=0,
+                                     step=0, q_chunks=1, p_chunks=1)
+    assert kernel_launches()["lexical_pool"] == before
+    torch.testing.assert_close(loss, want_loss.detach(), rtol=1e-5, atol=0)
+    got = {n: p.grad for n, p in model.named_parameters()
+           if p.grad is not None}
+    assert got.keys() == want.keys()
+    for n in want:
+        err = float((got[n] - want[n]).norm() / want[n].norm().clamp_min(
+            1e-30))
+        assert err < 1e-4, (n, err)

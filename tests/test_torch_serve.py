@@ -1069,5 +1069,5 @@ def test_info_verb_reports_the_runtime(capsys):
     assert out["native_so"].endswith("libdhr_torch_native.so")
     assert out["cuda_available"] == torch.cuda.is_available()
     assert set(out["kernels_built"]) == {"partial_gip", "rerank_gip",
-                                         "gip_candidates"}
+                                         "gip_candidates", "lexical_pool"}
     assert not any(k.startswith("jax") for k in out)
