@@ -225,9 +225,14 @@ def _load_init_params(args, model_cfg):
     )
     from dhr_tpu_torch.models.retrievers import BiEncoder
 
-    model = BiEncoder(model_cfg)
-    load_flax_params(model, random_flax_params(
-        model_cfg, torch.Generator().manual_seed(0)))
+    if model_cfg.causal:   # the decoder: its own init from seed 0
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = BiEncoder(model_cfg)
+    else:
+        model = BiEncoder(model_cfg)
+        load_flax_params(model, random_flax_params(
+            model_cfg, torch.Generator().manual_seed(0)))
     path = args.model_name_or_path
     if not path:
         return model
@@ -294,6 +299,9 @@ def cmd_train(args):
         mesh = make_mesh(axis=DATA_AXIS)
     device = resolve_device(args.device)
     model_cfg = _model_cfg_from_args(args)
+    if model_cfg.causal:
+        raise SystemExit("train does not take the decoder backbone yet: "
+                         "its export and its benchmark are not written")
     model = _load_init_params(args, model_cfg)
     teacher = _build_teacher(args, model_cfg) if args.tct else None
     groups = load_train_groups(args.train_path)

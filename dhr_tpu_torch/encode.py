@@ -55,10 +55,23 @@ class EncodeConfig:
 class Encoder:
     """Batched corpus / query encoder for one model on one device.
 
-    ``device`` defaults to the GPU (raising without one); the encoder keeps
-    its own copy of ``model`` there, with the linear and embedding weights
-    cast to the compute dtype once.  ``mesh``: encode data-parallel over
-    its ranks (see the module docstring).
+    ``device`` defaults to the GPU (raising without one).  The model:
+
+    - on the BERT-family encoder, the encoder keeps its own copy of
+      ``model`` there, with the linear and embedding weights cast to the
+      compute dtype once (``compute_copy``);
+    - on the decoder backbone built in its compute dtype
+      (``DecoderConfig.param_dtype == dtype``, RMSNorm weights in f32),
+      the encoder takes ``model`` itself, without a copy: a model that
+      already lies on ``device`` keeps its storage, one elsewhere is
+      moved there in place (a copy of DeepSeek-V2-Lite's 31 GB would not
+      fit beside it).  A decoder with f32 parameters is copied as the
+      encoder is.  The encoder then names each batch's real tokens to
+      the model (``real_rows``), from the mask it collated on the host,
+      so that the MoE layers route those alone.
+
+    ``mesh``: encode data-parallel over its ranks (see the module
+    docstring).
     """
 
     def __init__(self, model: BiEncoder, cfg: RetrieverConfig,
@@ -67,8 +80,11 @@ class Encoder:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.encode_cfg = encode_cfg
-        self.model = compute_copy(model, cfg.encoder.dtype,
-                                  self.device).eval()
+        if cfg.causal and cfg.encoder.param_dtype == cfg.encoder.dtype:
+            self.model = model.to(self.device).eval()
+        else:
+            self.model = compute_copy(model, cfg.encoder.dtype,
+                                      self.device).eval()
         self._group = self._shard = None
         if mesh is not None and mesh.size() > 1:
             from dhr_tpu_torch.parallel.mesh import (
@@ -139,11 +155,16 @@ class Encoder:
         dev = self.device
         n = ids.shape[0]
         ids, mask = self._local([ids, np.asarray(attention_mask)])
+        rows = None
+        if self.cfg.causal:
+            rows = torch.as_tensor(np.flatnonzero(np.asarray(mask))).to(
+                dev, non_blocking=True)
         ids = torch.as_tensor(ids).to(dev, non_blocking=True)
         mask = torch.as_tensor(np.asarray(mask)).to(dev, non_blocking=True)
         with torch.inference_mode():
             reps = self.model.encoder(role)(ids, mask,
-                                            is_query=role == "query")
+                                            is_query=role == "query",
+                                            real_rows=rows)
             vals, idxs = self.planes(reps)
             return self._gathered(vals, n), self._gathered(idxs, n)
 

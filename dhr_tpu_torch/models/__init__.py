@@ -1,6 +1,8 @@
-"""The retriever models: the transformer encoder, heads, the five model
-families, and weight import (Flax param trees, HF checkpoints)."""
+"""The retriever models: the transformer encoder, the decoder backbone,
+heads, the five model families, and weight import (Flax param trees, HF
+checkpoints)."""
 
+from dhr_tpu_torch.models.decoder import DecoderConfig, DecoderLM, DecoderModel
 from dhr_tpu_torch.models.flax_params import (
     flax_to_state_dict,
     load_flax_params,
@@ -20,7 +22,8 @@ from dhr_tpu_torch.models.transformer import (
 )
 
 __all__ = [
-    "MODEL_TYPES", "BiEncoder", "EncoderConfig", "EncoderWithMLM", "Reps",
+    "MODEL_TYPES", "BiEncoder", "DecoderConfig", "DecoderLM", "DecoderModel",
+    "EncoderConfig", "EncoderWithMLM", "Reps",
     "RetrieverConfig", "RetrieverEncoder", "TransformerEncoder",
     "flax_to_state_dict", "load_flax_params", "random_flax_params",
 ]

@@ -16,7 +16,12 @@ the port's modules and back, from local directories only:
   checkpoint);
 - :func:`export_hf_mlm` is the way back (the MLM keys are omitted for an
   encoder-only backbone);
-- :func:`load_sidecar_head` / :func:`save_sidecar_head` handle the heads.
+- :func:`load_sidecar_head` / :func:`save_sidecar_head` handle the heads;
+- a ``deepseek_v2`` checkpoint (``config.json`` and its ``model.*`` /
+  ``lm_head`` tensors, sharded or not) loads into the decoder backbone
+  (:func:`decoder_config_from_hf`, :func:`hf_decoder_to_state_dict`): the
+  port keeps HF's names and stacks each MoE layer's experts into one
+  tensor per projection.
 
 HF linear weights are ``(out, in)`` like ``torch.nn.Linear``, so the map is
 a renaming of keys.
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dhr_tpu_torch.models.decoder import DecoderConfig, DecoderLM, DecoderModel
 from dhr_tpu_torch.models.transformer import EncoderConfig, TransformerEncoder
 
 # --------------------------------------------------------------------------
@@ -79,10 +85,20 @@ def read_safetensors(path: str) -> dict[str, np.ndarray]:
 
 
 def load_hf_state_dict(model_dir: str) -> dict[str, np.ndarray]:
-    """Load an HF checkpoint directory's tensors as numpy arrays."""
+    """Load an HF checkpoint directory's tensors as numpy arrays (one
+    ``model.safetensors``, the shards a ``model.safetensors.index.json``
+    names, or ``pytorch_model.bin``)."""
     st_path = os.path.join(model_dir, "model.safetensors")
     if os.path.exists(st_path):
         return read_safetensors(st_path)
+    index = os.path.join(model_dir, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+        out = {}
+        for shard in shards:
+            out.update(read_safetensors(os.path.join(model_dir, shard)))
+        return out
     bin_path = os.path.join(model_dir, "pytorch_model.bin")
     if os.path.exists(bin_path):
         sd = torch.load(bin_path, map_location="cpu", weights_only=True)
@@ -94,11 +110,15 @@ def load_hf_state_dict(model_dir: str) -> dict[str, np.ndarray]:
 
 def encoder_config_from_hf(model_dir: str,
                            dtype: torch.dtype = torch.bfloat16
-                           ) -> EncoderConfig:
-    """Build an :class:`EncoderConfig` from an HF ``config.json``."""
+                           ) -> EncoderConfig | DecoderConfig:
+    """Build an :class:`EncoderConfig` from an HF ``config.json`` (a
+    :class:`DecoderConfig` from a ``deepseek_v2`` one, its parameters in
+    ``dtype``)."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     model_type = hf.get("model_type", "distilbert")
+    if model_type == "deepseek_v2":
+        return decoder_config_from_hf(hf, dtype, dtype)
     if model_type == "distilbert":
         return EncoderConfig(
             vocab_size=hf["vocab_size"],
@@ -127,6 +147,95 @@ def encoder_config_from_hf(model_dir: str,
             dtype=dtype,
         )
     raise ValueError(f"unsupported HF model_type: {model_type}")
+
+
+def decoder_config_from_hf(hf: dict, dtype: torch.dtype = torch.bfloat16,
+                           param_dtype: torch.dtype = torch.float32
+                           ) -> DecoderConfig:
+    """A :class:`DecoderConfig` from a ``deepseek_v2`` ``config.json``'s
+    dict.  Refuses what the decoder does not implement: a query LoRA,
+    routing other than greedy, a gate other than softmax, rotary
+    positions without YaRN, tied embeddings."""
+    unsupported = []
+    if hf.get("q_lora_rank") is not None:
+        unsupported.append("q_lora_rank")
+    if hf.get("topk_method", "greedy") != "greedy":
+        unsupported.append("topk_method")
+    if hf.get("scoring_func", "softmax") != "softmax":
+        unsupported.append("scoring_func")
+    rs = hf.get("rope_scaling") or {}
+    if rs.get("type", rs.get("rope_type")) != "yarn":
+        unsupported.append("rope_scaling")
+    if hf.get("tie_word_embeddings", False):
+        unsupported.append("tie_word_embeddings")
+    if unsupported:
+        raise ValueError(f"the decoder backbone does not implement "
+                         f"{unsupported} as this config sets them")
+    return DecoderConfig(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        intermediate_size=hf["intermediate_size"],
+        moe_intermediate_size=hf["moe_intermediate_size"],
+        n_routed_experts=hf.get("n_routed_experts") or 0,
+        n_shared_experts=hf.get("n_shared_experts") or 0,
+        num_experts_per_tok=hf["num_experts_per_tok"],
+        first_k_dense_replace=hf["first_k_dense_replace"],
+        moe_layer_freq=hf["moe_layer_freq"],
+        norm_topk_prob=hf["norm_topk_prob"],
+        routed_scaling_factor=float(hf["routed_scaling_factor"]),
+        kv_lora_rank=hf["kv_lora_rank"],
+        qk_nope_head_dim=hf["qk_nope_head_dim"],
+        qk_rope_head_dim=hf["qk_rope_head_dim"],
+        v_head_dim=hf["v_head_dim"], rope_theta=float(hf["rope_theta"]),
+        rope_factor=rs["factor"],
+        rope_original_max_position=rs["original_max_position_embeddings"],
+        rope_beta_fast=rs.get("beta_fast", 32),
+        rope_beta_slow=rs.get("beta_slow", 1),
+        rope_mscale=rs.get("mscale", 1),
+        rope_mscale_all_dim=rs.get("mscale_all_dim", 0),
+        max_position_embeddings=hf["max_position_embeddings"],
+        rms_norm_eps=hf["rms_norm_eps"],
+        initializer_range=hf.get("initializer_range", 0.006),
+        dtype=dtype, param_dtype=param_dtype)
+
+
+def hf_decoder_to_state_dict(sd: dict[str, np.ndarray], cfg: DecoderConfig
+                             ) -> dict[str, torch.Tensor]:
+    """A ``deepseek_v2`` state dict -> the state dict of a
+    :class:`DecoderLM` (``model.*``, ``lm_head.weight``), the experts of
+    each MoE layer stacked; tensors in ``cfg.param_dtype``, RMSNorm
+    weights in f32.  Keys the decoder does not read (rotary buffers) are
+    skipped."""
+    def tensor(a, name):
+        t = torch.from_numpy(np.asarray(a, np.float32).copy())
+        return t if name.endswith("norm.weight") else t.to(cfg.param_dtype)
+
+    out = {}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        names = [p + "input_layernorm.weight",
+                 p + "post_attention_layernorm.weight"] + [
+            f"{p}self_attn.{n}.weight" for n in (
+                "q_proj", "kv_a_proj_with_mqa", "kv_a_layernorm",
+                "kv_b_proj", "o_proj")]
+        if cfg.is_moe(i):
+            names.append(p + "mlp.gate.weight")
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                out[f"{p}mlp.experts.{proj}"] = tensor(np.stack([
+                    sd[f"{p}mlp.experts.{e}.{proj}.weight"]
+                    for e in range(cfg.n_routed_experts)]), proj)
+                if cfg.n_shared_experts:
+                    names.append(f"{p}mlp.shared_experts.{proj}.weight")
+        else:
+            names += [f"{p}mlp.{proj}.weight"
+                      for proj in ("gate_proj", "up_proj", "down_proj")]
+        out.update({n: tensor(sd[n], n) for n in names})
+    for n in ("model.embed_tokens.weight", "model.norm.weight",
+              "lm_head.weight"):
+        if n in sd:
+            out[n] = tensor(sd[n], n)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -238,7 +347,19 @@ def hf_mlm_to_state_dict(sd: dict[str, np.ndarray], cfg: EncoderConfig
 def load_hf_backbone(backbone: nn.Module, sd: dict[str, np.ndarray],
                      cfg: EncoderConfig) -> None:
     """Load an HF state dict into an ``EncoderWithMLM`` (which needs the
-    MLM head) or a ``TransformerEncoder`` (which takes the encoder only)."""
+    MLM head) or a ``TransformerEncoder`` (which takes the encoder only),
+    or a ``deepseek_v2`` one into a ``DecoderLM`` (which needs the LM
+    head) or a ``DecoderModel``."""
+    if isinstance(backbone, (DecoderLM, DecoderModel)):
+        state = hf_decoder_to_state_dict(sd, cfg)
+        if isinstance(backbone, DecoderModel):
+            state = {k.removeprefix("model."): v for k, v in state.items()
+                     if k.startswith("model.")}
+        elif "lm_head.weight" not in state:
+            raise ValueError("this model needs the checkpoint's lm_head, "
+                             "which it lacks")
+        backbone.load_state_dict(state, strict=True)
+        return
     state, has_mlm = hf_mlm_to_state_dict(sd, cfg)
     if isinstance(backbone, TransformerEncoder):
         state = {k.removeprefix("encoder."): v for k, v in state.items()

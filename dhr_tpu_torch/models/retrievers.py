@@ -19,6 +19,16 @@ and :meth:`RetrieverEncoder.encode_tokens_packed`, which return per-slot
 reduced reps.  Every forward takes ``gen``, the generator of its dropout
 masks (dropout is active in training mode only; the modules start in
 eval mode, as the reference's ``deterministic=True`` default).
+
+The backbone is the BERT / DistilBERT encoder (``EncoderConfig``) or the
+causal decoder of ``models/decoder.py`` (``DecoderConfig``).  On the
+decoder, the lexical rep reads the untied LM head's logits of the
+final-normed hidden states at positions 1..L-1 (a zero vocabulary bias
+stands in for the MLM bias), and the CLS-slot rep (the semantic rep,
+dense ``cls`` pooling, Aggretriever's CLS) is the hidden state at each
+row's last real token, the EOS, as RepLLaMA pools: under causal
+attention position 0 sees only itself.  Packed rows and ColBERT are not
+implemented on the decoder and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from dhr_tpu_torch.models.decoder import DecoderConfig, DecoderLM, DecoderModel
 from dhr_tpu_torch.models.heads import Projector, TermWeightTrans
 from dhr_tpu_torch.ops.aggregate import aggregate
 from dhr_tpu_torch.ops.densify import densify
@@ -45,7 +56,9 @@ MODEL_TYPES = ("dense", "dhr", "dlr", "agg", "colbert")
 @dataclasses.dataclass(frozen=True)
 class RetrieverConfig:
     model_type: str = "dhr"
-    encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
+    # the backbone: the BERT-family encoder or the causal decoder
+    encoder: EncoderConfig | DecoderConfig = dataclasses.field(
+        default_factory=EncoderConfig)
     untie_encoder: bool = False
     # pooling / projection
     add_pooler: bool = False
@@ -69,6 +82,15 @@ class RetrieverConfig:
             raise ValueError(f"unknown model_type {self.model_type}")
         if self.model_type == "dlr":
             object.__setattr__(self, "combine_cls", False)
+        if self.causal and self.model_type == "colbert":
+            raise ValueError("colbert is not implemented on the decoder "
+                             "backbone (its token reps and query scaling "
+                             "assume a [CLS]-first bidirectional encoder)")
+
+    @property
+    def causal(self) -> bool:
+        """The backbone is the causal decoder."""
+        return isinstance(self.encoder, DecoderConfig)
 
     @property
     def needs_mlm(self) -> bool:
@@ -102,7 +124,10 @@ class RetrieverEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         H = cfg.encoder.hidden_size
-        if cfg.needs_mlm:
+        if cfg.causal:
+            self.backbone = (DecoderLM(cfg.encoder) if cfg.needs_mlm
+                             else DecoderModel(cfg.encoder))
+        elif cfg.needs_mlm:
             self.backbone = EncoderWithMLM(cfg.encoder)
         else:
             self.backbone = TransformerEncoder(cfg.encoder)
@@ -118,10 +143,25 @@ class RetrieverEncoder(nn.Module):
         return self.cfg.model_type == "colbert" or self.cfg.add_pooler
 
     def hidden_states(self, input_ids, attention_mask, gen=None,
-                      position_ids=None, segment_ids=None) -> torch.Tensor:
-        """The transformer stack alone: ``(B, L, H)`` in the compute dtype."""
+                      position_ids=None, segment_ids=None,
+                      real_rows=None) -> torch.Tensor:
+        """The transformer stack alone: ``(B, L, H)`` in the compute dtype.
+        ``real_rows``: the decoder's MoE layers route these flattened
+        positions alone (the real tokens; ignored by the encoder)."""
         enc = self.backbone.encoder if self.cfg.needs_mlm else self.backbone
+        if self.cfg.causal:
+            return enc(input_ids, attention_mask, position_ids, segment_ids,
+                       gen, rows=real_rows)
         return enc(input_ids, attention_mask, position_ids, segment_ids, gen)
+
+    def cls_hidden(self, hidden, attention_mask) -> torch.Tensor:
+        """``(B, H)``: the hidden state of the CLS slot, position 0 on the
+        encoder and each row's last real token on the decoder."""
+        if not self.cfg.causal:
+            return hidden[:, 0]
+        last = attention_mask.sum(dim=1).long() - 1
+        return hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                      last]
 
     def reps(self, hidden, input_ids, attention_mask,
              is_query: bool = False) -> Reps:
@@ -134,8 +174,9 @@ class RetrieverEncoder(nn.Module):
         return self._colbert_reps(hidden, attention_mask, is_query)
 
     def forward(self, input_ids, attention_mask, is_query: bool = False,
-                gen: torch.Generator | None = None):
-        hidden = self.hidden_states(input_ids, attention_mask, gen)
+                gen: torch.Generator | None = None, real_rows=None):
+        hidden = self.hidden_states(input_ids, attention_mask, gen,
+                                    real_rows=real_rows)
         return self.reps(hidden, input_ids, attention_mask, is_query)
 
     # ---- dense -----------------------------------------------------------
@@ -144,7 +185,7 @@ class RetrieverEncoder(nn.Module):
             m = attention_mask[..., None].to(hidden.dtype)
             pooled = (hidden * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
         else:
-            pooled = hidden[:, 0]
+            pooled = self.cls_hidden(hidden, attention_mask)
         if self.use_pooler:
             pooled = self.pooler(pooled)
         return Reps(dense=pooled.float())
@@ -169,7 +210,7 @@ class RetrieverEncoder(nn.Module):
             else:
                 w = tw[..., 0].float() * attention_mask[:, 1:].float()
                 lexical = lexical_pool(self.backbone.projection(hidden[:, 1:]),
-                                       self.backbone.mlm.bias, w)
+                                       self.backbone.vocab_bias, w)
         else:
             # skip-MLM: scatter-max raw term weights at the input token ids
             # over a zero floor; pad positions scatter into their id too
@@ -179,7 +220,7 @@ class RetrieverEncoder(nn.Module):
             lexical.scatter_reduce_(1, input_ids[:, 1:].long(),
                                     tw[..., 0].float(), reduce="amax")
         semantic = None
-        cls_hidden = hidden[:, 0]
+        cls_hidden = self.cls_hidden(hidden, attention_mask)
         if cfg.model_type in ("dhr", "dlr"):
             semantic = self.pooler(cls_hidden) if self.use_pooler \
                 else cls_hidden
@@ -215,6 +256,10 @@ class RetrieverEncoder(nn.Module):
         pads.  colbert raises: it packs through :meth:`encode_tokens_packed`.
         """
         cfg = self.cfg
+        if cfg.causal:
+            raise ValueError("packed encode is not implemented on the decoder "
+                             "backbone (packed rows need block-diagonal "
+                             "causal attention); use length-bucketed rows")
         if cfg.model_type not in ("dense", "dhr", "dlr", "agg"):
             raise ValueError(f"packed encode supports dense/dhr/dlr/agg, not "
                              f"{cfg.model_type}")

@@ -320,6 +320,11 @@ class EncoderWithMLM(nn.Module):
         """The logits before the MLM bias (``MLMHead.projection``)."""
         return self.mlm.projection(hidden, self._shared())
 
+    @property
+    def vocab_bias(self) -> torch.Tensor:
+        """The MLM bias: the logits are ``projection + vocab_bias``."""
+        return self.mlm.bias
+
     def forward(self, input_ids, attention_mask, position_ids=None,
                 segment_ids=None, gen=None):
         hidden = self.encoder(input_ids, attention_mask, position_ids,
