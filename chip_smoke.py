@@ -97,7 +97,10 @@ It checks each path's kernel launch counts and its staged-vs-exact ranking
 agreement.  K4, the lexical head's pool, runs wherever a model in eval mode
 encodes without autograd (encode, eval, family, bert, serve, the
 rehearsal's verbs), never in a train step; ``k4_vs_plain`` holds it against its plain version and times it at
-the encode cell's batch.  On a 204,803-row slice it also holds the other search modes
+the encode cell's batch.  K5, the MoE layer's combine, runs on no path
+here (no path encodes with the decoder backbone: 0 launches on each);
+``k5_vs_plain`` holds it against its plain version and times it at the
+dsv2 cell's batch.  On a 204,803-row slice it also holds the other search modes
 (row-chunked ip, pq, two-tier escalation) on the card against the same
 search on the CPU's plain path, and on the full index it times ip (dim- and
 row-major) and pq (m=64) with rerank.
@@ -134,6 +137,7 @@ K1_SOURCE = "dhr_tpu_torch/csrc/partial_gip.cu"
 K2_SOURCE = "dhr_tpu_torch/csrc/rerank_gip.cu"
 K3_SOURCE = "dhr_tpu_torch/csrc/gip_candidates.cu"
 K4_SOURCE = "dhr_tpu_torch/csrc/lexical_pool.cu"
+K5_SOURCE = "dhr_tpu_torch/csrc/moe_combine.cu"
 SMALL_ROWS = 204_803
 H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 ENCODE_PASSAGES = 32_768
@@ -419,9 +423,11 @@ def _encode_user_path(root, seed, torch, np):
     encode_launches = read_launches()
     batches = -(-ENCODE_PASSAGES // 32) + -(-ENCODE_QUERIES // 32)
     if encode_launches != {"partial_gip": 0, "rerank_gip": 0,
-                           "gip_candidates": 0, "lexical_pool": batches}:
+                           "gip_candidates": 0, "lexical_pool": batches,
+                           "moe_combine": 0}:
         raise AssertionError(f"encode launches {encode_launches}: K4 "
-                             f"{batches} times (once a batch), K1-K3 never")
+                             f"{batches} times (once a batch), K1-K3 and "
+                             "K5 never")
     reset_launches()
     _run_cli(["index", "--inputs", f"{root}/corpus.npz", "--output",
               f"{root}/index.npz", "--quantize"])
@@ -1688,6 +1694,77 @@ def phase_k4(torch):
     return kernel
 
 
+def _combine_inputs(N, k, H, dtype, torch, seed=0):
+    """Rows in expert order (N * k, H), ``slot`` a random permutation of
+    them (N, k) and f32 weights with zeros and negatives, on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rows = torch.randn(N * k, H, generator=g, device="cuda").to(dtype)
+    slot = torch.randperm(N * k, generator=g, device="cuda").view(N, k)
+    w = torch.rand(N, k, generator=g, device="cuda") * 1.5 - 0.5
+    w[::3, 0] = 0.0
+    return rows, slot, w
+
+
+def phase_k5(torch):
+    """K5 vs plain: the dsv2 cell's batch (19,000 real tokens, k = 6,
+    H = 2,048) in bf16, one token, k = 1 and 2, H = 64 and 61, 16 slots,
+    f16 and f32; each value within an ulp of its dtype at the larger
+    result, plus the f32 sums' round-off (2 k 2^-24 of the products'
+    magnitudes: K5 sums in slot order, PyTorch's reduction in its own),
+    and at least 99% bit-equal in 16-bit dtypes.  Then, at the cell's
+    batch, K5's ms beside its bound (the rows read once, the output
+    written once, slot ids and weights read once, at 3.35 TB/s) and the
+    plain five-pass combine's."""
+    from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
+
+    worst, cases, least_equal = 0.0, 0, 1.0
+    for N, k, H, dt in ((19000, 6, 2048, torch.bfloat16),
+                        (1, 6, 2048, torch.bfloat16),
+                        (300, 1, 2048, torch.bfloat16),
+                        (300, 2, 2048, torch.bfloat16),
+                        (333, 6, 64, torch.bfloat16),
+                        (257, 6, 61, torch.bfloat16),
+                        (100, 16, 128, torch.bfloat16),
+                        (999, 6, 2048, torch.float16),
+                        (999, 6, 2048, torch.float32)):
+        rows, slot, w = _combine_inputs(N, k, H, dt, torch)
+        got = moe_combine(rows, slot, w)
+        want = combine(rows, slot, w)
+        fi = torch.finfo(dt)
+        big = torch.maximum(got.float().abs(), want.float().abs())
+        _, e = torch.frexp(big)
+        ulp = (torch.ldexp(torch.ones_like(big), e - 1) * fi.eps).clamp_min(
+            fi.tiny * fi.eps)
+        picked = rows[slot.reshape(-1)].view(N, k, H).float().abs()
+        tol = ulp + 2 * k * 2.0 ** -24 * (picked * w.abs()[..., None]).sum(1)
+        ratio = float(((got.float() - want.float()).abs() / tol).max())
+        equal = float((got == want).float().mean())
+        if ratio > 1 or (dt != torch.float32 and equal < 0.99):
+            raise AssertionError(f"moe_combine {(N, k, H, dt)}: gap "
+                                 f"{ratio} of its bound, {equal} bit-equal")
+        worst, cases = max(worst, ratio), cases + 1
+        if dt != torch.float32:
+            least_equal = min(least_equal, equal)
+        del rows, slot, w, got, want, big, ulp, picked, tol
+
+    N, k, H = 19000, 6, 2048
+    rows, slot, w = _combine_inputs(N, k, H, torch.bfloat16, torch)
+    ms = cuda_ms(lambda: moe_combine(rows, slot, w), 50, torch)
+    plain_ms = cuda_ms(lambda: combine(rows, slot, w), 10, torch)
+    nbytes = N * k * H * 2 + N * H * 2 + N * k * (8 + 4)
+    out = {"phase": "k5_vs_plain", "cases": cases,
+           "max_gap_over_bound": worst, "least_bit_equal_share": least_equal,
+           "tol": "an ulp of the dtype + 2 k 2^-24 sum |w x| (f32 sums in "
+                  "another order)",
+           "shape": [N, k, H], "bytes_each_input_once": nbytes}
+    kernel = {"max_rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "library_ms": None}
+    emit({**out, **kernel})
+    return kernel
+
+
 def phase_search_vs_plain(index, queries_raw, torch):
     """The whole search on the card against the same search on the CPU's
     plain PyTorch path, over the 204,803-row corpus: same final scores at
@@ -1839,6 +1916,7 @@ def phase_modes_full(searcher, queries, torch):
         qps, scores, rows = timed_passes(s, qv, qf, n_passes - 1)
         launches = read_launches()
         want = {"partial_gip": 0, "gip_candidates": 0, "lexical_pool": 0,
+                "moe_combine": 0,
                 "rerank_gip": n_passes * -(-qv.shape[0] // base.query_batch)}
         if launches != want:
             raise AssertionError(f"{name} launches {launches}, expected "
@@ -1936,10 +2014,10 @@ def phase_main(args, torch):
     emit({"phase": "kernels", "path": "main", "launches": launches,
           "expected": {"partial_gip": want_launches,
                        "rerank_gip": want_launches, "gip_candidates": 0,
-                       "lexical_pool": 0}})
+                       "lexical_pool": 0, "moe_combine": 0}})
     if launches != {"partial_gip": want_launches,
                     "rerank_gip": want_launches, "gip_candidates": 0,
-                    "lexical_pool": 0}:
+                    "lexical_pool": 0, "moe_combine": 0}:
         raise AssertionError(f"main path launches {launches}, expected K1 "
                              f"and K2 {want_launches} times, K3 never")
     check_result(scores, rows, args.queries, cfg.topk, args.rows)
@@ -1953,7 +2031,8 @@ def phase_main(args, torch):
     emit({"phase": "kernels", "path": "exact_brute_force",
           "launches": exact_launches})
     if exact_launches != {"partial_gip": 1, "rerank_gip": 0,
-                          "gip_candidates": 0, "lexical_pool": 0}:
+                          "gip_candidates": 0, "lexical_pool": 0,
+                          "moe_combine": 0}:
         raise AssertionError(f"exact search launches {exact_launches}, "
                              "expected K1 once, K2 and K3 never")
     agree = agreement(rows[:n_agree], erows)
@@ -2014,7 +2093,8 @@ def phase_fused(searcher, queries, torch):
     launches = read_launches()
     n_batches = n_passes * -(-qv.shape[0] // cfg.query_batch)
     want = {"partial_gip": 0, "rerank_gip": n_batches,
-            "gip_candidates": n_batches, "lexical_pool": 0}
+            "gip_candidates": n_batches, "lexical_pool": 0,
+            "moe_combine": 0}
     emit({"phase": "kernels", "path": "fused", "launches": launches,
           "expected": want})
     if launches != want:
@@ -4663,7 +4743,7 @@ def _par_search(job, z, dev, torch, np):
     launches = read_launches()
     n_batches = PARALLEL_PASSES * -(-qv.shape[0] // cfg.query_batch)
     want = {"partial_gip": n_batches, "rerank_gip": n_batches,
-            "gip_candidates": 0, "lexical_pool": 0}
+            "gip_candidates": 0, "lexical_pool": 0, "moe_combine": 0}
     if launches != want:
         raise AssertionError(f"rank {rank}: sharded main path launches "
                              f"{launches}, expected {want}")
@@ -4697,7 +4777,8 @@ def _par_search(job, z, dev, torch, np):
     fqps, _, frows = timed_passes(fused, qv, qf, PARALLEL_PASSES - 1)
     fused_launches = read_launches()
     fwant = {"partial_gip": 0, "rerank_gip": n_batches,
-             "gip_candidates": n_batches, "lexical_pool": 0}
+             "gip_candidates": n_batches, "lexical_pool": 0,
+             "moe_combine": 0}
     if fused_launches != fwant:
         raise AssertionError(f"rank {rank}: sharded fused launches "
                              f"{fused_launches}, expected {fwant}")
@@ -5426,6 +5507,7 @@ def main() -> int:
                 phase_k2(index, queries, args.seed, torch),
                 phase_k3(index, queries, torch))
         k4 = phase_k4(torch)
+        k5 = phase_k5(torch)
         phase_search_vs_plain(index, raw, torch)
         phase_modes(index, raw, torch)
         del index, queries, raw
@@ -5451,6 +5533,9 @@ def main() -> int:
         kernels.append({"name": "lexical_pool", "route": "cuda",
                         "source": K4_SOURCE, "replaces": None,
                         "launches": launches["lexical_pool"], **k4})
+        kernels.append({"name": "moe_combine", "route": "cuda",
+                        "source": K5_SOURCE, "replaces": None,
+                        "launches": launches["moe_combine"], **k5})
         ref = parallel_reference(searcher, main_queries, torch)
         # the ranks hold the index (half each): free the parent's first
         del searcher, batch, main_queries

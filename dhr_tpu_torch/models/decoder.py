@@ -75,10 +75,12 @@ on CUDA); each of the three expert projections is one grouped GEMM
 (``torch._grouped_mm``, bf16, the group offsets kept on the device) over
 the experts' row groups; the combine gathers each token's ``k`` rows
 back by the inverse permutation and sums them weighted in f32: no atomics,
-the same bits from run to run.  No device-to-host read happens inside the
-layer.  :func:`routed_experts_loop` is the plain twin, a loop of matmuls
-over the experts that reads each expert's rows to the host; a CPU tensor
-takes it, a CUDA tensor takes the grouped GEMMs or raises.
+the same bits from run to run (on the card, where autograd records
+nothing, in one kernel, K5 ``ops/moe_combine.py``).  No device-to-host
+read happens inside the layer.  :func:`routed_experts_loop` is the plain
+twin, a loop of matmuls over the experts that reads each expert's rows to
+the host; a CPU tensor takes it, a CUDA tensor takes the grouped GEMMs or
+raises.
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dhr_tpu_torch.models.transformer import Dense
+from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
 from dhr_tpu_torch.utils import profiling
 
 
@@ -369,22 +372,21 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def combine(rows: torch.Tensor, slot: torch.Tensor,
-            weights: torch.Tensor) -> torch.Tensor:
-    """``sum_j weights[:, j] * rows[slot[:, j]]`` in f32, cast to
-    ``rows``' dtype: each token's ``k`` rows gathered back, no atomics."""
-    picked = rows[slot.reshape(-1)].view(*slot.shape, -1).float()
-    return (picked * weights[..., None]).sum(dim=1).to(rows.dtype)
-
-
 def routed_experts_grouped(x, idx, weights, experts: Experts):
     """The routed part of an MoE layer on ``x`` (N, H): dispatch, three
-    grouped GEMMs, combine.  No device-to-host read."""
+    grouped GEMMs, combine.  No device-to-host read.  Where autograd
+    records nothing the combine is :func:`moe_combine` (K5 on the card,
+    :func:`combine` on the CPU); otherwise the eager :func:`combine`,
+    which autograd differentiates."""
     d = dispatch(idx, experts.gate_proj.shape[0])
     wg, wu, wd = experts.weights(x.dtype)
     xs = x[d.token]
     h = F.silu(grouped_mm(xs, wg, d.offs)) * grouped_mm(xs, wu, d.offs)
-    return combine(grouped_mm(h, wd, d.offs), d.slot, weights)
+    rows = grouped_mm(h, wd, d.offs)
+    if torch.is_grad_enabled() and (rows.requires_grad
+                                    or weights.requires_grad):
+        return combine(rows, d.slot, weights)
+    return moe_combine(rows, d.slot, weights)
 
 
 def routed_experts_loop(x, idx, weights, experts: Experts):

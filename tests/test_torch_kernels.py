@@ -1,5 +1,5 @@
-"""CUDA kernels K1 / K2 / K3 / K4 against their plain PyTorch versions, on
-the card.
+"""CUDA kernels K1 / K2 / K3 / K4 / K5 against their plain PyTorch versions,
+on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a GPU and no JAX it runs with
@@ -25,6 +25,7 @@ from dhr_tpu_torch.ops.gip_candidates import (
     kernel_limits,
 )
 from dhr_tpu_torch.ops.lexical_pool import lexical_pool, lexical_pool_plain
+from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
 from dhr_tpu_torch.ops.partial_gip import (
     partial_gip,
     partial_gip_plain,
@@ -534,8 +535,8 @@ def test_moe_grouped_path_matches_the_loop_on_the_card(cuda, N):
 
 def test_moe_layer_on_the_card_reads_nothing_and_launches_three(cuda):
     """A whole MoE layer (router, routed and shared experts) over a
-    batch's real rows: no host read, 3 grouped GEMMs, a zero
-    ``moe.host_reads`` record."""
+    batch's real rows: no host read, 3 grouped GEMMs, one K5 combine, a
+    zero ``moe.host_reads`` record."""
     from dhr_tpu_torch.models import decoder as dec
     from dhr_tpu_torch.utils import profiling
 
@@ -556,6 +557,126 @@ def test_moe_layer_on_the_card_reads_nothing_and_launches_three(cuda):
     after = profiling.counters()
     assert after["launches.moe_grouped_mm"] - before.get(
         "launches.moe_grouped_mm", 0) == 3
+    assert after["launches.moe_combine"] - before.get(
+        "launches.moe_combine", 0) == 1
     assert after["moe.host_reads"] == before.get("moe.host_reads", 0)
     flat = y.reshape(-1, 2048)
     assert flat[1::2].abs().max() == 0 and flat[0::2].abs().max() > 0
+
+
+# ---- K5: the MoE layer's combine ------------------------------------------
+
+# K5 sums a token's k products in slot order, PyTorch's reduction in its
+# own: each value within an ulp of its dtype at the larger of the two
+# results, plus the two f32 sums' round-off (2 k 2^-24 of the sum of the
+# products' magnitudes), which only a sum that cancels makes visible.  In
+# 16-bit dtypes nearly every value is bit-equal (a rounding turns on the
+# sum's order at ~1e-4 of them): at least 99%, which truncating instead of
+# rounding would miss.
+
+
+def _combine_inputs(N, k, H, dtype, seed=0, offset=0):
+    """Rows in expert order (N * k, H) of ``dtype`` on the card, starting
+    ``offset`` elements into their allocation, ``slot`` a random
+    permutation of them (N, k) and f32 weights with zeros and
+    negatives."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rows = torch.randn(N * k * H + offset, generator=g, device="cuda").to(
+        dtype)[offset:].view(N * k, H)
+    slot = torch.randperm(N * k, generator=g, device="cuda").view(N, k)
+    w = torch.rand(N, k, generator=g, device="cuda") * 1.5 - 0.5
+    w[::3, 0] = 0.0
+    return rows, slot, w
+
+
+def _combine_close(got, rows, slot, w):
+    """Assert K5's ``got`` against the eager ``combine``; returns the share
+    of values that are bit-equal."""
+    want = combine(rows, slot, w)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.numel() == 0:
+        return 1.0
+    fi = torch.finfo(got.dtype)
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    _, e = torch.frexp(big)
+    ulp = (torch.ldexp(torch.ones_like(big), e - 1) * fi.eps).clamp_min(
+        fi.tiny * fi.eps)
+    picked = rows[slot.reshape(-1)].view(*slot.shape, rows.shape[1])
+    mag = (picked.float().abs() * w.abs()[..., None]).sum(dim=1)
+    tol = ulp + 2 * slot.shape[1] * 2.0 ** -24 * mag
+    gap = (got.float() - want.float()).abs()
+    assert (gap <= tol).all(), float((gap / tol).max())
+    return float((got == want).float().mean())
+
+
+@pytest.mark.parametrize("N,k,H,dtype,offset", [
+    (19000, 6, 2048, torch.bfloat16, 0),   # the dsv2 cell's batch
+    (0, 6, 2048, torch.bfloat16, 0),
+    (1, 6, 2048, torch.bfloat16, 0),
+    (300, 1, 2048, torch.bfloat16, 0),
+    (300, 2, 2048, torch.bfloat16, 0),
+    (333, 6, 64, torch.bfloat16, 0),       # 8 tokens a block
+    (257, 6, 61, torch.bfloat16, 0),       # H not a multiple of 8
+    (129, 6, 64, torch.bfloat16, 3),       # rows not 16-byte aligned
+    (100, 16, 128, torch.bfloat16, 0),     # the most slots: two groups
+    (999, 6, 2048, torch.float16, 0),
+    (999, 6, 2048, torch.float32, 0),
+    (99, 6, 61, torch.float32, 0),
+])
+def test_moe_combine_kernel_matches_plain(cuda, N, k, H, dtype, offset):
+    rows, slot, w = _combine_inputs(N, k, H, dtype, offset=offset)
+    before = kernel_launches()["moe_combine"]
+    got = moe_combine(rows, slot, w)
+    torch.cuda.synchronize()
+    assert kernel_launches()["moe_combine"] == before + (N > 0)
+    equal = _combine_close(got, rows, slot, w)
+    if dtype != torch.float32:
+        assert equal >= 0.99, equal
+
+
+def test_moe_combine_refuses_autograd_and_bad_input(cuda):
+    rows, slot, w = _combine_inputs(4, 6, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no backward"):
+        moe_combine(rows.requires_grad_(), slot, w)
+    rows = rows.detach()
+    with pytest.raises(ValueError):
+        moe_combine(rows, slot.cpu(), w)                  # mixed devices
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_combine(rows.t().contiguous().t(), slot, w)
+    with pytest.raises(ValueError, match="1 to 16"):
+        moe_combine(*_combine_inputs(2, 17, 64, torch.bfloat16))
+
+
+def test_decoder_encode_launches_k5_once_a_moe_layer(cuda):
+    """``Encoder.encode_batch`` on the decoder backbone (inference mode)
+    launches K5 once per MoE layer of a batch; a forward with autograd on
+    takes the eager combine and launches none."""
+    from dhr_tpu_torch.encode import EncodeConfig, Encoder
+    from dhr_tpu_torch.models import decoder as dec
+    from dhr_tpu_torch.models.retrievers import BiEncoder, RetrieverConfig
+
+    dc = dec.DecoderConfig.tiny(dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    cfg = RetrieverConfig(model_type="dhr", encoder=dc, add_pooler=True,
+                          projection_dim=16, dlr_out_dim=64)
+    torch.manual_seed(0)
+    with torch.device(cuda):
+        model = BiEncoder(cfg)
+    dec.init_weights(model, 0.02)
+    enc = Encoder(model, cfg, EncodeConfig(batch_size=4,
+                                           remove_dims=1024 - 15 * 64),
+                  device=cuda)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 1024, (4, 12))
+    mask = (np.arange(12)[None] < rng.integers(3, 13, 4)[:, None]
+            ).astype(np.int64)
+    n_moe = sum(dc.is_moe(i) for i in range(dc.num_layers))
+    before = kernel_launches()["moe_combine"]
+    enc.encode_batch(ids, mask, "passage")
+    torch.cuda.synchronize()
+    assert kernel_launches()["moe_combine"] == before + n_moe
+    model.train()
+    x = torch.from_numpy(ids).to(cuda)
+    model.encoder("passage")(x, torch.from_numpy(mask).to(cuda))
+    assert kernel_launches()["moe_combine"] == before + n_moe

@@ -196,11 +196,13 @@ def test_kernel_launches_keep_their_keys_and_read_the_recorder():
 
     profiling.reset()
     assert kernel_launches() == {"partial_gip": 0, "rerank_gip": 0,
-                                 "gip_candidates": 0, "lexical_pool": 0}
+                                 "gip_candidates": 0, "lexical_pool": 0,
+                                 "moe_combine": 0}
     profiling.count("launches.rerank_gip")
     profiling.count("launches.partial_gip", 3)
     assert kernel_launches() == {"partial_gip": 3, "rerank_gip": 1,
-                                 "gip_candidates": 0, "lexical_pool": 0}
+                                 "gip_candidates": 0, "lexical_pool": 0,
+                                 "moe_combine": 0}
     profiling.reset()
     assert set(kernel_launches().values()) == {0}
 
