@@ -1,118 +1,63 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port (dhr_tpu_torch) on one NVIDIA GPU.
+"""The port's parity smoke: hold dhr_tpu_torch against its plain versions,
+the CPU, brute force and its gates on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows N] [--queries Q] [--seed S]
 
 Run from the root of a checkout.  It builds the CUDA kernels from
-``dhr_tpu_torch/csrc`` (nvcc, sm_90a, into ``build/kernels/``), holds each
-against its plain PyTorch version on the card, then runs two paths over one
-synthetic MS MARCO-sized corpus through the entry points a user calls
-(``DeviceIndex.from_arrays``, ``Searcher.search``), both at the bench
-operating point (int8 planes, theta=0.3, 48 important dims, a 10,000-row
-pool, exact rerank, top 1000):
+``dhr_tpu_torch/csrc`` (nvcc, sm_90a, into ``build/kernels/``), then runs
+each path through the entry points a user calls (the CLI verbs,
+``Encoder``, ``Searcher``, the service), with random weights (no checkpoint
+is in the repository), and checks what each returns:
 
-- the main path: theta pass (K1), candidate selection, rerank (K2);
-- the fused path: theta pass reduced per 8-row group (K3), selection over
-  the reduced plane with arithmetic row decoding, rerank (K2).
+- ``encode_path``: the DHR encoder at DistilBERT-base width, card against
+  CPU in f32; ``encode`` -> ``index --quantize`` -> ``search`` through the
+  CLI (K4 once a batch, K1 and K2 in the search); the ``Encoder``'s planes.
+- ``train_path``: one f32 step card against CPU, the packed and grad-cache
+  steps against the plain one, the documented run (24 x 8, bf16) for 40
+  steps through the CLI and again cut at 20 and resumed (losses agree, the
+  loss falls), the export searched on K1 and K2, ``encode --pack`` against
+  plain, and two bf16 steps of each kind with finite losses.
+- ``rehearsal_path``: the port's pipeline rehearsal as a process (its MRR
+  and Recall gates, K1 and K2 launched, the trained exact run against the
+  CPU's brute force), and ``rep_stats`` on the card.
+- ``densify_path``: BM25 -> DLR planes on the C++ host runtime, then
+  ``densify`` -> ``index --quantize`` -> ``search`` on int16 folds, against
+  the brute force and the CPU's plain path.
+- ``eval_path``: ColBERT ``encode`` and ``colbert-score`` (card against
+  CPU, host slabs against the resident plane, ``--pairs`` against the run),
+  ``rerank-eval``, and ``evaluate_beir`` at theta 0 and 0.3 against the
+  brute force, no self-hit left.
+- ``family_path``: dense, Aggretriever and DLR card against CPU, their
+  train steps (margin-KD, TCT, plain) card against CPU, and the CLI chain
+  train -> encode -> index -> search -> eval for three of them.
+- ``bert_path``: BERT-base towers with token types, tied and untied, card
+  against CPU; untied TASB DHR and packed ColBERT through the CLI chain.
+- K1-K5 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
+  the encode cell's batch, K5 at the dsv2 cell's), the other search modes
+  against the CPU's plain path, then the main and fused paths at
+  8,841,823 rows (launch counts, staged-vs-exact agreement) and ip / pq
+  on that index.
+- ``serve_path``: the ``serve`` verb as a process (reloads, 503 shedding,
+  token refusal, SIGINT), a free-first reload's device memory, the
+  service at 8,841,823 rows under closed-loop clients at concurrency 1 and
+  64 and over the fused searcher, and ``/search_text``; served results
+  equal ``search_run``.
+- ``parallel_path``: two ranks share the card over gloo (``torchrun``):
+  the sharded search, DP, FSDP and TP steps against one rank (clipped,
+  saved and restored bit-equal), ``Encoder(mesh=)``, and the sharded
+  ``search`` and ``serve`` verbs.
 
-Before the search phases, ``encode_path`` runs the encode slice at
-DistilBERT-base width with random weights (no checkpoint is in the
-repository): the card against the CPU in f32, then the user's path through
-the CLI (``encode`` a 32,768-passage corpus and 1,024 queries, ``index
---quantize``, ``search`` at the bench point, K1 and K2 launched), then the
-``Encoder``'s passages/s, stage times and achieved TFLOP/s.
-
-``train_path`` follows: the same model trains on the card (its random tree
-written as an HF directory and imported by ``train``): one f32 step on the
-card against the CPU, the packed and grad-cache steps against the plain one,
-the documented run (batch 24 x 8 passages, lr 7e-6, bf16) for 40 steps
-through the CLI and again cut at step 20 and resumed (losses must agree,
-and the loss must fall), the trained export through ``encode`` -> ``index
---quantize`` -> ``search`` (K1 and K2 launched), ``encode --pack`` against
-plain, and the steps' speed (steps/s, passages/s, tokens/s, TFLOP/s, the
-split of a step, peak memory).
-
-``rehearsal_path`` follows: the port's full-pipeline rehearsal
-(``python -m dhr_tpu_torch.tools.pipeline_rehearsal``, family dhr) as a
-process at DistilBERT-base width: a 32,768-passage topical wordpiece
-world, the untrained and the trained model each through ``encode`` ->
-``index --quantize`` -> ``search`` (staged and exact) -> ``eval``, and
-``train --pack-passages`` (bf16, 250 steps) between them; its gates
-(trained MRR@10 above untrained, staged Recall@1000 at least 0.9 x exact)
-must hold, K1 and K2 must launch in its search verbs, and the trained exact
-run must equal the CPU's brute force on 4 queries.  ``rep_stats``' generator
-statistics and agreement run on the card at 204,800 rows beside it.
-
-``densify_path`` comes next: the DLR paper's BM25 -> DLR front end on the
-port's C++ host runtime (32,768 synthetic whole-word passages of MS MARCO
-length, Zipf words over 2^18 terms, so the fold planes are int16):
-``simple_analyzer``, ``TermDictionary``, ``native.bm25_csr``, the vectors as
-JSONL, then ``densify`` -> ``index --quantize`` -> ``search`` with 1,024
-BM25 queries on K1 and K2, against the brute force on the same planes and
-the CPU's plain path.  ``eval_path`` then runs the evaluation verbs at
-DistilBERT-base width: ColBERT ``encode`` and ``colbert-score
---full-ranking`` over the encode corpus (card against the CPU, host slabs
-against the resident plane, ``--pairs`` against the run; q/s and TFLOP/s),
-``rerank-eval`` over 16 x 1,000 candidate pairs, and ``evaluate_beir`` over
-a SciFact-shaped BEIR directory at theta 0 (K1) and theta 0.3 with rerank
-(K1 and K2), each held against the brute force on the same planes, with no
-self-hit left.  ``family_path`` then runs the other retriever families at
-DistilBERT-base width from train_path's random tree (an HF directory):
-dense (CLS and mean pooling), Aggretriever (full fold with the sign
-competition, semi fold, skip-MLM scatter-max) and DLR (768 lexical dims,
-no CLS), each card against CPU in f32 and its Encoder's passages/s; one f32
-train step card against CPU for agg with margin-KD scores, dense with the
-in-graph ColBERT teacher (TCT) and dlr; and for dense-cls, agg-full and dlr
-the CLI chain ``train`` (24 x 8, bf16, 40 steps; the loss must fall) ->
-``encode`` (16,384 passages, 1,024 queries) -> ``index`` (dlr int8,
-lexical only) -> ``search`` (``--IP``; dlr GIP at theta 0 on K1 and at 0.3
-with rerank on K1 and K2) -> ``eval``, the exact run against the CPU's
-brute force.  After the main and fused paths, ``serve_path`` runs
-the resident service: the ``serve`` verb as a process on the densified
-index (serve_client, reloads, 503 shedding, token refusal, SIGINT), a
-free-first reload's device memory, the service at 8,841,823 rows with
-closed-loop client processes at concurrency 1 / 8 / 64 / 256 (and once
-over the fused searcher), and ``/search_text`` through the DistilBERT-base
-query encoder; served results must equal ``search_run``.
-
-``parallel_path`` comes last: two ranks share the card over gloo (NCCL
-refuses two ranks on one GPU) through ``torchrun``: (a) the bench point
-over the 8,841,823-row corpus, each rank holding half (each draws only its
-own rows), main and fused paths with every rank's K1 / K2 / K3 launches
-asserted, the exact candidates against the one-process search and the
-staged agreement against the TPU's bar; (b) one data-parallel step of the
-DistilBERT-base DHR model against one rank, then FSDP: a clipped step
-against one rank's, a save, and the next step against a fresh state
-restored from the save (the state gathered and the norm summed by c10d),
-then Megatron TP over a (data, model) = (1, 2) mesh (its collectives c10d
-all-reduces): the sharded set against the rules, steps with dropout off
-and 0.1 and a clipped step against one rank's, a save and a restore whose
-next loss is bit-equal, and the TP step's wall beside one process's;
-(d) ``Encoder(mesh=)`` planes
-against one process; then ``search --shard-over-devices`` through the CLI
-and (c) ``serve --shard-over-devices`` (64 requests equal to
-``search_run``, SIGINT) on the densified index.
-
-It checks each path's kernel launch counts and its staged-vs-exact ranking
-agreement.  K4, the lexical head's pool, runs wherever a model in eval mode
-encodes without autograd (encode, eval, family, bert, serve, the
-rehearsal's verbs), never in a train step; ``k4_vs_plain`` holds it against its plain version and times it at
-the encode cell's batch.  K5, the MoE layer's combine, runs on no path
-here (no path encodes with the decoder backbone: 0 launches on each);
-``k5_vs_plain`` holds it against its plain version and times it at the
-dsv2 cell's batch.  On a 204,803-row slice it also holds the other search modes
-(row-chunked ip, pq, two-tier escalation) on the card against the same
-search on the CPU's plain path, and on the full index it times ip (dim- and
-row-major) and pq (m=64) with rerank.
+Speed is the benchmark's (``BENCHMARK.json``, ``benchmarks/``).  The
+smoke times only each hand-written kernel alone, beside its plain version
+and its bound (the ``kernel_shapes``, ``k4_vs_plain``, ``k5_vs_plain`` and
+``kernels`` lines), and its own phases (``seconds``, ``walls``).
 
 Each phase prints one JSON line; the card's name and power limit (as
-nvidia-smi gives them) and the ``{"kernels": [...]}`` line come before the
-last line, ``{"ok": true, "device": {...}}``; the kernels line counts the
-launches of the main, fused, rehearsal (with rep_stats), densify, eval,
-family, serve and parallel paths; a ``walls`` line before them gives each path's
-seconds.  Any failure
-raises and exits non-zero before the last line.  Without CUDA, or outside a
-checkout, it exits non-zero at once.
+nvidia-smi gives them) and the ``{"kernels": [...]}`` line, which counts
+every path's launches, come before the last line, ``{"ok": true,
+"device": {...}}``.  Any failure raises and exits non-zero before it.
+Without CUDA, or outside a checkout, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -122,7 +67,6 @@ import dataclasses
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -132,17 +76,19 @@ MSMARCO_PASSAGES = 8_841_823
 LEX_DIM = 768
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-TPU_AGREEMENT = {"10": 1.0, "100": 0.9994, "1000": 0.9969}  # BENCH_r05.json
+# the staged-vs-exact agreement at top-10 / 100 / 1000 that the sharded
+# search must reach: the reference package's at the bench point
+# (BENCH_r05.json)
+SHARDED_AGREEMENT = {"10": 1.0, "100": 0.9994, "1000": 0.9969}
 K1_SOURCE = "dhr_tpu_torch/csrc/partial_gip.cu"
 K2_SOURCE = "dhr_tpu_torch/csrc/rerank_gip.cu"
 K3_SOURCE = "dhr_tpu_torch/csrc/gip_candidates.cu"
 K4_SOURCE = "dhr_tpu_torch/csrc/lexical_pool.cu"
 K5_SOURCE = "dhr_tpu_torch/csrc/moe_combine.cu"
 SMALL_ROWS = 204_803
-H100_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 ENCODE_PASSAGES = 32_768
 ENCODE_QUERIES = 1_024
-ENCODE_TIMED = 16_384          # passages of the Encoder's timed passes
+ENCODER_PASSAGES = 16_384      # passages of the Encoder's planes check
 ENCODE_REMOVE_DIMS = 570
 TRAIN_QUERIES = 2_048
 TRAIN_NEGATIVES = 32
@@ -157,11 +103,10 @@ DENSIFY_PASSAGES = 32_768
 DENSIFY_VOCAB = 1 << 18
 DENSIFY_QUERIES = 1_024
 DENSIFY_SEARCH = ["--theta", "0.1", "--rerank", "--agip-topk", "10000"]
-# serve_path: single-query requests per concurrency level, the levels whose
-# responses are held against search_run, client processes at most (threads
-# share a process past that), the 503 flood and the /search_text queries
-SERVE_LEVELS = {1: 32, 8: 128, 64: 256, 256: 512}
-SERVE_CHECKED_LEVELS = (1, 64)
+# serve_path: single-query requests per concurrency level (each response
+# held against search_run), client processes at most (threads share a
+# process past that), the 503 flood and the /search_text queries
+SERVE_LEVELS = {1: 32, 64: 256}
 SERVE_CLIENT_PROCS = 16
 SERVE_FLOOD = 256
 SERVE_FLOOD_QUERIES = 32
@@ -416,10 +361,10 @@ def _encode_user_path(root, seed, torch, np):
     search = ["search", "--index-path", f"{root}/index.npz", "--query-path",
               f"{root}/q.npz", "--topk", "1000", "--query-batch", "128"]
     reset_launches()
-    t_p = _run_cli(["encode", *model, "--input", corpus, "--output",
-                    f"{root}/corpus.npz"], "encode")
-    t_q = _run_cli(["encode", *model, "--input", queries, "--output",
-                    f"{root}/q.npz", "--encode-is-qry"], "encode")
+    _run_cli(["encode", *model, "--input", corpus, "--output",
+              f"{root}/corpus.npz"], "encode")
+    _run_cli(["encode", *model, "--input", queries, "--output",
+              f"{root}/q.npz", "--encode-is-qry"], "encode")
     encode_launches = read_launches()
     batches = -(-ENCODE_PASSAGES // 32) + -(-ENCODE_QUERIES // 32)
     if encode_launches != {"partial_gip": 0, "rerank_gip": 0,
@@ -431,9 +376,9 @@ def _encode_user_path(root, seed, torch, np):
     reset_launches()
     _run_cli(["index", "--inputs", f"{root}/corpus.npz", "--output",
               f"{root}/index.npz", "--quantize"])
-    t_s = _run_cli([*search, "--theta", "0.3", "--max-important-dims", "48",
-                    "--agip-topk", "10000", "--rerank", "--output",
-                    f"{root}/run.trec"], "search")
+    _run_cli([*search, "--theta", "0.3", "--max-important-dims", "48",
+              "--agip-topk", "10000", "--rerank", "--output",
+              f"{root}/run.trec"], "search")
     launches = read_launches()
     if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0
             and launches["lexical_pool"] == 0):
@@ -475,175 +420,33 @@ def _encode_user_path(root, seed, torch, np):
     return {
         "passages": ENCODE_PASSAGES, "queries": ENCODE_QUERIES,
         "passage_len_mean": float(lens.mean() + 2),
-        "passages_per_s_cli_b32": t_p["items_per_s"],
-        "encode_wall_s_cli_b32": t_p["encode_wall_s"],
-        "queries_per_s_cli_encode": t_q["items_per_s"],
-        "search_qps": t_s["qps"], "encode_launches": encode_launches,
-        "launches": launches,
+        "encode_launches": encode_launches, "launches": launches,
         "exact_launches": exact_launches, "planes": shapes,
         "staged_vs_brute_force_informative_only": agree,
     }, toks
 
 
-def transformer_flops_per_token(L: int) -> int:
-    """Six layers of projections and FFN, plus attention's two L-long
-    products, per padded token of DistilBERT-base."""
-    H, F = 768, 3072
-    return 2 * 6 * (4 * H * H + 2 * H * F) + 6 * 4 * L * H
-
-
-def head_flops_per_token() -> int:
-    """The MLM transform and the vocabulary projection, per position."""
-    H, Vv = 768, 30522
-    return 2 * (H * H + H * Vv)
-
-
-def encode_flops_per_token(L: int) -> int:
-    """Forward FLOPs per padded token of the DHR DistilBERT-base encoder."""
-    return transformer_flops_per_token(L) + head_flops_per_token()
-
-
-def _encode_timing(tree, toks, torch, np):
-    """Passages/s through the Encoder API at batch 32 and 256, padded to
-    128 and length-bucketed; per-batch stage ms (CUDA events) of the first
-    batch; peak memory; achieved TFLOP/s."""
-    from dhr_tpu_torch.data.collate import collate_encode, wrap_specials
+def _encoder_planes(tree, toks, torch):
+    """The ``Encoder``'s planes of the first passages at batch 256,
+    length-bucketed, bf16: one row a passage, 768 + 128 values."""
     from dhr_tpu_torch.encode import (
         EncodeConfig, Encoder, bucketed_encode_batches)
     from dhr_tpu_torch.models import BiEncoder, load_flax_params
 
     cfg = _dhr_config(torch.bfloat16)
-    model = load_flax_params(BiEncoder(cfg), tree)
+    enc = Encoder(load_flax_params(BiEncoder(cfg), tree), cfg,
+                  EncodeConfig(batch_size=256))
     lists = [t.tolist() for t in toks]
     ids = [str(i) for i in range(len(lists))]
-    out = {"passages": len(lists), "dtype": "bf16",
-           "peak_tflops_dense_bf16": H100_BF16_FLOPS_PER_S / 1e12}
-    for bs in (32, 256):
-        enc = Encoder(model, cfg, EncodeConfig(batch_size=bs))
-        for bucketed in (False, True):
-            if bucketed:
-                batches, _ = bucketed_encode_batches(ids, lists, bs, 128,
-                                                     101, 102)
-                batches = list(batches)
-            else:
-                batches = [collate_encode(
-                    ids[s:s + bs], [wrap_specials(t, 128, 101, 102)
-                                    for t in lists[s:s + bs]], 128)
-                    for s in range(0, len(lists), bs)]
-            flops = sum(b["input_ids"].size * encode_flops_per_token(
-                b["input_ids"].shape[1]) for b in batches)
-            enc.encode_corpus(batches[:2])  # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            packed = enc.encode_corpus(batches)
-            wall = time.perf_counter() - t0
-            if packed.values.shape != (len(lists), LEX_DIM + 128):
-                raise AssertionError("Encoder planes of the wrong shape")
-            name = f"b{bs}_{'bucketed' if bucketed else 'padded128'}"
-            out[name] = {
-                "passages_per_s": len(lists) / wall, "wall_s": wall,
-                "padded_tokens": int(sum(b["input_ids"].size
-                                         for b in batches)),
-                "tflops_achieved": flops / wall / 1e12,
-                "share_of_bf16_peak": flops / wall / H100_BF16_FLOPS_PER_S,
-                "flop_bound_s": flops / H100_BF16_FLOPS_PER_S,
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            }
-        # stage ms of one padded batch
-        b = collate_encode(ids[:bs], [wrap_specials(t, 128, 101, 102)
-                                      for t in lists[:bs]], 128)
-        x = torch.from_numpy(b["input_ids"]).cuda()
-        m = torch.from_numpy(b["attention_mask"]).cuda()
-        e = enc.model.encoder("passage")
-        with torch.inference_mode():
-            hidden = e.hidden_states(x, m)
-            reps = e.reps(hidden, x, m)
-            stage = {
-                "transformer": cuda_ms(lambda: e.hidden_states(x, m), 5,
-                                       torch),
-                "mlm_head_softmax_max": cuda_ms(lambda: e.reps(hidden, x, m),
-                                                5, torch),
-                "densify_pack_copy_back": cuda_ms(
-                    lambda: [t.cpu() for t in enc.planes(reps)
-                             if t is not None], 5, torch),
-            }
-        # the head runs on positions 1..127; the eager chain's passes over
-        # the (B, 127, V) plane (logits written (bf16), the bias add read
-        # and written (bf16), softmax read (bf16) and written (f32), the
-        # weighting read and written (f32), the max read (f32)) against
-        # the projection written and K4's two reads (bf16)
-        t_flops = bs * 128 * transformer_flops_per_token(128)
-        h_flops = bs * 127 * head_flops_per_token()
-        stage.update({
-            "transformer_tflops": t_flops / stage["transformer"] / 1e9,
-            "transformer_flop_bound_ms": t_flops / H100_BF16_FLOPS_PER_S
-            * 1e3,
-            "head_tflops": h_flops / stage["mlm_head_softmax_max"] / 1e9,
-            "head_flop_bound_ms": h_flops / H100_BF16_FLOPS_PER_S * 1e3,
-            "head_plane_passes_gb_eager_chain": bs * 127 * 30522
-            * (2 + 4 + 6 + 8 + 4) / 1e9,
-            "head_plane_passes_gb_k4": bs * 127 * 30522 * (2 + 2 + 2) / 1e9,
-        })
-        out[f"b{bs}_stage_ms_per_batch_padded128"] = stage
-        out[f"b{bs}_split_ms_padded128"] = _encode_split(e, hidden, x, m,
-                                                         torch)
-        del enc, hidden, reps
-        torch.cuda.empty_cache()
-    return out
-
-
-def _encode_split(e, hidden, x, m, torch):
-    """Where a padded batch's device time goes, by CUDA events: one layer
-    and its attention; the head as it runs (the projection, K4's pool) and
-    the eager chain's passes one by one (the logits GEMM with its bias add,
-    the f32 softmax, the weighting, the max over positions); and the
-    host's time to enqueue the whole transformer, which, near its device
-    time, says the host holds the card back."""
-    import torch.nn.functional as F
-
-    from dhr_tpu_torch.ops.lexical_pool import lexical_pool
-
-    layer = e.backbone.encoder.layers[0]
-    bias = torch.where(m[:, None, None, :] > 0, 0.0, -1e9).to(hidden.dtype)
-    with torch.inference_mode():
-        proj = e.backbone.projection(hidden[:, 1:])
-        w_pos = (e.term_weight(hidden[:, 1:])[..., 0].float()
-                 * m[:, 1:].float())
-        logits = e.backbone.logits(hidden[:, 1:])
-        probs = torch.softmax(logits, dim=-1, dtype=torch.float32)
-        w = (e.term_weight(hidden[:, 1:]).float()
-             * m[:, 1:, None].float())
-        split = {
-            "one_layer": cuda_ms(lambda: layer(hidden, bias), 5, torch),
-            "one_layer_attention": cuda_ms(
-                lambda: layer.attention(hidden, bias), 5, torch),
-            "one_layer_ffn_gelu": cuda_ms(
-                lambda: layer.ffn_out(F.gelu(layer.ffn_in(hidden))), 5,
-                torch),
-            "head_projection": cuda_ms(
-                lambda: e.backbone.projection(hidden[:, 1:]), 5, torch),
-            "head_lexical_pool_k4": cuda_ms(
-                lambda: lexical_pool(proj, e.backbone.mlm.bias, w_pos), 5,
-                torch),
-            "head_logits_and_bias": cuda_ms(
-                lambda: e.backbone.logits(hidden[:, 1:]), 5, torch),
-            "head_softmax_f32": cuda_ms(
-                lambda: torch.softmax(logits, dim=-1, dtype=torch.float32),
-                5, torch),
-            "head_weighting": cuda_ms(lambda: probs.mul_(w), 5, torch),
-            "head_max_over_positions": cuda_ms(
-                lambda: probs.amax(dim=-2), 5, torch),
-        }
-        host = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            e.hidden_states(x, m)
-            host.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-    split["transformer_host_enqueue_ms"] = sorted(host)[2]
-    return split
+    batches, _ = bucketed_encode_batches(ids, lists, 256, 128, 101, 102)
+    packed = enc.encode_corpus(batches)
+    shape = list(packed.values.shape)
+    if shape != [len(lists), LEX_DIM + 128]:
+        raise AssertionError("Encoder planes of the wrong shape")
+    del enc
+    torch.cuda.empty_cache()
+    return {"passages": len(lists), "batch": 256, "bucketed": True,
+            "dtype": "bf16", "values": shape}
 
 
 def phase_encode_path(args, torch):
@@ -651,7 +454,7 @@ def phase_encode_path(args, torch):
     DHR head: 768 lexical dims + a 128-dim CLS projection), random weights
     from ``--seed`` in the Flax layout loaded by ``load_flax_params``:
     card against CPU, the user path through the CLI (encode -> index ->
-    search, K4, K1 and K2 launched), and the Encoder's speed.  Returns the
+    search, K4, K1 and K2 launched), and the Encoder's planes.  Returns the
     user path's launches (its encodes' and its search's)."""
     import tempfile
 
@@ -667,13 +470,13 @@ def phase_encode_path(args, torch):
     with tempfile.TemporaryDirectory() as root:
         user, toks = _encode_user_path(root, args.seed, torch, np)
     t2 = time.perf_counter()
-    timing = _encode_timing(tree, toks[:ENCODE_TIMED], torch, np)
+    planes = _encoder_planes(tree, toks[:ENCODER_PASSAGES], torch)
     emit({"phase": "encode_path", "model": "distilbert-base DHR "
           "(6x768, vocab 30522, remove_dims 570, 768 + 128 dims)",
           "weights": f"random, seed {args.seed}", "card_vs_cpu": parity,
-          "user_path": user, "timing": timing,
+          "user_path": user, "encoder_planes": planes,
           "seconds": {"card_vs_cpu": t1 - t0, "user_path": t2 - t1,
-                      "timing": time.perf_counter() - t2}})
+                      "encoder_planes": time.perf_counter() - t2}})
     torch.cuda.empty_cache()
     return {k: user["encode_launches"][k] + user["launches"][k]
             for k in user["launches"]}
@@ -901,14 +704,11 @@ def _train_and_resume(root, tree, groups, toks, torch, np):
               f"{root}/train.jsonl", "--corpus-path", f"{root}/corpus.jsonl",
               *TRAIN_FLAGS, "--warmup-steps", "10", "--save-steps",
               str(TRAIN_STEPS // 2), "--log-steps", "1"]
-    t = {}
-    t["straight"] = _run_cli([*common, "--output-dir", f"{root}/a",
-                              "--max-steps", str(TRAIN_STEPS),
-                              "--metrics-path", f"{root}/a.jsonl"], "train")
-    for name, steps in (("cut", TRAIN_STEPS // 2), ("resumed", TRAIN_STEPS)):
-        t[name] = _run_cli([*common, "--output-dir", f"{root}/b",
-                            "--max-steps", str(steps), "--metrics-path",
-                            f"{root}/b.jsonl"], "train")
+    _run_cli([*common, "--output-dir", f"{root}/a", "--max-steps",
+              str(TRAIN_STEPS), "--metrics-path", f"{root}/a.jsonl"], "train")
+    for steps in (TRAIN_STEPS // 2, TRAIN_STEPS):  # cut, then resumed
+        _run_cli([*common, "--output-dir", f"{root}/b", "--max-steps",
+                  str(steps), "--metrics-path", f"{root}/b.jsonl"], "train")
     a, b = _metrics_losses(f"{root}/a.jsonl"), _metrics_losses(
         f"{root}/b.jsonl")
     rel = np.abs(np.subtract(a, b)) / np.abs(a)
@@ -918,7 +718,6 @@ def _train_and_resume(root, tree, groups, toks, torch, np):
            "resume_bit_equal_steps": int((np.asarray(a) == np.asarray(b))
                                          .sum()),
            "loss_first10_mean": first, "loss_last10_mean": last,
-           "cli_wall_s": {k: v["train_wall_s"] for k, v in t.items()},
            "checkpoints": sorted(os.listdir(f"{root}/b"))}
     if len(a) != TRAIN_STEPS or len(b) != TRAIN_STEPS:
         raise AssertionError(f"train runs logged {len(a)} / {len(b)} steps")
@@ -953,19 +752,18 @@ def _trained_on_the_kernels(root, torch, np):
              "--bf16", "--add-pooler", "--projection-dim", "128",
              "--dlr-out-dim", str(LEX_DIM), "--batch-size", "256"]
     corpus = ["--input", f"{root}/corpus.jsonl"]
-    t_b = _run_cli(["encode", *model, *corpus, "--length-bucketing",
-                    "--output", f"{root}/corpus.npz"], "encode")
-    t_q = _run_cli(["encode", *model, "--input", f"{root}/queries.jsonl",
-                    "--output", f"{root}/q.npz", "--encode-is-qry"],
-                   "encode")
+    _run_cli(["encode", *model, *corpus, "--length-bucketing", "--output",
+              f"{root}/corpus.npz"], "encode")
+    _run_cli(["encode", *model, "--input", f"{root}/queries.jsonl",
+              "--output", f"{root}/q.npz", "--encode-is-qry"], "encode")
     _run_cli(["index", "--inputs", f"{root}/corpus.npz", "--output",
               f"{root}/index.npz", "--quantize"])
     reset_launches()
-    t_s = _run_cli(["search", "--index-path", f"{root}/index.npz",
-                    "--query-path", f"{root}/q.npz", "--topk", "1000",
-                    "--query-batch", "128", "--theta", "0.3",
-                    "--max-important-dims", "48", "--agip-topk", "10000",
-                    "--rerank", "--output", f"{root}/run.trec"], "search")
+    _run_cli(["search", "--index-path", f"{root}/index.npz", "--query-path",
+              f"{root}/q.npz", "--topk", "1000", "--query-batch", "128",
+              "--theta", "0.3", "--max-important-dims", "48",
+              "--agip-topk", "10000", "--rerank", "--output",
+              f"{root}/run.trec"], "search")
     launches = read_launches()
     want = -(-ENCODE_QUERIES // 128)  # K1 once per staging chunk
     if not (launches["partial_gip"] >= want and launches["rerank_gip"]
@@ -978,9 +776,9 @@ def _trained_on_the_kernels(root, torch, np):
             for r in run.values()):
         raise AssertionError("the trained run lacks queries, rows or finite "
                              "scores")
-    t_p = _run_cli(["encode", *model, *corpus, "--pack", "--pack-segments",
-                    "8", "--batch-size", "64", "--output",
-                    f"{root}/packed.npz"], "encode")
+    _run_cli(["encode", *model, *corpus, "--pack", "--pack-segments", "8",
+              "--batch-size", "64", "--output", f"{root}/packed.npz"],
+             "encode")
     with np.load(f"{root}/corpus.npz") as a, \
             np.load(f"{root}/packed.npz") as b:
         va, vb = a["values"].astype(np.float32), b["values"].astype(
@@ -994,11 +792,7 @@ def _trained_on_the_kernels(root, torch, np):
     if not (pack["values_rel_l2_bf16"] < 0.05
             and pack["fold_agreement_bf16"] > 0.9):
         raise AssertionError(f"encode --pack vs plain (bf16): {pack}")
-    return {"encode_passages_per_s_bucketed_b256": t_b["items_per_s"],
-            "encode_passages_per_s_packed_64rows_8seg": t_p["items_per_s"],
-            "queries_per_s_encode": t_q["items_per_s"],
-            "search_qps": t_s["qps"], "launches": launches,
-            "packed_vs_bucketed": pack}
+    return {"launches": launches, "packed_vs_bucketed": pack}
 
 
 def _packed_encode_f32(tree, toks, torch, np):
@@ -1037,7 +831,7 @@ def _packed_encode_f32(tree, toks, torch, np):
     return res
 
 
-def _timed_batches(groups, toks, n, torch, packed=False):
+def _step_batches(groups, toks, n, torch, packed=False):
     """The first ``n`` batches of the documented loader; packed, at the
     row count that the most packed of them needs, so that every batch has
     one shape (none falls back to a row per passage)."""
@@ -1051,92 +845,15 @@ def _timed_batches(groups, toks, n, torch, packed=False):
                for b in first(pack_passages=True, pack_rows=192))
     batches = first(pack_passages=True, pack_rows=rows)
     if {b["packed_passage"]["input_ids"].shape[0] for b in batches} != {rows}:
-        raise AssertionError("packed timing batches differ in shape")
+        raise AssertionError("packed step batches differ in shape")
     return batches
 
 
-def _plain_step_split(step_fn, model, state, batch, torch):
-    """``make_train_step``'s own step by parts, by the CUDA events of its
-    recorder spans (``train.step`` and the ends of ``train.forward``,
-    ``train.loss``, ``train.backward``, ``train.optimizer``) and at the
-    transformer stack's calls (forward hooks: the queries', then the
-    passages'); the backward splits where autograd reaches the passages'
-    hidden states (a tensor hook): before it, the loss and the passages'
-    head (with whatever of the small query tower autograd interleaves);
-    after it, the transformers.  And the host's time to enqueue that step.
-    Median of 5 after a warm-up."""
-    from dhr_tpu_torch.utils import profiling
-
-    ev = {}
-
-    def mark(name):
-        ev[name] = torch.cuda.Event(enable_timing=True)
-        ev[name].record()
-
-    enc = model.encoder("passage")
-    stack = enc.backbone.encoder if enc.cfg.needs_mlm else enc.backbone
-    nth = 1 if enc.cfg.untie_encoder else 2  # the passages' call
-    calls = []
-
-    def pre(mod, args):
-        calls.append(None)
-        if len(calls) == nth:
-            mark("passage_in")
-
-    def post(mod, args, hidden):
-        if len(calls) == nth:
-            mark("passage_out")
-            hidden.register_hook(lambda g: mark("backward_transformers_in"))
-
-    hooks = [stack.register_forward_pre_hook(pre),
-             stack.register_forward_hook(post)]
-    bounds = (("start", "passage_in", "forward_queries"),
-              ("passage_in", "passage_out", "forward_passage_transformer"),
-              ("passage_out", "forward", "forward_passage_head"),
-              ("forward", "loss", "loss"),
-              ("loss", "backward_transformers_in",
-               "backward_loss_and_passage_head"),
-              ("backward_transformers_in", "backward",
-               "backward_transformers"),
-              ("backward", "optimizer", "optimizer"))
-    parts = {k: [] for _, _, k in bounds}
-    host = []
-    for i in range(6):
-        ev.clear()
-        calls.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_fn(state, batch, 0)
-        host.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        [step] = profiling.spans("train.step", t0)
-        ev["start"] = step.start_event
-        for name in ("forward", "loss", "backward", "optimizer"):
-            [span] = profiling.spans(f"train.{name}", t0)
-            ev[name] = span.end_event
-        if i:  # the first is a warm-up
-            for a, b, k in bounds:
-                parts[k].append(ev[a].elapsed_time(ev[b]))
-    for h in hooks:
-        h.remove()
-    split = {k: statistics.median(v) for k, v in parts.items()}
-    return {"plain_step_split_ms": split,
-            "plain_step_device_ms": sum(split.values()),
-            "plain_step_host_enqueue_ms": statistics.median(host[1:])}
-
-
-def _train_timing(tree, groups, toks, torch):
-    """Steps/s, passages/s and tokens/s of the plain (padded to 128),
-    packed (one row count for all its batches) and grad-cache steps in
-    bf16 at batch 24 (dropout 0.1, the documented lr): wall time over 10
-    steps after 3 warm-up steps on batches of the timed shapes, and the
-    spread of the steps (CUDA events between steps, no host wait between
-    them); the host's time to issue a step of each kind, the card idle
-    before it (median of 5); one plain step of ``make_train_step`` split
-    into forward / loss / backward / optimizer by CUDA events
-    (:func:`_plain_step_split`); training FLOPs = 3x the forward FLOPs of
-    the padded shapes (``encode_flops_per_token`` at L = 128 for passages,
-    32 for queries); peak memory."""
+def _bf16_steps(tree, groups, toks, torch):
+    """Two steps each of ``make_train_step`` (padded to 128),
+    ``make_packed_train_step`` (one row count for both batches) and
+    ``make_grad_cache_train_step`` (4 query / 8 passage chunks) in bf16 at
+    batch 24, dropout 0.1, the documented lr: every loss finite."""
     from dhr_tpu_torch.models import BiEncoder, load_flax_params
     from dhr_tpu_torch.train.optimizer import OptimizerConfig
     from dhr_tpu_torch.train.state import TrainState
@@ -1150,72 +867,20 @@ def _train_timing(tree, groups, toks, torch):
     state = TrainState.create(model, OptimizerConfig(
         learning_rate=7e-6, warmup_steps=0, total_steps=1000,
         freeze_word_embeddings=True))
-    n_warm, n_timed = 3, 5
-    q_flops = 24 * 32 * encode_flops_per_token(32)
-    out = {"batch": 24, "passages_per_step": 192, "dtype": "bf16",
-           "timed_steps": n_timed, "warm_up_steps": n_warm,
-           "peak_tflops_dense_bf16": H100_BF16_FLOPS_PER_S / 1e12}
-    modes = (
-        ("plain_padded128", make_train_step(model, cfg, loss_cfg), False),
-        ("packed", make_packed_train_step(model, cfg, loss_cfg), True),
-        ("grad_cache_4q_8p", make_grad_cache_train_step(model, cfg,
-                                                        loss_cfg, 4, 8),
-         False),
-    )
-    for name, step_fn, packed in modes:
-        batches = _timed_batches(groups, toks, n_warm + n_timed, torch,
-                                 packed)
-        timed = [b.get("packed_passage", b.get("passage"))
-                 for b in batches[n_warm:]]
-        p_tokens = sum(pp["input_ids"].size for pp in timed) / n_timed
-        real = sum(int((pp["segment_ids"] > 0).sum()) if "segment_ids" in pp
-                   else int(pp["attention_mask"].sum())
-                   for pp in timed) / n_timed
-        q_real = sum(int(b["query"]["attention_mask"].sum())
-                     for b in batches[n_warm:]) / n_timed
-        for b in batches[:n_warm]:
-            step_fn(state, b, 0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
-        t0 = time.perf_counter()
-        ev[0].record()
-        for b, e in zip(batches[n_warm:], ev[1:]):
-            loss = step_fn(state, b, 0)
-            e.record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n_timed
-        steps = sorted(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
-        host = []  # the host's time to issue a step, the card idle before
-        for b in batches[n_warm:n_warm + 5]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step_fn(state, b, 0)
-            host.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        flops = 3 * (q_flops + p_tokens * encode_flops_per_token(128))
-        out[name] = {
-            "steps_per_s": 1 / wall, "ms_per_step": wall * 1e3,
-            "step_ms_median": statistics.median(steps),
-            "step_ms_min": steps[0], "step_ms_max": steps[-1],
-            "step_ms_stdev": statistics.stdev(steps),
-            "host_ms_per_step_median": statistics.median(host),
-            "passages_per_s": 192 / wall,
-            "padded_tokens_per_s": (24 * 32 + p_tokens) / wall,
-            "passage_tokens_per_step": p_tokens,
-            "real_passage_tokens_per_step": real,
-            "real_tokens_per_s": (q_real + real) / wall,
-            "train_tflops_3x_forward": flops / wall / 1e12,
-            "share_of_bf16_peak": flops / wall / H100_BF16_FLOPS_PER_S,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "last_loss": loss.item()}
+    out = {"batch": 24, "dtype": "bf16"}
+    for name, step_fn, packed in (
+            ("plain_padded128", make_train_step(model, cfg, loss_cfg), False),
+            ("packed", make_packed_train_step(model, cfg, loss_cfg), True),
+            ("grad_cache_4q_8p", make_grad_cache_train_step(
+                model, cfg, loss_cfg, 4, 8), False)):
+        batches = _step_batches(groups, toks, 2, torch, packed)
+        out[name] = {"losses": [float(step_fn(state, b, 0))
+                                for b in batches]}
         if packed:
-            out[name]["packed_rows"] = int(timed[0]["input_ids"].shape[0])
-        if not math.isfinite(out[name]["last_loss"]):
+            out[name]["packed_rows"] = int(
+                batches[0]["packed_passage"]["input_ids"].shape[0])
+        if not all(map(math.isfinite, out[name]["losses"])):
             raise AssertionError(f"{name}: the loss is not finite")
-    out.update(_plain_step_split(
-        make_train_step(model, cfg, loss_cfg), model, state,
-        _timed_batches(groups, toks, 1, torch)[0], torch))
     del model, state
     torch.cuda.empty_cache()
     return out
@@ -1228,7 +893,7 @@ def phase_train_path(args, torch):
     against the CPU, packed and grad-cache against plain, the documented
     run (``docs/pipeline.md:25-30``) for 40 steps and its resume, the
     trained export encoded, indexed and searched on K1 and K2, packed
-    encode, and the steps' speed."""
+    encode, and the bf16 steps of each kind."""
     import tempfile
 
     import numpy as np
@@ -1258,7 +923,7 @@ def phase_train_path(args, torch):
                 root, torch, np)),
             ("packed_encode_f32", lambda: _packed_encode_f32(tree, toks,
                                                              torch, np)),
-            ("timing", lambda: _train_timing(tree, groups, toks, torch)),
+            ("bf16_steps", lambda: _bf16_steps(tree, groups, toks, torch)),
         )
         for name, fn in steps:
             t = time.perf_counter()
@@ -1324,7 +989,6 @@ def _rep_stats_on_card(torch):
     from dhr_tpu_torch.tools.rep_stats import agreement, generator_stats
 
     cfg = SynthConfig()
-    t = time.perf_counter()
     stats, corpus, queries = generator_stats(cfg, REP_STATS_ROWS, 64, 0.3,
                                              48)
     reset_launches()
@@ -1342,8 +1006,7 @@ def _rep_stats_on_card(torch):
     return {"rows": REP_STATS_ROWS, "queries": 64,
             "query_dims_above_theta": stats["query_dims_above_theta"],
             "fold_top_share_mean": stats["fold_top_share_mean"],
-            "agreement": agree, "launches": launches,
-            "seconds": time.perf_counter() - t}, launches
+            "agreement": agree, "launches": launches}, launches
 
 
 def phase_rehearsal_path(args, root, torch):
@@ -1396,8 +1059,6 @@ def phase_rehearsal_path(args, root, torch):
     keep = ("MRR@10", "Recall@1000", "nDCG@10", "Recall@100")
     emit({"phase": "rehearsal_path", "config": report["config"],
           "flags": REHEARSAL_FLAGS,
-          "wall_s": {v["verb"]: v["wall_s"] for v in report["timings"]},
-          "total_wall_s": report["total_wall_s"],
           "quality": {stage: {mode: {k: report[stage][mode][k]
                                      for k in keep}
                               for mode in ("exact", "staged")}
@@ -1411,9 +1072,7 @@ def phase_rehearsal_path(args, root, torch):
           "staged_holds_exact_quality":
               report["staged_holds_exact_quality"],
           "launches": launches, "trained_exact_vs_cpu": vs_cpu,
-          "rep_stats": rep, "seconds": secs,
-          # the tool's whole report: tools/render_pipeline_run.py renders it
-          "report": report})
+          "rep_stats": rep, "seconds": secs})
     return {k: launches[k] + rep_launches[k] for k in launches}
 
 
@@ -1769,8 +1428,6 @@ def phase_search_vs_plain(index, queries_raw, torch):
     """The whole search on the card against the same search on the CPU's
     plain PyTorch path, over the 204,803-row corpus: same final scores at
     each rank, same rows apart from ties at the candidate pool's edge."""
-    import numpy as np
-
     from dhr_tpu_torch.retrieval import DeviceIndex, SearchConfig, Searcher
 
     qv, qf = (x[:8] for x in queries_raw)
@@ -1850,9 +1507,7 @@ def phase_modes(index, queries_raw, torch):
         values=(row.values.float() * row.value_scales[None, :]).cpu().numpy(),
         indices=row.indices.cpu().numpy(), docids=index.docids,
         lex_dim=index.lex_dim)
-    t0 = time.perf_counter()
     packed = floats.quantize_pq(m=64, device="cuda")
-    out["pq_build_s"] = time.perf_counter() - t0
     again = floats.quantize_pq(m=64, device="cuda")
     if not (np.array_equal(packed.pq_codes, again.pq_codes)
             and np.array_equal(packed.pq_centroids, again.pq_centroids)):
@@ -1884,10 +1539,8 @@ def phase_modes_full(searcher, queries, torch):
     """ip over the dim-major plane, row-chunked ip over the row-major plane
     and pq (m=64) over codes of the int8 plane, each + rerank, on the main
     path's index (the row-major twin and the pq index share its planes):
-    q/s (one warm-up, three timed passes of the main path's queries), peak
-    memory, launches (K2 only) and agreement with the exact search."""
-    import numpy as np
-
+    one pass of the main path's queries each, its launches (K2 only), its
+    result and its agreement with the exact search."""
     from dhr_tpu_torch.ops.pq import train_encode_pq
     from dhr_tpu_torch.retrieval import Searcher
 
@@ -1895,36 +1548,28 @@ def phase_modes_full(searcher, queries, torch):
     idx = searcher.index
     row = dataclasses.replace(idx, values_T=None, indices_T=None)
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     codes, centroids = train_encode_pq(idx.values, 64,
                                        value_scales=idx.value_scales)
-    torch.cuda.synchronize()
-    pq_build_s = time.perf_counter() - t0
     pq = dataclasses.replace(row, pq_codes=codes, pq_centroids=centroids)
     base = searcher.config
-    n_passes = 4  # one warm-up, three timed
     out = {"phase": "modes_full", "rows": idx.num_rows,
-           "queries": int(qv.shape[0]), "query_batch": base.query_batch,
-           "pq_build_s": pq_build_s}
+           "queries": int(qv.shape[0]), "query_batch": base.query_batch}
     for name, index, mode in (("ip_dim_major", idx, "ip"),
                               ("ip_row_chunked", row, "ip"),
                               ("pq_m64", pq, "pq")):
         s = Searcher(index, dataclasses.replace(base, mode=mode))
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        qps, scores, rows = timed_passes(s, qv, qf, n_passes - 1)
+        scores, rows = s.search(qv, qf)
         launches = read_launches()
         want = {"partial_gip": 0, "gip_candidates": 0, "lexical_pool": 0,
                 "moe_combine": 0,
-                "rerank_gip": n_passes * -(-qv.shape[0] // base.query_batch)}
+                "rerank_gip": -(-qv.shape[0] // base.query_batch)}
         if launches != want:
             raise AssertionError(f"{name} launches {launches}, expected "
                                  f"{want}")
         check_result(scores, rows, qv.shape[0], base.topk, idx.num_rows)
-        out[name] = {"qps_median": float(np.median(qps)), "qps_passes": qps,
-                     "row_chunks": s._row_chunks, "launches": launches,
-                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        out[name] = {"row_chunks": s._row_chunks, "launches": launches,
                      "staged_vs_exact": agreement(rows[:erows.shape[0]],
                                                   erows)}
         del s, scores, rows
@@ -1960,18 +1605,6 @@ def read_launches() -> dict:
     return kernel_launches()
 
 
-def timed_passes(searcher, qv, qf, n_passes):
-    """One warm-up pass, then ``n_passes`` timed: ``(q/s list, scores,
-    rows)`` of the last pass."""
-    searcher.search(qv, qf)
-    qps = []
-    for _ in range(n_passes):
-        t = time.perf_counter()
-        scores, rows = searcher.search(qv, qf)
-        qps.append(qv.shape[0] / (time.perf_counter() - t))
-    return qps, scores, rows
-
-
 def check_result(scores, rows, n_queries, topk, n_rows):
     import numpy as np
 
@@ -1985,20 +1618,19 @@ def check_result(scores, rows, n_queries, topk, n_rows):
 
 
 def phase_main(args, torch):
-    """The main path at full width and the given row count."""
+    """The main path at full width and the given row count: one pass of
+    the queries, K1 and K2 once a batch, the result's form and its
+    agreement with the exact search."""
     import numpy as np
 
     from dhr_tpu_torch.retrieval import DeviceIndex, SearchConfig, Searcher
     from dhr_tpu_torch.retrieval.synth import synth_index_planes, synth_reps
 
-    t0 = time.perf_counter()
     v, f, scales, _ = synth_index_planes(args.seed, args.rows, device="cuda")
     index = DeviceIndex.from_arrays(
         v, f, np.arange(args.rows).astype(str), LEX_DIM, scales,
         device="cuda")
     del v, f
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     qv, qf, _ = synth_reps(args.seed, args.queries, role="query", stream=1,
                            device="cuda")
     above = (qv[:, :LEX_DIM] > 0.3).sum(dim=1).float()
@@ -2006,11 +1638,10 @@ def phase_main(args, torch):
                        max_important_dims=48, query_batch=128)
     searcher = Searcher(index, cfg)
 
-    n_passes = 6  # one warm-up, five timed
     reset_launches()
-    qps, scores, rows = timed_passes(searcher, qv, qf, n_passes - 1)
+    scores, rows = searcher.search(qv, qf)
     launches = read_launches()
-    want_launches = n_passes * -(-args.queries // cfg.query_batch)
+    want_launches = -(-args.queries // cfg.query_batch)  # once a batch
     emit({"phase": "kernels", "path": "main", "launches": launches,
           "expected": {"partial_gip": want_launches,
                        "rerank_gip": want_launches, "gip_candidates": 0,
@@ -2037,33 +1668,19 @@ def phase_main(args, torch):
                              "expected K1 once, K2 and K3 never")
     agree = agreement(rows[:n_agree], erows)
 
-    # per-stage device times of the first batch (CUDA events)
+    # the first batch's candidates: the kernels' shapes in phase_timing
     bs = cfg.query_batch
     qvb, qv1b, qib = searcher.prepare_queries(qv[:bs], qf[:bs])
-    scores = searcher.stage1(qv1b, qib)
-    _, cand = searcher.select(scores)
-    stage_ms = {
-        "theta_kernel_k1": cuda_ms(lambda: searcher.stage1(qv1b, qib), 3,
-                                   torch),
-        "candidate_select": cuda_ms(lambda: searcher.select(scores), 3,
-                                    torch),
-        "rerank_k2_and_topk": cuda_ms(
-            lambda: searcher.stage2(qvb, qib, cand), 3, torch),
-    }
+    _, cand = searcher.select(searcher.stage1(qv1b, qib))
     emit({
         "phase": "main_path", "rows": args.rows,
         "rows_full_size": args.rows == MSMARCO_PASSAGES,
         "queries": args.queries, "query_batch": bs,
-        "index_build_s": build_s,
         "index_bytes": sum(t.untyped_storage().nbytes() for t in (
             index.values, index.values_T, index.indices, index.indices_T)),
-        "qps_median": float(np.median(qps)), "qps_passes": qps,
-        "stage_ms_first_batch": stage_ms,
         "query_dims_above_theta_mean": float(above.mean()),
         "frac_queries_above_scan_cap": float((above > 48).float().mean()),
         "staged_vs_exact": agree, "agreement_queries": n_agree,
-        "tpu_v5e_reference_agreement_not_this_card": TPU_AGREEMENT,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
     for k, a in agree.items():
         if a < 0.99:
@@ -2075,8 +1692,6 @@ def phase_main(args, torch):
 def phase_fused(searcher, queries, torch):
     """The fused path on the main path's index and queries: K3 (G=8, packed
     ids) in place of K1 + selection over the full plane; K2 as before."""
-    import numpy as np
-
     from dhr_tpu_torch.retrieval import Searcher
 
     qv, qf, erows = queries
@@ -2086,12 +1701,10 @@ def phase_fused(searcher, queries, torch):
     if not (fused._fused and fused._packed_ids):
         raise AssertionError("the fused path did not engage")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    n_passes = 6  # one warm-up, five timed
     reset_launches()
-    qps, scores, rows = timed_passes(fused, qv, qf, n_passes - 1)
+    scores, rows = fused.search(qv, qf)
     launches = read_launches()
-    n_batches = n_passes * -(-qv.shape[0] // cfg.query_batch)
+    n_batches = -(-qv.shape[0] // cfg.query_batch)  # once a batch
     want = {"partial_gip": 0, "rerank_gip": n_batches,
             "gip_candidates": n_batches, "lexical_pool": 0,
             "moe_combine": 0}
@@ -2100,30 +1713,13 @@ def phase_fused(searcher, queries, torch):
     if launches != want:
         raise AssertionError(f"fused path launches {launches}, expected "
                              f"{want}")
-    peak = torch.cuda.max_memory_allocated() / 1e9
     check_result(scores, rows, qv.shape[0], cfg.topk, fused.index.num_rows)
     agree = agreement(rows[:erows.shape[0]], erows)
-
-    bs = cfg.query_batch
-    qvb, qv1b, qib = fused.prepare_queries(qv[:bs], qf[:bs])
-    red = fused.fused_stage1(qv1b, qib)
-    _, cand = fused.select_fused(red)
-    stage_ms = {
-        "fused_kernel_k3": cuda_ms(lambda: fused.fused_stage1(qv1b, qib), 3,
-                                   torch),
-        "candidate_select_and_decode": cuda_ms(
-            lambda: fused.select_fused(red), 3, torch),
-        "rerank_k2_and_topk": cuda_ms(lambda: fused.stage2(qvb, qib, cand),
-                                      3, torch),
-    }
     emit({
         "phase": "fused_path", "rows": fused.index.num_rows,
-        "candidate_block": cfg.candidate_block,
-        "reduced_lanes": red.shape[1], "queries": int(qv.shape[0]),
-        "query_batch": bs, "qps_median": float(np.median(qps)),
-        "qps_passes": qps, "stage_ms_first_batch": stage_ms,
-        "staged_vs_exact": agree, "agreement_queries": int(erows.shape[0]),
-        "peak_mem_gb": peak,
+        "candidate_block": cfg.candidate_block, "queries": int(qv.shape[0]),
+        "query_batch": cfg.query_batch, "staged_vs_exact": agree,
+        "agreement_queries": int(erows.shape[0]),
     })
     for k, a in agree.items():
         if a < 0.99:
@@ -2338,7 +1934,7 @@ def phase_densify_path(args, root, torch):
     if not so.startswith(checkout):
         raise AssertionError(f"native runtime loaded from {so}")
     rng = np.random.default_rng(args.seed + 7)
-    n, secs, rates = DENSIFY_PASSAGES, {}, {}
+    n, secs = DENSIFY_PASSAGES, {}
     t = time.perf_counter()
     words = np.asarray([f"w{r:x}" for r in range(DENSIFY_VOCAB)])
     lens = np.clip(rng.lognormal(np.log(50.0), 0.45, n), 8, 200).astype(int)
@@ -2346,13 +1942,8 @@ def phase_densify_path(args, root, torch):
     texts = [" ".join(w).capitalize() + "."
              for w in np.split(flat, np.cumsum(lens)[:-1])]
     del flat
-    secs["corpus"] = time.perf_counter() - t
 
-    t = time.perf_counter()
     terms = [simple_analyzer(x) for x in texts]
-    secs["analyze"] = time.perf_counter() - t
-    rates["analyze_docs_per_s"] = n / secs["analyze"]
-    t = time.perf_counter()
     dic = TermDictionary()
     for ts in terms:
         dic.add_document(ts)
@@ -2361,11 +1952,7 @@ def phase_densify_path(args, root, torch):
     np.cumsum([len(ts) for ts in terms], out=offsets[1:])
     tokens = np.fromiter((dic.term_id(w) for ts in terms for w in ts),
                          np.int32, int(offsets[-1]))
-    secs["dictionary"] = time.perf_counter() - t
-    t = time.perf_counter()
     tids, ws, off, _ = native.bm25_csr(tokens, offsets, dic.vocab_size)
-    secs["bm25_cpp"] = time.perf_counter() - t
-    rates["bm25_cpp_docs_per_s"] = n / secs["bm25_cpp"]
     vec = BM25Vectorizer(dic)
     for d in range(4):  # the C++ weights are the Python vectorizer's
         want = vec.doc_vector(terms[d])
@@ -2378,13 +1965,9 @@ def phase_densify_path(args, root, torch):
     del terms
     cfg = DensifyConfig(model="bm25")
     vocab = cfg.padded_vocab(dic.vocab_size)
-    t = time.perf_counter()
     _, folds, collisions = native.densify_csr(tids, ws, off, cfg.omission,
                                               cfg.out_dim, vocab)
-    secs["densify_cpp"] = time.perf_counter() - t
-    rates["densify_cpp_docs_per_s"] = n / secs["densify_cpp"]
 
-    t = time.perf_counter()
     vec_path = f"{root}/bm25_vectors.jsonl"
     with open(vec_path, "w") as f:
         for d in range(n):
@@ -2392,19 +1975,15 @@ def phase_densify_path(args, root, torch):
             f.write('{"id": "p%d", "vector": {%s}}\n' % (d, ", ".join(
                 '"%d": %.6g' % tw for tw in zip(tids[a:b].tolist(),
                                                 ws[a:b].tolist()))))
-    secs["write_jsonl"] = time.perf_counter() - t
     del tokens, tids, ws, off
+    secs["host_bm25_to_jsonl"] = time.perf_counter() - t
 
-    dens, idx = f"{root}/densified.npz", f"{root}/densified_int8.npz"
     t = time.perf_counter()
+    dens, idx = f"{root}/densified.npz", f"{root}/densified_int8.npz"
     t_dens = _run_cli(["densify", "--input", vec_path, "--output", dens,
                        "--weight-model", "bm25", "--vocab-size",
                        str(dic.vocab_size)], "densify")
-    secs["cli_densify"] = time.perf_counter() - t
-    rates["cli_densify_docs_per_s"] = t_dens["docs_per_s"]
-    t = time.perf_counter()
     _run_cli(["index", "--inputs", dens, "--output", idx, "--quantize"])
-    secs["cli_index"] = time.perf_counter() - t
     packed = PackedIndex.load(idx)
     if (packed.indices.dtype != np.int16 or packed.values.dtype != np.int8
             or packed.values.shape != (n, LEX_DIM)
@@ -2444,10 +2023,8 @@ def phase_densify_path(args, root, torch):
     search = ["search", "--index-path", idx, "--query-path", q_path,
               "--topk", "1000", "--query-batch", "128"]
     reset_launches()
-    t = time.perf_counter()
-    t_s = _run_cli([*search, *DENSIFY_SEARCH, "--output",
-                    f"{root}/bm25.trec"], "search")
-    secs["cli_search"] = time.perf_counter() - t
+    _run_cli([*search, *DENSIFY_SEARCH, "--output", f"{root}/bm25.trec"],
+             "search")
     launches = read_launches()
     if not (launches["partial_gip"] > 0 and launches["rerank_gip"] > 0):
         raise AssertionError(f"densify path launches {launches}: K1 and K2 "
@@ -2475,20 +2052,21 @@ def phase_densify_path(args, root, torch):
     vs_cpu = _compare_runs(run, {q: list(zip(r8[q], s8[q])) for q in r8},
                            qids[:8], 1e-5)
     del cpu
+    secs["cli_and_checks"] = time.perf_counter() - t
     emit({"phase": "densify_path", "passages": n,
           "words": int(lens.sum()), "passage_words_mean": float(lens.mean()),
           "vocab_terms": dic.vocab_size - cfg.omission,
           "padded_vocab": vocab, "max_fold": max_fold,
           "fold_dtype": str(packed.indices.dtype),
           "slice_collisions": collisions,
-          "native_so": so, "rates": rates,
+          "native_so": so,
           "index_file_bytes": os.path.getsize(idx),
           "index_plane_bytes": packed.values.nbytes + packed.indices.nbytes,
           "queries": DENSIFY_QUERIES,
           "query_terms_mean": float((qv != 0).sum(axis=1).mean()),
-          "search_flags": DENSIFY_SEARCH, "search_qps": t_s["qps"],
-          "launches": launches, "vs_brute_force": vs_exact,
-          "vs_cpu_plain_8_queries": vs_cpu, "seconds": secs})
+          "search_flags": DENSIFY_SEARCH, "launches": launches,
+          "vs_brute_force": vs_exact, "vs_cpu_plain_8_queries": vs_cpu,
+          "seconds": secs})
     if vs_exact["scores_equal"] != DENSIFY_QUERIES:
         raise AssertionError(f"staged vs brute force scores: {vs_exact}")
     if vs_cpu["scores_equal"] != 8 or vs_cpu["ids_equal_up_to_ties"] != 8:
@@ -2561,22 +2139,16 @@ def _colbert_path(root, toks, q_toks, seed, torch, np):
     its checks: the CPU's plain ``full_ranking`` on 4 queries, a run forced
     into host slabs (``--plane-budget-gb 0.25``) on 128 queries and
     ``colbert-score --pairs`` over 64 queries' retrieved pairs."""
-    from dhr_tpu_torch.retrieval.colbert import full_ranking, maxsim_topk
+    from dhr_tpu_torch.retrieval.colbert import full_ranking
 
-    secs = {}
-    t = time.perf_counter()
     out = {"card_vs_cpu_f32": _colbert_card_vs_cpu(seed, toks, q_toks,
                                                    torch)}
-    secs["card_vs_cpu"] = time.perf_counter() - t
     model = ["--model", "colbert", "--add-pooler", "--projection-dim", "128",
              "--batch-size", "256"]
-    t = time.perf_counter()
-    t_p = _run_cli(["encode", *model, "--input", f"{root}/corpus.jsonl",
-                    "--output", f"{root}/p_reps"], "encode")
-    t_q = _run_cli(["encode", *model, "--input", f"{root}/queries.jsonl",
-                    "--output", f"{root}/q_reps", "--encode-is-qry"],
-                   "encode")
-    secs["cli_encode"] = time.perf_counter() - t
+    _run_cli(["encode", *model, "--input", f"{root}/corpus.jsonl",
+              "--output", f"{root}/p_reps"], "encode")
+    _run_cli(["encode", *model, "--input", f"{root}/queries.jsonl",
+              "--output", f"{root}/q_reps", "--encode-is-qry"], "encode")
     with np.load(f"{root}/p_reps.npz") as z:
         p_reps = z["token"]
     with np.load(f"{root}/q_reps.npz") as z:
@@ -2587,11 +2159,9 @@ def _colbert_path(root, toks, q_toks, seed, torch, np):
         raise AssertionError(f"token reps {p_reps.shape} {p_reps.dtype} / "
                              f"{q_reps.shape} {q_reps.dtype}")
     score = ["colbert-score", "--passage-reps", f"{root}/p_reps"]
-    t = time.perf_counter()
-    t_full = _run_cli([*score, "--query-reps", f"{root}/q_reps",
-                       "--full-ranking", "--topk", "1000", "--output",
-                       f"{root}/colbert.trec"], "colbert-score")
-    secs["cli_full_ranking"] = time.perf_counter() - t
+    _run_cli([*score, "--query-reps", f"{root}/q_reps", "--full-ranking",
+              "--topk", "1000", "--output", f"{root}/colbert.trec"],
+             "colbert-score")
     run = _read_run(f"{root}/colbert.trec")
     qids = [f"q{i}" for i in range(ENCODE_QUERIES)]
     if sorted(run) != sorted(qids) or any(
@@ -2600,33 +2170,27 @@ def _colbert_path(root, toks, q_toks, seed, torch, np):
         raise AssertionError("the ColBERT run lacks queries, rows or finite "
                              "scores")
 
-    t = time.perf_counter()
     cpu_s, cpu_r = full_ranking(q_reps[:4], p_reps, topk=1000, device="cpu")
     cpu_run = {q: [(str(r), float(s)) for r, s in zip(rr, ss)]
                for q, rr, ss in zip(qids, cpu_r, cpu_s)}
     out["vs_cpu_plain_4_queries"] = _compare_runs(run, cpu_run, qids[:4],
                                                   1e-5)
-    secs["cpu_plain_4"] = time.perf_counter() - t
 
-    t = time.perf_counter()
     np.savez(f"{root}/q128.npz", token=q_reps[:128])
     with open(f"{root}/q128.npz.ids.json", "w") as f:
         json.dump(qids[:128], f)
-    t_slab = _run_cli([*score, "--query-reps", f"{root}/q128.npz",
-                       "--full-ranking", "--topk", "1000",
-                       "--plane-budget-gb", "0.25", "--output",
-                       f"{root}/slabs.trec"], "colbert-score")
+    _run_cli([*score, "--query-reps", f"{root}/q128.npz", "--full-ranking",
+              "--topk", "1000", "--plane-budget-gb", "0.25", "--output",
+              f"{root}/slabs.trec"], "colbert-score")
     out["slabs_vs_resident_128_queries"] = _compare_runs(
         _read_run(f"{root}/slabs.trec"), run, qids[:128], 1e-6)
-    secs["cli_slabs_128"] = time.perf_counter() - t
 
-    t = time.perf_counter()
     with open(f"{root}/pairs.tsv", "w") as f:
         for q in qids[:64]:
             f.writelines(f"{q}\t{d}\n" for d, _ in run[q])
-    t_pairs = _run_cli([*score, "--query-reps", f"{root}/q_reps", "--pairs",
-                        f"{root}/pairs.tsv", "--output",
-                        f"{root}/pairs_scores.tsv"], "colbert-score")
+    _run_cli([*score, "--query-reps", f"{root}/q_reps", "--pairs",
+              f"{root}/pairs.tsv", "--output", f"{root}/pairs_scores.tsv"],
+             "colbert-score")
     with open(f"{root}/pairs_scores.tsv") as f:
         got = np.asarray([float(line.split("\t")[2]) for line in f])
     want = np.asarray([s for q in qids[:64] for _, s in run[q]])
@@ -2635,45 +2199,8 @@ def _colbert_path(root, toks, q_toks, seed, torch, np):
         "max_rel_diff_of_scale": float(np.abs(got - want).max()
                                        / np.abs(want).max()),
         "max_rel_diff": float((np.abs(got - want) / np.abs(want)).max())}
-    secs["cli_pairs_64"] = time.perf_counter() - t
-
-    # one 16-query pass over one 512-passage slab on the card, alone, and
-    # its parts: the slab's f32 cast, the GEMM of every position pair, the
-    # max and sum over that block, the merge with 1,000 kept scores
-    q16 = torch.from_numpy(q_reps[:16]).cuda()
-    slab = torch.from_numpy(p_reps[:512]).cuda()
-    with torch.inference_mode():
-        slab_ms = cuda_ms(lambda: maxsim_topk(q16, slab, 1000, 512), 20,
-                          torch)
-        qf, pf = q16.float().reshape(-1, 128), slab.float().reshape(-1, 128)
-        sim = (qf @ pf.T).view(16, 32, 512, 128)
-        kept = torch.cat([torch.randn(16, 1000, device="cuda"),
-                          sim[:, 1:, :, 1:].amax(-1).sum(1)], dim=1)
-        pass_split = {
-            "cast_f32": cuda_ms(lambda: slab.float(), 20, torch),
-            "gemm": cuda_ms(lambda: qf @ pf.T, 20, torch),
-            "max_sum": cuda_ms(
-                lambda: sim[:, 1:, :, 1:].amax(-1).sum(1), 20, torch),
-            "merge_sort": cuda_ms(lambda: torch.sort(
-                kept, dim=1, descending=True, stable=True), 20, torch),
-            "similarity_block_gb": sim.numel() * 4 / 1e9}
-    del q16, slab, qf, pf, sim, kept
-    pair_flops = 2 * 31 * 127 * 128
-    flops = pair_flops * ENCODE_QUERIES * ENCODE_PASSAGES
-    out.update({
-        "passages": ENCODE_PASSAGES, "queries": ENCODE_QUERIES,
-        "plane_gb": p_reps.nbytes / 1e9, "topk": 1000,
-        "encode_passages_per_s_cli_b256": t_p["items_per_s"],
-        "encode_queries_per_s_cli_b256": t_q["items_per_s"],
-        "full_ranking_qps": t_full["qps"],
-        "full_ranking_wall_s": t_full["rank_wall_s"],
-        "full_ranking_tflops": flops / t_full["rank_wall_s"] / 1e12,
-        "share_of_f32_peak": flops / t_full["rank_wall_s"] / F32_FLOPS_PER_S,
-        "flop_bound_s": flops / F32_FLOPS_PER_S,
-        "slab_pass_ms_16x512": slab_ms, "slab_pass_split_ms": pass_split,
-        "slab_pass_tflops": pair_flops * 16 * 512 / slab_ms / 1e9,
-        "slabs_qps_128": t_slab["qps"], "pairs_per_s": t_pairs["pairs_per_s"],
-        "flop_per_pair": pair_flops, "seconds": secs})
+    out.update({"passages": ENCODE_PASSAGES, "queries": ENCODE_QUERIES,
+                "plane_gb": p_reps.nbytes / 1e9, "topk": 1000})
     vc = out["vs_cpu_plain_4_queries"]
     if vc["scores_equal"] != 4 or vc["ids_equal_up_to_ties"] != 4:
         raise AssertionError(f"ColBERT card vs CPU plain: {vc}")
@@ -2697,8 +2224,7 @@ def _rerank_eval_path(root, seed, toks, q_toks, torch, np):
     from dhr_tpu_torch.models import (
         BiEncoder, load_flax_params, random_flax_params)
 
-    secs, out = {}, {}
-    t = time.perf_counter()
+    out = {}
     for name, cfg, tree_seed, n in (
             ("dhr", _dhr_config(torch.float32), seed, 32),
             ("colbert", _colbert_config(torch.float32), seed + 9, 8)):
@@ -2714,7 +2240,6 @@ def _rerank_eval_path(root, seed, toks, q_toks, torch, np):
         out[f"{name}_card_vs_cpu_f32_{n}_pairs"] = _rel_diff(got, want,
                                                              torch)
         del model
-    secs["card_vs_cpu"] = time.perf_counter() - t
     if max(out.values()) > 1e-5:
         raise AssertionError(f"pair scorer card vs CPU f32: {out}")
 
@@ -2728,12 +2253,10 @@ def _rerank_eval_path(root, seed, toks, q_toks, torch, np):
                      "psg_text_id": str(d), "psg_text": toks[d].tolist(),
                      "rel": int(j < n_rel[-1])} for j, d in enumerate(cand))
     write_jsonl(f"{root}/rerank_eval.jsonl", rows)
-    t = time.perf_counter()
-    timing, metrics = _run_cli([
+    _, metrics = _run_cli([
         "rerank-eval", "--model", "dhr", "--add-pooler", "--projection-dim",
         "128", "--dlr-out-dim", str(LEX_DIM), "--batch-size", "256",
         "--input", f"{root}/rerank_eval.jsonl"], "rerank-eval", stdout=True)
-    secs["cli_rerank_eval"] = time.perf_counter() - t
     if metrics.get("num_queries") != EVAL_RERANK_QUERIES or not all(
             np.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"rerank-eval metrics {metrics}")
@@ -2741,9 +2264,7 @@ def _rerank_eval_path(root, seed, toks, q_toks, torch, np):
                 "candidates_per_query": EVAL_RERANK_CANDIDATES,
                 "relevant_per_query_mean": float(np.mean(n_rel)),
                 "pairs": len(rows), "batch": 256,
-                "pairs_per_s": len(rows) / timing["rerank_wall_s"],
-                "wall_s": timing["rerank_wall_s"],
-                "metrics_random_weights": metrics, "seconds": secs})
+                "metrics_random_weights": metrics})
     return out
 
 
@@ -2891,12 +2412,9 @@ def _beir_path(root, seed, torch, np):
     from dhr_tpu_torch.models import (
         BiEncoder, load_flax_params, random_flax_params)
     from dhr_tpu_torch.retrieval.searcher import SearchConfig
-    from dhr_tpu_torch.utils import profiling
 
-    t = time.perf_counter()
     d, shape = _beir_dataset(root, seed, np)
-    out = {"dataset": shape,
-           "seconds_write_dataset": time.perf_counter() - t}
+    out = {"dataset": shape}
     cfg = _dhr_config(torch.bfloat16)
     enc = Encoder(load_flax_params(BiEncoder(cfg), random_flax_params(
         _dhr_config(torch.float32), torch.Generator().manual_seed(seed))),
@@ -2908,23 +2426,16 @@ def _beir_path(root, seed, torch, np):
             ("theta0.3_rerank", SearchConfig(topk=1000, theta=0.3,
                                              rerank=True, agip_topk=10000,
                                              query_batch=64))):
-        t = time.perf_counter()
         reset_launches()
         with _BeirCapture() as cap:
             metrics = evaluate_beir(enc, search, d, HashTokenizer(),
                                     cls_id=101, sep_id=102,
                                     length_bucketing=True)
         got = read_launches()
-        wall = time.perf_counter() - t
-        split = {k.split(".")[1]: v["total_s"]
-                 for k, v in profiling.report().items()
-                 if k.startswith("beir.")}
-        split["encode"] -= split["tokenize"]  # tokenize runs inside encode
         results, _ = cap.results
         vs = _vs_brute_force(cap, torch, np)
         self_after = sum(q in cap.run[q] for q in cap.run)
         out[name] = {"metrics_random_weights": metrics, "launches": got,
-                     "wall_s": wall, "split_s": split,
                      "self_hits_before_filter": sum(
                          q in results[q] for q in results),
                      "self_hits_after_filter": self_after,
@@ -3006,7 +2517,6 @@ FAMILY_STEPS = 40              # the CLI runs (warmup 10), as train_path's
 # random dlr model's lexical scores start near 0 (softmax over 30,522
 # terms), and at 7e-6 its loss moves in the 7th digit in 40 steps
 FAMILY_TRAIN_FLAGS = [*TRAIN_FLAGS, "--learning-rate", "1e-4"]
-FAMILY_TIMED = 4_096           # passages of each variant's Encoder timing
 FAMILY_CHECKED = 4             # exact-run queries held on the CPU
 
 
@@ -3266,34 +2776,6 @@ def _family_train_card_vs_cpu(variant, mode, init, teacher, corpus, groups,
     return res
 
 
-def _family_encoder_rate(variant, init, toks, torch, np):
-    """Encoder passages/s of the variant (bf16, batch 256, length-bucketed)
-    over the first 4,096 passages, after one warm-up pass over 1,024."""
-    from dhr_tpu_torch.encode import (
-        EncodeConfig, Encoder, bucketed_encode_batches)
-
-    model, cfg = _family_model(variant, init, torch.bfloat16, torch)
-    enc = Encoder(model, cfg, EncodeConfig(batch_size=256,
-                                           remove_dims=ENCODE_REMOVE_DIMS))
-    texts = [t.tolist() for t in toks[:FAMILY_TIMED]]
-    ids = [str(i) for i in range(FAMILY_TIMED)]
-
-    def run(n):
-        batches, _ = bucketed_encode_batches(ids[:n], texts[:n], 256, 128,
-                                             101, 102)
-        t = time.perf_counter()
-        enc.encode_corpus(batches)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
-
-    run(1_024)
-    wall = run(FAMILY_TIMED)
-    del enc, model
-    torch.cuda.empty_cache()
-    return {"passages": FAMILY_TIMED, "via": "Encoder",
-            "passages_per_s": FAMILY_TIMED / wall, "wall_s": wall}
-
-
 def _family_exact_vs_cpu(d, run_path, torch, np):
     """The card's exact run (``--IP``, or GIP at theta 0 for planes with
     folds: dlr, dhr) against the CPU's brute force over the same planes and
@@ -3346,25 +2828,17 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
     flags = [*FAMILY_VARIANTS[variant], *FAMILY_COMMON]
     extra = {"kd": ["--kd"], "tct": ["--tct", "--teacher-path", teacher],
              "plain": []}[mode]
-    secs = {}
-    t = time.perf_counter()
-    t_train = _run_cli(["train", *flags, "--model-name-or-path", init,
-                        "--train-path", paths["train"], "--corpus-path",
-                        paths["corpus"], *FAMILY_TRAIN_FLAGS, *extra,
-                        "--warmup-steps", "10", "--max-steps",
-                        str(FAMILY_STEPS), "--save-steps", str(FAMILY_STEPS),
-                        "--log-steps", "1", "--metrics-path",
-                        f"{d}.jsonl", "--output-dir", d], "train")
-    secs["train"] = time.perf_counter() - t
-    with open(f"{d}.jsonl") as f:
-        rows = [json.loads(line) for line in f]
-    losses = [r["loss"] for r in rows]
+    _run_cli(["train", *flags, "--model-name-or-path", init, "--train-path",
+              paths["train"], "--corpus-path", paths["corpus"],
+              *FAMILY_TRAIN_FLAGS, *extra, "--warmup-steps", "10",
+              "--max-steps", str(FAMILY_STEPS), "--save-steps",
+              str(FAMILY_STEPS), "--log-steps", "1", "--metrics-path",
+              f"{d}.jsonl", "--output-dir", d], "train")
+    losses = _metrics_losses(f"{d}.jsonl")
     if len(losses) != FAMILY_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"{variant} train: {losses}")
-    step_ms = [1e3 / r["steps_per_sec"] for r in rows[-10:]]
     # the loss the run trains with (margin-KD's from the batch), in eval
     # mode and f32, before and after
-    t = time.perf_counter()
     loader = TrainLoader(groups, SamplingConfig(
         n_passages=8, q_max_len=32, p_max_len=128, seed=42, cls_id=101,
         sep_id=102), batch_size=24, corpus=corpus, kd=mode == "kd")
@@ -3385,26 +2859,23 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
     after = eval_loss()
     del model, snap, batches
     torch.cuda.empty_cache()
-    secs["eval_loss"] = time.perf_counter() - t
     if not after < before:
         raise AssertionError(f"{variant}: the loss did not fall ({before} "
                              f"-> {after})")
 
     enc = ["encode", *flags, "--model-name-or-path", f"{d}/export", "--bf16",
            "--batch-size", "256"]
-    t = time.perf_counter()
     reset_launches()
-    t_p = _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
-                    "--output", f"{d}/corpus.npz"], "encode")
-    t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
-                    f"{d}/q.npz", "--encode-is-qry"], "encode")
+    _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
+              "--output", f"{d}/corpus.npz"], "encode")
+    _run_cli([*enc, "--input", paths["queries"], "--output", f"{d}/q.npz",
+              "--encode-is-qry"], "encode")
     launches = read_launches()   # K4 where the family has an MLM head
     if (launches["lexical_pool"] > 0) != (variant != "dense-cls"):
         raise AssertionError(f"{variant} encode launches {launches}")
     _run_cli(["index", "--inputs", f"{d}/corpus.npz", "--output",
               f"{d}/index.npz", *(["--quantize", "--lex-dim", str(LEX_DIM)]
                                   if variant == "dlr" else [])])
-    secs["encode_index"] = time.perf_counter() - t
     with np.load(f"{d}/index.npz") as z:
         planes = {k: [list(z[k].shape), str(z[k].dtype)] for k in z.files
                   if k in ("values", "indices")}
@@ -3418,11 +2889,10 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
              "staged": ["--theta", "0.3", "--rerank", "--agip-topk",
                         "10000"]} if variant == "dlr" else {"exact": ["--IP"]})
     out = {}
-    t = time.perf_counter()
     for label, sflags in runs.items():
         reset_launches()
-        t_s = _run_cli([*search, *sflags, "--output", f"{d}/{label}.trec"],
-                       "search")
+        _run_cli([*search, *sflags, "--output", f"{d}/{label}.trec"],
+                 "search")
         got = read_launches()
         if variant == "dlr" and not (got["partial_gip"] > 0 and (
                 got["rerank_gip"] > 0) == (label == "staged")):
@@ -3432,18 +2902,14 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
             launches[k] += got[k]
         _, metrics = _run_cli(["eval", "--qrels", paths["qrels"], "--run",
                                f"{d}/{label}.trec"], stdout=True)
-        out[label] = {"flags": sflags, "qps": t_s["qps"], "launches": got,
-                      "metrics": metrics}
-    secs["search_eval"] = time.perf_counter() - t
+        out[label] = {"flags": sflags, "launches": got, "metrics": metrics}
     run = _read_run(f"{d}/exact.trec")
     if len(run) != FAMILY_QUERIES or any(
             len(r) != 1000 or not np.isfinite([s for _, s in r]).all()
             for r in run.values()):
         raise AssertionError(f"{variant}: the run lacks queries, rows or "
                              "finite scores")
-    t = time.perf_counter()
     vs = _family_exact_vs_cpu(d, f"{d}/exact.trec", torch, np)
-    secs["exact_vs_cpu"] = time.perf_counter() - t
     if vs["scores_match_exact"] != FAMILY_CHECKED \
             or vs["ranks_equal_up_to_ties"] != FAMILY_CHECKED:
         raise AssertionError(f"{variant} exact run vs the CPU: {vs}")
@@ -3456,21 +2922,16 @@ def _family_chain(root, variant, mode, init, teacher, paths, corpus, groups,
     return {"mode": mode, "steps": len(losses),
             "loss_first_last": [losses[0], losses[-1]],
             "eval_loss_first_96_queries": [before, after],
-            "train_step_ms_median_last10": statistics.median(step_ms),
-            "train_wall_s": t_train["train_wall_s"],
-            "encode_passages_per_s_cli_b256_bucketed": t_p["items_per_s"],
-            "encode_queries_per_s_cli": t_q["items_per_s"],
             "index_planes": planes, "search": out,
-            "exact_vs_cpu_4_queries": vs, "seconds": secs}, launches
+            "exact_vs_cpu_4_queries": vs}, launches
 
 
 def phase_family_path(args, root, smi, torch):
     """The retriever families at DistilBERT-base width from one random tree
     (train_path's DHR tree, exported as an HF directory; each family loads
     what it uses of it): for each of dense-cls, dense-mean, agg-full,
-    agg-semi, agg-skip-mlm and dlr, card against CPU f32 reps and the
-    passages/s at batch 256, bucketed, bf16 (the chains' encode verb, else
-    the Encoder); one f32 train step card against CPU for agg
+    agg-semi, agg-skip-mlm and dlr, card against CPU f32 reps; one f32
+    train step card against CPU for agg
     (margin-KD), dense (TCT, the ColBERT tree of eval_path's check as the
     teacher) and dlr; then the CLI chain train -> encode -> index ->
     search -> eval for dense-cls, agg-full and dlr.  Returns the chains'
@@ -3497,15 +2958,10 @@ def phase_family_path(args, root, smi, torch):
                 cfg, torch.Generator().manual_seed(seed))), cfg)
     init, teacher = f"{root}/init", f"{root}/teacher"
     secs["setup"] = time.perf_counter() - t
-    parity, rates = {}, {}
     t = time.perf_counter()
-    for variant in FAMILY_VARIANTS:
-        parity[variant] = _family_card_vs_cpu(variant, init, toks, q_toks,
-                                              torch, np)
-        if variant not in FAMILY_CHAINS:  # a chain's encode verb times it
-            rates[variant] = _family_encoder_rate(variant, init, toks,
-                                                  torch, np)
-    secs["card_vs_cpu_and_rates"] = time.perf_counter() - t
+    parity = {v: _family_card_vs_cpu(v, init, toks, q_toks, torch, np)
+              for v in FAMILY_VARIANTS}
+    secs["card_vs_cpu"] = time.perf_counter() - t
     t = time.perf_counter()
     corpus = Corpus([str(i) for i in range(len(toks))],
                     [x.tolist() for x in toks])
@@ -3522,10 +2978,6 @@ def phase_family_path(args, root, smi, torch):
         for k in launches:
             launches[k] += got[k]
         secs[f"chain_{variant}"] = time.perf_counter() - t
-        rates[variant] = {
-            "passages": FAMILY_PASSAGES, "via": "encode verb",
-            "passages_per_s":
-                chains[variant]["encode_passages_per_s_cli_b256_bucketed"]}
     emit({"phase": "family_path", "card": smi,
           "model": "distilbert-base (6x768, 12 heads, FFN 3072, vocab "
           "30522): dense (cls / mean, projection 128), agg (agg_dim 640: "
@@ -3534,9 +2986,8 @@ def phase_family_path(args, root, smi, torch):
           f"an HF directory; teacher: ColBERT, seed {args.seed + 9}",
           "world": {"passages": FAMILY_PASSAGES, "queries": FAMILY_QUERIES,
                     "train_groups": FAMILY_GROUPS},
-          "card_vs_cpu": parity, "encoder_rate_b256_bucketed_bf16": rates,
-          "train_step_card_vs_cpu_f32": steps, "chains": chains,
-          "launches": launches, "seconds": secs})
+          "card_vs_cpu": parity, "train_step_card_vs_cpu_f32": steps,
+          "chains": chains, "launches": launches, "seconds": secs})
     torch.cuda.empty_cache()
     return launches
 
@@ -3789,25 +3240,18 @@ def _bert_steps_card_vs_cpu(init, untied, clusters, corpus, groups, torch):
 
 def _bert_train(d, flags, init, paths, extra, torch, np):
     """``train`` (the documented 24 x 8 bf16 batch, lr 1e-4, 40 steps,
-    warmup 10) from ``init`` through the CLI: ``(its DHR_TIMING line, the
-    per-step losses, the median ms of the last 10 steps, the process's
-    peak allocated GB during the run)``."""
+    warmup 10) from ``init`` through the CLI: the per-step losses, each
+    finite."""
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t_train = _run_cli(["train", *flags, "--model-name-or-path", init,
-                        "--train-path", paths["train"], "--corpus-path",
-                        paths["corpus"], *FAMILY_TRAIN_FLAGS, *extra,
-                        "--warmup-steps", "10", "--max-steps",
-                        str(BERT_STEPS), "--log-steps", "1", "--metrics-path", f"{d}.jsonl",
-                        "--output-dir", d], "train")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    with open(f"{d}.jsonl") as f:
-        rows = [json.loads(line) for line in f]
-    losses = [r["loss"] for r in rows]
+    _run_cli(["train", *flags, "--model-name-or-path", init, "--train-path",
+              paths["train"], "--corpus-path", paths["corpus"],
+              *FAMILY_TRAIN_FLAGS, *extra, "--warmup-steps", "10",
+              "--max-steps", str(BERT_STEPS), "--log-steps", "1",
+              "--metrics-path", f"{d}.jsonl", "--output-dir", d], "train")
+    losses = _metrics_losses(f"{d}.jsonl")
     if len(losses) != BERT_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"bert train {flags}: {losses}")
-    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in rows[-10:])
-    return t_train, losses, step_ms, peak
+    return losses
 
 
 def _bert_eval_loss(d, flags, init, groups, corpus, torch):
@@ -3855,15 +3299,9 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
 
     d = f"{root}/dhr"
     flags = [*BERT_DHR_FLAGS, "--untie-encoder"]
-    secs = {}
-    t = time.perf_counter()
-    t_train, losses, step_ms, peak = _bert_train(
-        d, flags, init, paths, ["--query-cluster-path", paths["clusters"]],
-        torch, np)
-    secs["train"] = time.perf_counter() - t
-    t = time.perf_counter()
+    losses = _bert_train(d, flags, init, paths, ["--query-cluster-path",
+                                                 paths["clusters"]], torch, np)
     eval_loss = _bert_eval_loss(d, flags, init, groups, corpus, torch)
-    secs["eval_loss"] = time.perf_counter() - t
     export = f"{d}/export"
     layout = {tower: TOKEN_TYPE_KEY in load_hf_state_dict(
         f"{export}/{tower}") for tower in ("query_model", "passage_model")}
@@ -3872,18 +3310,16 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
 
     enc = ["encode", *flags, "--model-name-or-path", export, "--bf16",
            "--batch-size", "256"]
-    t = time.perf_counter()
     reset_launches()
-    t_p = _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
-                    "--output", f"{d}/corpus.npz"], "encode")
-    t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
-                    f"{d}/q.npz", "--encode-is-qry"], "encode")
+    _run_cli([*enc, "--input", paths["corpus"], "--length-bucketing",
+              "--output", f"{d}/corpus.npz"], "encode")
+    _run_cli([*enc, "--input", paths["queries"], "--output", f"{d}/q.npz",
+              "--encode-is-qry"], "encode")
     launches = read_launches()   # K4, once a batch
     if not launches["lexical_pool"] > 0:
         raise AssertionError(f"bert encode launches {launches}")
     _run_cli(["index", "--inputs", f"{d}/corpus.npz", "--output",
               f"{d}/index.npz", "--quantize"])
-    secs["encode_index"] = time.perf_counter() - t
     with np.load(f"{d}/index.npz") as z:
         planes = {k: [list(z[k].shape), str(z[k].dtype)] for k in
                   ("values", "indices")}
@@ -3893,13 +3329,12 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
     search = ["search", "--index-path", f"{d}/index.npz", "--query-path",
               f"{d}/q.npz", "--topk", "1000", "--query-batch", "128"]
     out = {}
-    t = time.perf_counter()
     for label, sflags in (("exact", ["--theta", "0"]),
                           ("staged", ["--theta", "0.3", "--rerank",
                                       "--agip-topk", "10000"])):
         reset_launches()
-        t_s = _run_cli([*search, *sflags, "--output", f"{d}/{label}.trec"],
-                       "search")
+        _run_cli([*search, *sflags, "--output", f"{d}/{label}.trec"],
+                 "search")
         got = read_launches()
         if not (got["partial_gip"] > 0 and (
                 got["rerank_gip"] > 0) == (label == "staged")):
@@ -3909,9 +3344,7 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
             launches[k] += got[k]
         _, metrics = _run_cli(["eval", "--qrels", paths["qrels"], "--run",
                                f"{d}/{label}.trec"], stdout=True)
-        out[label] = {"flags": sflags, "qps": t_s["qps"], "launches": got,
-                      "metrics": metrics}
-    secs["search_eval"] = time.perf_counter() - t
+        out[label] = {"flags": sflags, "launches": got, "metrics": metrics}
     run, staged = _read_run(f"{d}/exact.trec"), _read_run(
         f"{d}/staged.trec")
     if len(run) != FAMILY_QUERIES or any(
@@ -3923,23 +3356,15 @@ def _bert_dhr_chain(root, init, paths, corpus, groups, torch, np):
     out["staged"]["agreement_vs_exact"] = agreement(
         [np.array([x for x, _ in staged[q]]) for q in qids],
         [np.array([x for x, _ in run[q]]) for q in qids])
-    t = time.perf_counter()
     vs = _family_exact_vs_cpu(d, f"{d}/exact.trec", torch, np)
-    secs["exact_vs_cpu"] = time.perf_counter() - t
     if vs["scores_match_exact"] != BERT_CHECKED \
             or vs["ranks_equal_up_to_ties"] != BERT_CHECKED:
         raise AssertionError(f"bert exact run vs the CPU: {vs}")
     return {"flags": flags, "steps": len(losses),
             "loss_first_last": [losses[0], losses[-1]],
             "eval_loss_first_96_queries": eval_loss,
-            "train_step_ms_median_last10": step_ms,
-            "train_peak_allocated_gb": peak,
-            "train_wall_s": t_train["train_wall_s"],
-            "export_token_types": layout,
-            "encode_passages_per_s_cli_b256_bucketed": t_p["items_per_s"],
-            "encode_queries_per_s_cli": t_q["items_per_s"],
-            "index_planes": planes, "search": out,
-            "exact_vs_cpu_4_queries": vs, "seconds": secs}, launches
+            "export_token_types": layout, "index_planes": planes,
+            "search": out, "exact_vs_cpu_4_queries": vs}, launches
 
 
 def _bert_colbert_chain(root, init, paths, corpus, groups, torch, np):
@@ -3952,26 +3377,19 @@ def _bert_colbert_chain(root, init, paths, corpus, groups, torch, np):
     from dhr_tpu_torch.retrieval.colbert import full_ranking
 
     d = f"{root}/colbert"
-    secs = {}
-    t = time.perf_counter()
-    t_train, losses, step_ms, peak = _bert_train(
-        d, BERT_COLBERT_FLAGS, init, paths, ["--pack-passages"], torch, np)
-    secs["train"] = time.perf_counter() - t
-    t = time.perf_counter()
+    losses = _bert_train(d, BERT_COLBERT_FLAGS, init, paths,
+                         ["--pack-passages"], torch, np)
     eval_loss = _bert_eval_loss(d, BERT_COLBERT_FLAGS, init, groups, corpus,
                                 torch)
-    secs["eval_loss"] = time.perf_counter() - t
     export = f"{d}/export"
     if TOKEN_TYPE_KEY not in load_hf_state_dict(export):
         raise AssertionError("bert ColBERT export lacks token types")
     enc = ["encode", *BERT_COLBERT_FLAGS, "--model-name-or-path", export,
            "--bf16", "--batch-size", "256"]
-    t = time.perf_counter()
-    t_p = _run_cli([*enc, "--input", paths["corpus"], "--output",
-                    f"{d}/p_reps"], "encode")
-    t_q = _run_cli([*enc, "--input", paths["queries"], "--output",
-                    f"{d}/q_reps", "--encode-is-qry"], "encode")
-    secs["encode"] = time.perf_counter() - t
+    _run_cli([*enc, "--input", paths["corpus"], "--output", f"{d}/p_reps"],
+             "encode")
+    _run_cli([*enc, "--input", paths["queries"], "--output", f"{d}/q_reps",
+              "--encode-is-qry"], "encode")
     with np.load(f"{d}/p_reps.npz") as z:
         p_reps = z["token"]
     with np.load(f"{d}/q_reps.npz") as z:
@@ -3980,12 +3398,9 @@ def _bert_colbert_chain(root, init, paths, corpus, groups, torch, np):
             or q_reps.shape != (FAMILY_QUERIES, 32, 128)):
         raise AssertionError(f"bert ColBERT reps {p_reps.shape} / "
                              f"{q_reps.shape}")
-    t = time.perf_counter()
-    t_full = _run_cli(["colbert-score", "--passage-reps", f"{d}/p_reps",
-                       "--query-reps", f"{d}/q_reps", "--full-ranking",
-                       "--topk", "1000", "--output", f"{d}/colbert.trec"],
-                      "colbert-score")
-    secs["full_ranking"] = time.perf_counter() - t
+    _run_cli(["colbert-score", "--passage-reps", f"{d}/p_reps",
+              "--query-reps", f"{d}/q_reps", "--full-ranking", "--topk",
+              "1000", "--output", f"{d}/colbert.trec"], "colbert-score")
     run = _read_run(f"{d}/colbert.trec")
     qids = [f"q{i}" for i in range(FAMILY_QUERIES)]
     if sorted(run) != sorted(qids) or any(
@@ -3995,7 +3410,6 @@ def _bert_colbert_chain(root, init, paths, corpus, groups, torch, np):
                              "finite scores")
     # every passage's score on the CPU's plain path, held by PR 9's rule:
     # trained token reps tie more often than random ones, in chains
-    t = time.perf_counter()
     cpu_s, cpu_r = full_ranking(q_reps[:BERT_CHECKED], p_reps,
                                 topk=FAMILY_PASSAGES, device="cpu")
     exact = np.empty_like(cpu_s)
@@ -4004,7 +3418,6 @@ def _bert_colbert_chain(root, init, paths, corpus, groups, torch, np):
     vc = _vs_exact(checked, {q: [doc for doc, _ in run[q]] for q in checked},
                    {q: [sc for _, sc in run[q]] for q in checked}, exact,
                    [str(i) for i in range(FAMILY_PASSAGES)], np)
-    secs["cpu_plain_4"] = time.perf_counter() - t
     if vc["scores_match_exact"] != BERT_CHECKED \
             or vc["ranks_equal_up_to_ties"] != BERT_CHECKED:
         raise AssertionError(f"bert ColBERT run vs CPU plain: {vc}")
@@ -4013,14 +3426,8 @@ def _bert_colbert_chain(root, init, paths, corpus, groups, torch, np):
     del p_reps, q_reps
     return {"flags": [*BERT_COLBERT_FLAGS, "--pack-passages"],
             "steps": len(losses), "loss_first_last": [losses[0], losses[-1]],
-            "eval_loss_first_96_queries": eval_loss,
-            "train_step_ms_median_last10": step_ms,
-            "train_peak_allocated_gb": peak,
-            "train_wall_s": t_train["train_wall_s"],
-            "encode_passages_per_s_cli_b256": t_p["items_per_s"],
-            "encode_queries_per_s_cli_b256": t_q["items_per_s"],
-            "full_ranking_qps": t_full["qps"], "metrics": metrics,
-            "vs_cpu_plain_4_queries": vc, "seconds": secs}
+            "eval_loss_first_96_queries": eval_loss, "metrics": metrics,
+            "vs_cpu_plain_4_queries": vc}
 
 
 def phase_bert_path(args, root, smi, torch):
@@ -4076,10 +3483,6 @@ def phase_bert_path(args, root, smi, torch):
                     "tasb_clusters": BERT_CLUSTERS},
           "card_vs_cpu_f32": parity, "steps_f32": steps,
           "dhr_chain": dhr, "colbert_chain": colbert,
-          "encode_passages_per_s_b256_bucketed_bf16":
-              dhr["encode_passages_per_s_cli_b256_bucketed"],
-          "untied_step_ms_median": dhr["train_step_ms_median_last10"],
-          "untied_step_peak_allocated_gb": dhr["train_peak_allocated_gb"],
           "launches": launches, "seconds": secs})
     torch.cuda.empty_cache()
     return launches
@@ -4118,10 +3521,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _client_proc(port, path, bodies, n_threads, keep, barrier, out):
+def _client_proc(port, path, bodies, n_threads, barrier, out):
     """One load-generating process: ``n_threads`` closed-loop threads send
-    ``bodies`` (``(qid, JSON bytes)``) in turn; puts ``[(qid, seconds,
-    status, response or None)]`` on ``out``."""
+    ``bodies`` (``(qid, JSON bytes)``) in turn; puts ``[(qid, status,
+    response)]`` on ``out``."""
     import threading
     import urllib.error
     import urllib.request
@@ -4139,15 +3542,12 @@ def _client_proc(port, path, bodies, n_threads, keep, barrier, out):
             qid, body = bodies[k]
             req = urllib.request.Request(
                 url, data=body, headers={"Content-Type": "application/json"})
-            t0 = time.perf_counter()
             try:
                 with urllib.request.urlopen(req, timeout=600) as r:
                     code, data = r.status, r.read()
             except urllib.error.HTTPError as e:
                 code, data = e.code, e.read()
-            dt = time.perf_counter() - t0
-            resp = json.loads(data)
-            done.append((qid, dt, code, resp if keep else None))
+            done.append((qid, code, json.loads(data)))
 
     threads = [threading.Thread(target=worker) for _ in range(n_threads)]
     barrier.wait()
@@ -4158,12 +3558,11 @@ def _client_proc(port, path, bodies, n_threads, keep, barrier, out):
     out.put(done)
 
 
-def _closed_loop(port, path, bodies, concurrency, n_requests, keep=False):
+def _closed_loop(port, path, bodies, concurrency, n_requests):
     """``n_requests`` requests cycling over ``bodies``, ``concurrency`` in
     flight, from ``min(concurrency, SERVE_CLIENT_PROCS)`` spawned client
-    processes (threads share a process only past that count).  Returns
-    ``(wall seconds, [(qid, seconds, status, response)])``; the clock
-    starts when every client is ready."""
+    processes (threads share a process only past that count), all
+    released at once.  Returns ``[(qid, status, response)]``."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
@@ -4172,21 +3571,19 @@ def _closed_loop(port, path, bodies, concurrency, n_requests, keep=False):
     barrier = ctx.Barrier(n_procs + 1)
     out = ctx.Queue()
     procs = [ctx.Process(target=_client_proc, daemon=True, args=(
-        port, path, reqs[p::n_procs], concurrency // n_procs, keep, barrier,
-        out)) for p in range(n_procs)]
+        port, path, reqs[p::n_procs], concurrency // n_procs, barrier, out))
+        for p in range(n_procs)]
     for p in procs:
         p.start()
     try:
         barrier.wait(timeout=300)
-        t0 = time.perf_counter()
         done = [r for _ in procs for r in out.get(timeout=900)]
-        wall = time.perf_counter() - t0
     finally:
         for p in procs:
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
-    return wall, done
+    return done
 
 
 class _Server:
@@ -4218,17 +3615,12 @@ def _batcher_counts(batcher):
             batcher.small_batches_run)
 
 
-def _level_report(wall, done, counts_before, batcher):
-    import numpy as np
-
-    lat = np.asarray([d[1] for d in done]) * 1e3
+def _batcher_report(done, counts_before, batcher):
+    """Requests, errors and the micro-batches the service ran for them."""
     b0, q0, s0 = counts_before
     batches = batcher.batches_run - b0
-    return {"requests": len(done), "qps": len(done) / wall,
-            "p50_ms": float(np.percentile(lat, 50)),
-            "p99_ms": float(np.percentile(lat, 99)),
-            "max_ms": float(lat.max()), "wall_s": wall,
-            "errors": sum(d[2] != 200 for d in done),
+    return {"requests": len(done),
+            "errors": sum(code != 200 for _, code, _ in done),
             "micro_batches": batches,
             "mean_pool": (batcher.queries_run - q0) / max(batches, 1),
             "low_latency_share": (batcher.small_batches_run - s0)
@@ -4240,7 +3632,7 @@ def _served_equal(done, want_r, want_s):
     scores within 1e-6 relative; returns the count checked."""
     import numpy as np
 
-    for qid, _, code, resp in done:
+    for qid, code, resp in done:
         if code != 200:
             raise AssertionError(f"{qid}: HTTP {code} {resp}")
         if resp["results"][qid] != want_r[qid] or not np.allclose(
@@ -4284,7 +3676,6 @@ def _serve_verb(root, checkout, paths, want8):
             if time.perf_counter() - t0 > 300:
                 raise AssertionError("serve did not come up in 300 s")
             time.sleep(0.2)
-        out["start_s"] = time.perf_counter() - t0
 
         def tool(*argv):
             res = subprocess.run(client + [*argv, "--port", str(port)],
@@ -4337,7 +3728,6 @@ def _serve_verb(root, checkout, paths, want8):
 
         threads = [threading.Thread(target=flood)
                    for _ in range(SERVE_FLOOD)]
-        t = time.perf_counter()
         for th in threads:
             th.start()
         for th in threads:
@@ -4348,8 +3738,7 @@ def _serve_verb(root, checkout, paths, want8):
         out["flood"] = {"requests": SERVE_FLOOD, "queries_each": m,
                         "ok": ok, "shed_503": len(shed),
                         "retry_after": sorted(set(shed)),
-                        "rejects_in_stats": stats["rejects"],
-                        "seconds": time.perf_counter() - t}
+                        "rejects_in_stats": stats["rejects"]}
         if not (shed and ok and ok + len(shed) == SERVE_FLOOD
                 and set(shed) == {"1"} and stats["rejects"] == len(shed)):
             raise AssertionError(f"flood past --max-pending: {out['flood']}")
@@ -4440,47 +3829,12 @@ class HashTokenizer:
         return ids[:max_length] if truncation and max_length else ids
 
 
-def _host_costs(small, bodies, qv, qf):
-    """Median ms of the host's parts of one single-query request, on one
-    thread without contention: the search alone, ``search_run`` (the
-    search and its result dicts), the request's JSON parse and arrays, the
-    response's JSON, and ``SearchService.search`` without HTTP or a
-    batching window."""
-    import numpy as np
-
-    from dhr_tpu_torch.serve import SearchService
-
-    direct = SearchService(small)
-    parts = {"search": [], "search_run": [], "request_json": [],
-             "response_json": [], "service_search": []}
-    for i, (qid, body) in enumerate(bodies[:64]):
-        t0 = time.perf_counter()
-        small.search(qv[i:i + 1], qf[i:i + 1])
-        t1 = time.perf_counter()
-        r, sc = small.search_run([qid], qv[i:i + 1], qf[i:i + 1])
-        t2 = time.perf_counter()
-        payload = json.loads(body)
-        np.asarray(payload["values"], np.float32)
-        np.asarray(payload["indices"], np.int32)
-        t3 = time.perf_counter()
-        json.dumps({"results": r, "scores": sc}).encode()
-        t4 = time.perf_counter()
-        direct.search(payload)
-        t5 = time.perf_counter()
-        for k, a, b in (("search", t0, t1), ("search_run", t1, t2),
-                        ("request_json", t2, t3), ("response_json", t3, t4),
-                        ("service_search", t4, t5)):
-            parts[k].append((b - a) * 1e3)
-    return {k: float(np.median(v)) for k, v in parts.items()}
-
-
 def _serve_full_size(searcher, qv, qf, out):
     """(b): the service over the main path's searcher and a low-latency
     searcher at batch 8 over the same DeviceIndex; closed-loop client
-    processes at each concurrency; then the same over a fused-candidates
-    searcher at concurrency 64.  Fills ``out``; returns the launches."""
-    import numpy as np
-
+    processes at each concurrency of ``SERVE_LEVELS``; then the same over a
+    fused-candidates searcher at concurrency 64.  Every response equals
+    ``search_run``'s.  Fills ``out``; returns the launches."""
     from dhr_tpu_torch.retrieval import Searcher
     from dhr_tpu_torch.serve import SearchService
 
@@ -4493,53 +3847,21 @@ def _serve_full_size(searcher, qv, qf, out):
     cfg = searcher.config
     small = Searcher(searcher.index, dataclasses.replace(cfg, query_batch=8))
     want_r, want_s = searcher.search_run(qids, qv, qf)
-    direct, lone = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        searcher.search(qv, qf)
-        direct.append(n_q / (time.perf_counter() - t0))
-    for i in range(32):
-        t0 = time.perf_counter()
-        small.search_run([qids[i]], qv[i:i + 1], qf[i:i + 1])
-        lone.append((time.perf_counter() - t0) * 1e3)
-    out["direct"] = {"search_qps_median": float(np.median(direct)),
-                     "search_qps": direct, "query_batch": cfg.query_batch,
-                     "low_latency_batch": 8,
-                     "lone_query_search_run_ms_median":
-                     float(np.median(lone))}
-    out["host_costs_ms"] = _host_costs(small, bodies, qv, qf)
     service = SearchService(searcher, micro_batch_ms=2.0,
                             small_searcher=small)
     server = _Server(service)
     levels = {}
     try:
-        _closed_loop(server.port, "/search", bodies, 8, 64)  # warm-up
         reset_launches()
         for conc, n_req in SERVE_LEVELS.items():
-            keep = conc in SERVE_CHECKED_LEVELS
             before = _batcher_counts(service.batcher)
-            wall, done = _closed_loop(server.port, "/search", bodies, conc,
-                                      n_req, keep=keep)
-            lv = levels[str(conc)] = _level_report(wall, done, before,
-                                                   service.batcher)
+            done = _closed_loop(server.port, "/search", bodies, conc, n_req)
+            lv = levels[str(conc)] = _batcher_report(done, before,
+                                                     service.batcher)
             lv["client_processes"] = min(conc, SERVE_CLIENT_PROCS)
             if lv["errors"]:
                 raise AssertionError(f"errors at concurrency {conc}: {lv}")
-            if keep:
-                lv["checked_vs_search_run"] = _served_equal(done, want_r,
-                                                            want_s)
-        # the same load with the interpreter handing its lock over every
-        # 0.5 ms instead of 5: how much of the host's cost is waiting for it
-        interval = sys.getswitchinterval()
-        sys.setswitchinterval(5e-4)
-        try:
-            before = _batcher_counts(service.batcher)
-            wall, done = _closed_loop(server.port, "/search", bodies, 64,
-                                      SERVE_LEVELS[64])
-            levels["64_switch_interval_0.5ms"] = _level_report(
-                wall, done, before, service.batcher)
-        finally:
-            sys.setswitchinterval(interval)
+            lv["checked_vs_search_run"] = _served_equal(done, want_r, want_s)
         launches = read_launches()
     finally:
         server.close()
@@ -4560,10 +3882,9 @@ def _serve_full_size(searcher, qv, qf, out):
     try:
         reset_launches()
         before = _batcher_counts(service.batcher)
-        wall, done = _closed_loop(server.port, "/search", bodies, 64, n_q,
-                                  keep=True)
+        done = _closed_loop(server.port, "/search", bodies, 64, n_q)
         fused_launches = read_launches()
-        lv = _level_report(wall, done, before, service.batcher)
+        lv = _batcher_report(done, before, service.batcher)
         lv["checked_vs_search_run"] = _served_equal(done, fwant_r, fwant_s)
     finally:
         server.close()
@@ -4612,13 +3933,12 @@ def _serve_text(args, searcher, small, out, torch):
                             small_searcher=small, query_encoder=qenc)
     server = _Server(service)
     try:
-        _closed_loop(server.port, "/search_text", bodies, 8, 32)  # warm-up
         reset_launches()
         before = _batcher_counts(service.batcher)
-        wall, done = _closed_loop(server.port, "/search_text", bodies, 8,
-                                  len(bodies), keep=True)
+        done = _closed_loop(server.port, "/search_text", bodies, 8,
+                            len(bodies))
         launches = read_launches()
-        lv = _level_report(wall, done, before, service.batcher)
+        lv = _batcher_report(done, before, service.batcher)
         lv["checked_vs_encode_and_search_run"] = _served_equal(
             done, want_r, want_s)
     finally:
@@ -4683,33 +4003,17 @@ def phase_serve_path(args, root, paths, searcher, main_queries, smi, torch):
 
 PARALLEL_RANKS = 2
 PARALLEL_AGREE = 64          # queries held against the one-process results
-PARALLEL_PASSES = 2          # one warm-up, one timed
 PARALLEL_ENCODE = 1_024      # passages of the Encoder(mesh=) check
 PARALLEL_CLI_QUERIES = 64    # densified-index queries of the sharded CLI
 PARALLEL_SERVE_REQUESTS = 64
 FSDP_MAX_GRAD_NORM = 1e-3    # below the step's gradient norm: the clip acts
-TP_TIMED_STEPS = 1           # the TP and one-process step walls: median
-TP_HALVE_ABOVE_S = 10.0      # a slower TP step times a half batch instead
-
-
-def _wall_ms(fn, iters, torch):
-    """Mean wall ms per call of ``fn`` (synchronized), after one warm-up:
-    the sharded stages block on host collectives, so device events would
-    time the host's part too."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3 / iters
 
 
 def _par_search(job, z, dev, torch, np):
     """(a): the bench point over this rank's half of the MS MARCO-sized
     corpus (each rank draws only its own rows' chunks, the int8 scales
-    from a MAX all-reduce of the amaxes), the fused path, the exact
-    candidates, and the collective layer's ms per batch."""
+    from a MAX all-reduce of the amaxes), the fused path and the exact
+    candidates, one pass each."""
     import torch.distributed as dist
     from torch.distributed import ReduceOp
 
@@ -4722,8 +4026,6 @@ def _par_search(job, z, dev, torch, np):
     n = job["rows"]
     per = -(-n // world)
     mesh = make_mesh(axis="index")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     v, f, scales, _ = synth_index_planes(
         job["seed"], n, device=dev, rows=(rank * per, rank * per + per),
         reduce_amax=lambda a: all_reduce_(a, ReduceOp.MAX))
@@ -4731,17 +4033,15 @@ def _par_search(job, z, dev, torch, np):
         v, f, np.arange(n).astype(str), LEX_DIM, scales, device=dev,
         mesh=mesh, num_rows=n)
     del v, f
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     qv = torch.from_numpy(z["qv"]).to(dev)
     qf = torch.from_numpy(z["qf"]).to(dev)
     cfg = SearchConfig(topk=1000, theta=0.3, rerank=True, agip_topk=10000,
                        max_important_dims=48, query_batch=128)
     s = Searcher(index, cfg, device=dev)
     reset_launches()
-    qps, scores, rows = timed_passes(s, qv, qf, PARALLEL_PASSES - 1)
+    scores, rows = s.search(qv, qf)
     launches = read_launches()
-    n_batches = PARALLEL_PASSES * -(-qv.shape[0] // cfg.query_batch)
+    n_batches = -(-qv.shape[0] // cfg.query_batch)  # once a batch
     want = {"partial_gip": n_batches, "rerank_gip": n_batches,
             "gip_candidates": 0, "lexical_pool": 0, "moe_combine": 0}
     if launches != want:
@@ -4774,7 +4074,7 @@ def _par_search(job, z, dev, torch, np):
     if not fused._fused:
         raise AssertionError("the sharded fused path did not engage")
     reset_launches()
-    fqps, _, frows = timed_passes(fused, qv, qf, PARALLEL_PASSES - 1)
+    _, frows = fused.search(qv, qf)
     fused_launches = read_launches()
     fwant = {"partial_gip": 0, "rerank_gip": n_batches,
              "gip_candidates": n_batches, "lexical_pool": 0,
@@ -4783,65 +4083,28 @@ def _par_search(job, z, dev, torch, np):
         raise AssertionError(f"rank {rank}: sharded fused launches "
                              f"{fused_launches}, expected {fwant}")
     fagree = agreement(frows[:erows.shape[0]], erows)
-
-    # the collective layer on the first batch: the local stage 1 and
-    # selection against the same plus the all-gather and merge, the local
-    # rerank against the same plus the MAX all-reduce
-    bs = cfg.query_batch
-    qvb, qv1b, qib = s.prepare_queries(qv[:bs], qf[:bs])
-    _, cand = s.candidates(qv1b, qib)
-    from dhr_tpu_torch.ops.rerank_gip import rerank_gip
-    from dhr_tpu_torch.ops.topk import merge_topk
-    from dhr_tpu_torch.parallel.collectives import all_gather_cat
-
-    local_rows = cand - index.row_offset
-    lv, lr = s.local_candidates(qv1b, qib)
-    lv, lr = lv.float(), lr.long()
-    gv, gr = all_gather_cat(lv, index.group), all_gather_cat(lr, index.group)
-    layer_ms = {
-        "stage1_local": _wall_ms(lambda: s.local_candidates(qv1b, qib), 3,
-                                 torch),
-        "stage1_with_gather_and_merge": _wall_ms(
-            lambda: s.candidates(qv1b, qib), 3, torch),
-        "all_gather_values_f32": _wall_ms(
-            lambda: all_gather_cat(lv, index.group), 3, torch),
-        "all_gather_rows_i64": _wall_ms(
-            lambda: all_gather_cat(lr, index.group), 3, torch),
-        "merge_topk": _wall_ms(lambda: merge_topk(gv, gr, cfg.agip_topk), 3,
-                               torch),
-        "rerank_local_k2": _wall_ms(lambda: rerank_gip(
-            qvb, qib, local_rows, index.values, index.indices, LEX_DIM), 3,
-            torch),
-        "rerank_with_max_all_reduce": _wall_ms(
-            lambda: s.stage2(qvb, qib, cand), 3, torch),
-    }
-    reset_launches()  # the layer timing's launches are not the path's
     out = {"rows": n, "shard_rows": index.local_rows,
-           "row_offset": index.row_offset, "index_build_s": build_s,
+           "row_offset": index.row_offset,
            "shard_index_bytes": sum(
                t.untyped_storage().nbytes() for t in (
                    index.values, index.values_T, index.indices,
                    index.indices_T)),
-           "qps_median": float(np.median(qps)), "qps_passes": qps,
-           "fused_qps_median": float(np.median(fqps)),
            "launches": launches, "fused_launches": fused_launches,
            "exact_launches": exact_launches,
            "staged_vs_exact": agree, "fused_staged_vs_exact": fagree,
-           "exact_candidates_vs_one_process": vs_one,
-           "layer_ms_first_batch": layer_ms,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del s, fused, index, cand, local_rows, lv, lr, gv, gr
+           "exact_candidates_vs_one_process": vs_one}
+    del s, fused, index
     torch.cuda.empty_cache()
     return out
 
 
-def _par_batch(seed, np, torch, queries=24):
+def _par_batch(seed, np, torch):
     """The documented model's batch: 24 queries x 8 passages (32 / 128
     tokens), from a 4,096-passage corpus of encode_path's kind."""
     rng = np.random.default_rng(seed + 9)
     toks, _ = _passage_tokens(rng, 4096, np)
     groups = []
-    for _ in range(queries):
+    for _ in range(24):
         pos = int(rng.integers(4096))
         negs = rng.choice(4095, TRAIN_NEGATIVES, replace=False)
         negs = negs + (negs >= pos)
@@ -4849,8 +4112,7 @@ def _par_batch(seed, np, torch, queries=24):
             "query": rng.choice(toks[pos], int(rng.integers(6, 31))).tolist(),
             "positive_pids": [str(pos)],
             "negative_pids": [str(int(x)) for x in negs]})
-    return (next(iter(_train_loader(groups, toks, queries, torch).epoch(0))),
-            toks)
+    return next(iter(_train_loader(groups, toks, 24, torch).epoch(0)))
 
 
 def _clipped(grads, max_norm):
@@ -4888,7 +4150,7 @@ def _par_train(job, dev, torch, np):
     rank = dist.get_rank()
     cfg = _dhr_config(torch.float32)
     tree = random_flax_params(cfg, torch.Generator().manual_seed(job["seed"]))
-    batch, _ = _par_batch(job["seed"], np, torch)
+    batch = _par_batch(job["seed"], np, torch)
     opt = OptimizerConfig(learning_rate=7e-6, warmup_steps=0,
                           total_steps=100)
     one = None
@@ -4906,12 +4168,9 @@ def _par_train(job, dev, torch, np):
                               data_group=axes_group(mesh, ("data",)))
     step = make_train_step(model, cfg, LossConfig())
     local = shard_batch(batch, mesh)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     loss = float(step(state, local, job["seed"]))
-    step_s = time.perf_counter() - t
     out = {"queries": 24, "passages": 192, "local_queries": 12,
-           "loss": loss, "step_s_first": step_s}
+           "loss": loss}
     if one is not None:
         l2, mx = _grad_rel_diff(_grads(model), one[1])
         out.update(loss_one_process=one[0],
@@ -4937,9 +4196,7 @@ def _par_train(job, dev, torch, np):
     model = state.model
     out["fsdp_params_on_card"] = all(p.device.type == "cuda"
                                      for p in model.parameters())
-    t = time.perf_counter()
     loss = float(step(state, local, job["seed"]))
-    out["fsdp_step_s_first"] = time.perf_counter() - t
     grads = {n: gather_full(p.grad).float().cpu()
              for n, p in model.named_parameters() if p.grad is not None}
     if one is not None:
@@ -4953,18 +4210,14 @@ def _par_train(job, dev, torch, np):
                 and out["fsdp_loss_rel_diff"] <= 1e-5 and l2 <= 1e-5):
             raise AssertionError(f"clipped FSDP step vs one process: {out}")
     ckpt = os.path.join(job["dir"], "fsdp_ckpt")
-    t = time.perf_counter()
     save_train_state(ckpt, state)
-    out["fsdp_save_s"] = time.perf_counter() - t
-    nxt, _ = _par_batch(job["seed"] + 1, np, torch)
+    nxt = _par_batch(job["seed"] + 1, np, torch)
     nxt = shard_batch(nxt, mesh)
     out["fsdp_next_loss"] = float(step(state, nxt, job["seed"]))
     del model, state, step, grads
     torch.cuda.empty_cache()
     state, step = fsdp_state()
-    t = time.perf_counter()
     restore_train_state(ckpt, state)
-    out["fsdp_restore_s"] = time.perf_counter() - t
     out["fsdp_restored_step"] = state.step
     out["fsdp_resumed_loss"] = float(step(state, nxt, job["seed"]))
     out["fsdp_resume_bit_equal"] = (out["fsdp_resumed_loss"]
@@ -4977,18 +4230,6 @@ def _par_train(job, dev, torch, np):
     return out
 
 
-def _step_walls(step, state, batch, seed, n, torch):
-    """Wall seconds of ``n`` steps, each ending in a synchronize."""
-    walls = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        float(step(state, batch, seed))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    return walls
-
-
 def _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np):
     """(b'): Megatron TP over a (data, model) = (1, 2) mesh of the two
     ranks (6 of the 12 heads and 1,536 of the 3,072 FFN columns a rank;
@@ -4998,10 +4239,9 @@ def _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np):
     (a one-process step of its own) and 0.1 (``one``, _par_train's), loss
     within 1e-5 relative and ``gather_full`` gradients within 1e-5
     relative L2 over all of them; a step clipped at
-    ``FSDP_MAX_GRAD_NORM`` against ``one`` clipped; a save, the next step and a fresh TP state restored from the
-    save, whose next loss must be bit-equal.  Reported: the step walls of
-    TP and of one process (median of ``TP_TIMED_STEPS``, dropout off) and
-    the bytes all-reduced in a step."""
+    ``FSDP_MAX_GRAD_NORM`` against ``one`` clipped; a save, the next step
+    and a fresh TP state restored from the save, whose next loss must be
+    bit-equal.  Reported: the all-reduces of a step and their bytes."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Shard
 
@@ -5062,13 +4302,12 @@ def _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np):
         state = TrainState.create(model, opt)
         step = make_train_step(model, dry, LossConfig())
         dry_one = (float(step(state, batch, seed)), _grads(model))
-        out["one_process_step_s"] = _step_walls(step, state, batch, seed,
-                                                TP_TIMED_STEPS, torch)
         del model, state, step
         torch.cuda.empty_cache()
     dist.barrier()
 
-    # dropout off: placement, the step against one process, the walls
+    # dropout off: placement, the step against one process and its
+    # all-reduces
     state, step = tp_state(dry, opt)
     model = state.model
     specs = tp_param_specs(model)
@@ -5084,18 +4323,6 @@ def _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np):
                              f"{out['params_on_card']}, sharded - specs "
                              f"{sorted(sharded - want)[:4]}, specs - "
                              f"sharded {sorted(want - sharded)[:4]}")
-    t = time.perf_counter()
-    loss = float(step(state, local, seed))
-    out["step_s_first"] = time.perf_counter() - t
-    grads = full_grads(model)
-    if dry_one is not None:
-        check("dropout_off", loss, grads, dry_one)
-    del grads
-    timed = local
-    if out["step_s_first"] > TP_HALVE_ABOVE_S:
-        half, _ = _par_batch(seed, np, torch, queries=12)
-        timed = shard_batch(half, mesh, data_axes(mesh))
-        out["timed_queries"] = 12
     counted = {"calls": 0, "bytes": 0}
 
     def counting(x, *a, **kw):
@@ -5106,18 +4333,15 @@ def _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np):
 
     all_reduce, collectives.all_reduce_ = collectives.all_reduce_, counting
     try:
-        float(step(state, timed, seed))
+        loss = float(step(state, local, seed))
     finally:
         collectives.all_reduce_ = all_reduce
     out["all_reduces_a_step"] = counted["calls"]
     out["all_reduced_bytes_a_step"] = counted["bytes"]
-    out["step_s"] = _step_walls(step, state, timed, seed, TP_TIMED_STEPS,
-                                torch)
-    out["step_s_median"] = statistics.median(out["step_s"])
-    if rank == 0:
-        out["one_process_step_s_median"] = statistics.median(
-            out["one_process_step_s"])
-    del model, state, step
+    grads = full_grads(model)
+    if dry_one is not None:
+        check("dropout_off", loss, grads, dry_one)
+    del model, state, step, grads
     torch.cuda.empty_cache()
 
     # dropout 0.1 (a TP rank keeps its heads' block of the global mask)
@@ -5142,18 +4366,14 @@ def _par_tp(job, dev, cfg, tree, batch, opt, one, torch, np):
             raise AssertionError(f"TP clip did not act: norm {norm}")
     del grads
     ckpt = os.path.join(job["dir"], "tp_ckpt")
-    t = time.perf_counter()
     save_train_state(ckpt, state)
-    out["save_s"] = time.perf_counter() - t
-    nxt, _ = _par_batch(seed + 1, np, torch)
+    nxt = _par_batch(seed + 1, np, torch)
     nxt = shard_batch(nxt, mesh, data_axes(mesh))
     out["next_loss"] = float(step(state, nxt, seed))
     del state, step
     torch.cuda.empty_cache()
     state, step = tp_state(cfg, clip)
-    t = time.perf_counter()
     restore_train_state(ckpt, state)
-    out["restore_s"] = time.perf_counter() - t
     out["restored_step"] = state.step
     out["resumed_loss"] = float(step(state, nxt, seed))
     out["resume_bit_equal"] = out["resumed_loss"] == out["next_loss"]
@@ -5189,9 +4409,8 @@ def _par_encode(job, dev, torch, np):
     docids = [str(i) for i in range(PARALLEL_ENCODE)]
     ecfg = EncodeConfig(batch_size=128, remove_dims=ENCODE_REMOVE_DIMS)
     sharded = Encoder(model, cfg, ecfg, device=dev, mesh=make_mesh())
-    t = time.perf_counter()
     got = sharded.encode_corpus(iter_batches(docids, ids, mask, 128))
-    out = {"passages": PARALLEL_ENCODE, "sharded_s": time.perf_counter() - t}
+    out = {"passages": PARALLEL_ENCODE}
     if rank == 0:
         want = Encoder(model, cfg, ecfg, device=dev).encode_corpus(
             iter_batches(docids, ids, mask, 128))
@@ -5267,20 +4486,16 @@ def _sharded_search_cli(root, index_path, queries):
     flags = ["--index-path", index_path, "--query-path", qpath,
              *DENSIFY_SEARCH, "--exact-candidates", "--no-candidate-bf16",
              "--topk", "100"]
-    one = _run_cli(["search", *flags, "--output", f"{root}/par_one.trec"],
-                   verb="search")
-    t = time.perf_counter()
+    _run_cli(["search", *flags, "--output", f"{root}/par_one.trec"],
+             verb="search")
     p = _torchrun(["-m", "dhr_tpu_torch", "search", *flags, "--output",
                    f"{root}/par_sharded.trec", "--shard-over-devices",
                    "--dist-backend", "gloo"], 600)
-    wall = time.perf_counter() - t
     timing = _timing_line(p.stderr, "search")
     cmp = _compare_runs(_read_run(f"{root}/par_sharded.trec"),
                         _read_run(f"{root}/par_one.trec"), list(qids[:k]),
                         1e-6)
-    out = {"queries": k, "vs_one_process": cmp, "shards": timing["shards"],
-           "sharded_qps": timing["qps"], "one_process_qps": one["qps"],
-           "command_wall_s": wall}
+    out = {"queries": k, "vs_one_process": cmp, "shards": timing["shards"]}
     if timing["shards"] != PARALLEL_RANKS or cmp["scores_equal"] != k \
             or cmp["ids_equal_up_to_ties"] != k:
         raise AssertionError(f"sharded search CLI: {out}")
@@ -5294,8 +4509,6 @@ def _sharded_serve(root, index_path, queries, torch):
     on one process; /stats reports the shards; SIGINT stops both."""
     import signal
     from concurrent.futures import ThreadPoolExecutor
-
-    import numpy as np
 
     from dhr_tpu_torch.retrieval import (
         DeviceIndex, PackedIndex, SearchConfig, Searcher)
@@ -5339,17 +4552,14 @@ def _sharded_serve(root, index_path, queries, torch):
                 time.sleep(0.5)
 
         def one(i):
-            return (qids[i], None) + _http(port, "/search", {
+            return (qids[i],) + _http(port, "/search", {
                 "values": qv[i:i + 1].tolist(),
                 "indices": qi[i:i + 1].tolist(),
                 "qids": [qids[i]]})[:2]
 
-        t = time.perf_counter()
         with ThreadPoolExecutor(8) as pool:
             done = list(pool.map(one, range(k)))
-        wall = time.perf_counter() - t
         out["requests"] = _served_equal(done, want_r, want_s)
-        out["qps_concurrency_8"] = k / wall
         _, stats, _ = _http(port, "/stats")
         out["sharded_over"] = stats["sharded_over"]
         out["micro_batches_run"] = stats["micro_batches_run"]
@@ -5404,9 +4614,7 @@ def phase_parallel_path(args, root, index_path, dense_queries, ref, smi,
         json.dump({"rows": args.rows, "seed": args.seed, "dir": job}, f)
     np.savez(os.path.join(job, "queries.npz"), **ref)
     secs, out = {}, {"phase": "parallel_path", "card": smi,
-                     "ranks": PARALLEL_RANKS, "backend": "gloo",
-                     "note": "two ranks share one card: q/s and ms are of "
-                             "both ranks' work on one H100"}
+                     "ranks": PARALLEL_RANKS, "backend": "gloo"}
     t = time.perf_counter()
     _torchrun([os.path.abspath(__file__), "--parallel-worker", job], 900)
     secs["torchrun_job"] = time.perf_counter() - t
@@ -5417,10 +4625,10 @@ def phase_parallel_path(args, root, index_path, dense_queries, ref, smi,
     out["ranks_detail"] = ranks
     for res in ranks:
         for k, a in res["search"]["staged_vs_exact"].items():
-            if a < TPU_AGREEMENT[k]:
+            if a < SHARDED_AGREEMENT[k]:
                 raise AssertionError(
-                    f"sharded staged-vs-exact agreement@{k} = {a} < the "
-                    f"TPU's {TPU_AGREEMENT[k]}")
+                    f"sharded staged-vs-exact agreement@{k} = {a} < "
+                    f"{SHARDED_AGREEMENT[k]}")
         for k, a in res["search"]["fused_staged_vs_exact"].items():
             if a < 0.99:
                 raise AssertionError(f"sharded fused agreement@{k} = {a}")
