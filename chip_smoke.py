@@ -33,9 +33,9 @@ is in the repository), and checks what each returns:
   train -> encode -> index -> search -> eval for three of them.
 - ``bert_path``: BERT-base towers with token types, tied and untied, card
   against CPU; untied TASB DHR and packed ColBERT through the CLI chain.
-- K1-K5 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
-  the encode cell's batch, K5 at the dsv2 cell's), the other search modes
-  against the CPU's plain path, then the main and fused paths at
+- K1-K6 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
+  the encode cell's batch, K5 and K6 at the dsv2 cell's), the other search
+  modes against the CPU's plain path, then the main and fused paths at
   8,841,823 rows (launch counts, staged-vs-exact agreement) and ip / pq
   on that index.
 - ``serve_path``: the ``serve`` verb as a process (reloads, 503 shedding,
@@ -50,8 +50,9 @@ is in the repository), and checks what each returns:
 
 Speed is the benchmark's (``BENCHMARK.json``, ``benchmarks/``).  The
 smoke times only each hand-written kernel alone, beside its plain version
-and its bound (the ``kernel_shapes``, ``k4_vs_plain``, ``k5_vs_plain`` and
-``kernels`` lines), and its own phases (``seconds``, ``walls``).
+and its bound (the ``kernel_shapes``, ``k4_vs_plain``, ``k5_vs_plain``,
+``k6_vs_plain`` and ``kernels`` lines), and its own phases (``seconds``,
+``walls``).
 
 Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line, which counts
@@ -85,6 +86,13 @@ K2_SOURCE = "dhr_tpu_torch/csrc/rerank_gip.cu"
 K3_SOURCE = "dhr_tpu_torch/csrc/gip_candidates.cu"
 K4_SOURCE = "dhr_tpu_torch/csrc/lexical_pool.cu"
 K5_SOURCE = "dhr_tpu_torch/csrc/moe_combine.cu"
+K6_SOURCE = "dhr_tpu_torch/csrc/mla_attention.cu"
+# K6 at DeepSeek-V2-Lite's MLA: heads, (d_nope, d_rope, d_v), kv rank, and
+# the dsv2 cell's passage length spec (benchmarks/traffic/
+# moe-encode-corpus.json: log-normal, mean 75, sigma 0.45, in [8, 126],
+# plus BOS and EOS), a call of 2,048 passages in batches of 256
+DSV2_MLA = (16, (128, 64, 128), 512)
+DSV2_LENGTHS = (75, 0.45, 8, 126)
 SMALL_ROWS = 204_803
 ENCODE_PASSAGES = 32_768
 ENCODE_QUERIES = 1_024
@@ -369,10 +377,10 @@ def _encode_user_path(root, seed, torch, np):
     batches = -(-ENCODE_PASSAGES // 32) + -(-ENCODE_QUERIES // 32)
     if encode_launches != {"partial_gip": 0, "rerank_gip": 0,
                            "gip_candidates": 0, "lexical_pool": batches,
-                           "moe_combine": 0}:
+                           "moe_combine": 0, "mla_attention": 0}:
         raise AssertionError(f"encode launches {encode_launches}: K4 "
-                             f"{batches} times (once a batch), K1-K3 and "
-                             "K5 never")
+                             f"{batches} times (once a batch), K1-K3, K5 "
+                             "and K6 never")
     reset_launches()
     _run_cli(["index", "--inputs", f"{root}/corpus.npz", "--output",
               f"{root}/index.npz", "--quantize"])
@@ -1424,6 +1432,103 @@ def phase_k5(torch):
     return kernel
 
 
+def phase_k6(torch):
+    """K6 vs plain at DeepSeek-V2-Lite's MLA (16 heads, 128 / 64 / 128):
+    the dsv2 cell's batch (the middle bucket of a call of 2,048 passages of
+    its length spec: 256 passages), 32 passages ragged up to 8, 128 and
+    200 tokens, and ``DecoderConfig.tiny``'s dims (8 / 8 / 8) at 4 x 12
+    and 2 x 1.  Each case within 2^-5 of the output's scale of the plain
+    version, and on its first 8 passages within 2^-7 of the f64 core
+    (``tests/mla_reference.py``, as the card tests) and no farther from it
+    than the plain version plus 2^-8: K6's scores are f32 and its P is
+    rounded to bf16 (2^-9); the plain version rounds the scores to bf16
+    twice (~2^-7 of the scale).  Then, at the cell's batch, K6's ms beside
+    its bound (kv and k_pe of the real tokens and q of every row read
+    once, the output written once, at 3.35 TB/s) and the eager chain's
+    (the plain version)."""
+    import numpy as np
+
+    from dhr_tpu_torch.models import decoder as dec
+    from dhr_tpu_torch.ops.mla_attention import (
+        mla_attention, mla_attention_plain)
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from mla_reference import f64_core, mla_inputs
+
+    heads, dims, rank = DSV2_MLA
+    mean, sigma, lo, hi = DSV2_LENGTHS
+    rng = np.random.default_rng(22)
+    mu = math.log(mean) - sigma * sigma / 2
+    call = np.clip(np.rint(rng.lognormal(mu, sigma, 2048)), lo, hi) + 2
+    cell = np.sort(call).astype(int)[1024:1280]
+
+    def ragged(B, L):
+        lens = rng.integers(1, L + 1, B)
+        lens[0] = L
+        return lens
+
+    m = dec.yarn_mscale(40.0, 0.707)
+    worst, cases, f64_gaps = 0.0, 0, []
+    for lengths, n, d, rk in ((cell, heads, dims, rank),
+                              (ragged(32, 8), heads, dims, rank),
+                              (ragged(32, 128), heads, dims, rank),
+                              (ragged(32, 200), heads, dims, rank),
+                              (ragged(4, 12), 2, (8, 8, 8), 16),
+                              (ragged(2, 1), 2, (8, 8, 8), 16)):
+        scale = (d[0] + d[1]) ** -0.5 * m * m
+        args = mla_inputs(lengths, n, d, seed=cases, rank=rk, device="cuda")
+        with torch.inference_mode():
+            got = mla_attention(*args, n, d[0], scale)
+            plain = mla_attention_plain(*args, n, d[0], scale)
+            top = float(plain.float().abs().max())
+            gap = float((got.float() - plain.float()).abs().max()) / top
+            sub = [t[:8] for t in args[:3]] + [*args[3:5], args[5][:8]]
+            ref = f64_core(*sub, n, d, scale)
+            ref_top = float(ref.abs().max())
+            k6_gap = float((got[:8].double() - ref).abs().max()) / ref_top
+            plain_gap = float((plain[:8].double() - ref).abs().max()
+                              ) / ref_top
+        shape = (len(lengths), int(max(lengths)), n, d)
+        if not (gap <= 2.0 ** -5 and k6_gap <= 2.0 ** -7
+                and k6_gap <= plain_gap + 2.0 ** -8):
+            raise AssertionError(f"mla_attention {shape}: gap {gap} to the "
+                                 f"plain version, {k6_gap} to f64 (plain "
+                                 f"{plain_gap})")
+        worst, cases = max(worst, gap), cases + 1
+        f64_gaps.append([k6_gap, plain_gap])
+        del args, got, plain, ref, sub
+
+    args = mla_inputs(cell, heads, dims, rank=rank, device="cuda")
+    B, L = len(cell), int(cell.max())
+    scale = (dims[0] + dims[1]) ** -0.5 * m * m
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: mla_attention(*args, heads, dims[0], scale),
+                     50, torch)
+        plain_ms = cuda_ms(lambda: mla_attention_plain(
+            *args, heads, dims[0], scale), 10, torch)
+    # what the function needs: kv and k_pe of the real tokens (a padded
+    # key is never visible), q and the output of every row, the key mask
+    # (one byte a key) and the first halves of cos and sin
+    dn, dr, dv = dims
+    real = int(cell.sum())
+    nbytes = (real * (heads * (dn + dv) + dr) * 2
+              + B * L * heads * (dn + dr + dv) * 2 + B * L + L * dr * 4)
+    out = {"phase": "k6_vs_plain", "cases": cases,
+           "f64_gaps_k6_plain": f64_gaps,
+           "tol": "2^-5 of the scale to the plain version; 2^-7 to f64 "
+                  "and no farther than the plain version + 2^-8",
+           "shape": [B, L, heads], "real_tokens": real,
+           "bytes_each_input_once": nbytes,
+           "ms_27_layers": 27 * ms, "plain_ms_27_layers": 27 * plain_ms}
+    kernel = {"max_rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "library_ms": None}
+    emit({**out, **kernel})
+    return kernel
+
+
 def phase_search_vs_plain(index, queries_raw, torch):
     """The whole search on the card against the same search on the CPU's
     plain PyTorch path, over the 204,803-row corpus: same final scores at
@@ -1563,7 +1668,7 @@ def phase_modes_full(searcher, queries, torch):
         scores, rows = s.search(qv, qf)
         launches = read_launches()
         want = {"partial_gip": 0, "gip_candidates": 0, "lexical_pool": 0,
-                "moe_combine": 0,
+                "moe_combine": 0, "mla_attention": 0,
                 "rerank_gip": -(-qv.shape[0] // base.query_batch)}
         if launches != want:
             raise AssertionError(f"{name} launches {launches}, expected "
@@ -1645,10 +1750,11 @@ def phase_main(args, torch):
     emit({"phase": "kernels", "path": "main", "launches": launches,
           "expected": {"partial_gip": want_launches,
                        "rerank_gip": want_launches, "gip_candidates": 0,
-                       "lexical_pool": 0, "moe_combine": 0}})
+                       "lexical_pool": 0, "moe_combine": 0,
+                       "mla_attention": 0}})
     if launches != {"partial_gip": want_launches,
                     "rerank_gip": want_launches, "gip_candidates": 0,
-                    "lexical_pool": 0, "moe_combine": 0}:
+                    "lexical_pool": 0, "moe_combine": 0, "mla_attention": 0}:
         raise AssertionError(f"main path launches {launches}, expected K1 "
                              f"and K2 {want_launches} times, K3 never")
     check_result(scores, rows, args.queries, cfg.topk, args.rows)
@@ -1663,7 +1769,7 @@ def phase_main(args, torch):
           "launches": exact_launches})
     if exact_launches != {"partial_gip": 1, "rerank_gip": 0,
                           "gip_candidates": 0, "lexical_pool": 0,
-                          "moe_combine": 0}:
+                          "moe_combine": 0, "mla_attention": 0}:
         raise AssertionError(f"exact search launches {exact_launches}, "
                              "expected K1 once, K2 and K3 never")
     agree = agreement(rows[:n_agree], erows)
@@ -1707,7 +1813,7 @@ def phase_fused(searcher, queries, torch):
     n_batches = -(-qv.shape[0] // cfg.query_batch)  # once a batch
     want = {"partial_gip": 0, "rerank_gip": n_batches,
             "gip_candidates": n_batches, "lexical_pool": 0,
-            "moe_combine": 0}
+            "moe_combine": 0, "mla_attention": 0}
     emit({"phase": "kernels", "path": "fused", "launches": launches,
           "expected": want})
     if launches != want:
@@ -4043,7 +4149,8 @@ def _par_search(job, z, dev, torch, np):
     launches = read_launches()
     n_batches = -(-qv.shape[0] // cfg.query_batch)  # once a batch
     want = {"partial_gip": n_batches, "rerank_gip": n_batches,
-            "gip_candidates": 0, "lexical_pool": 0, "moe_combine": 0}
+            "gip_candidates": 0, "lexical_pool": 0, "moe_combine": 0,
+            "mla_attention": 0}
     if launches != want:
         raise AssertionError(f"rank {rank}: sharded main path launches "
                              f"{launches}, expected {want}")
@@ -4078,7 +4185,7 @@ def _par_search(job, z, dev, torch, np):
     fused_launches = read_launches()
     fwant = {"partial_gip": 0, "rerank_gip": n_batches,
              "gip_candidates": n_batches, "lexical_pool": 0,
-             "moe_combine": 0}
+             "moe_combine": 0, "mla_attention": 0}
     if fused_launches != fwant:
         raise AssertionError(f"rank {rank}: sharded fused launches "
                              f"{fused_launches}, expected {fwant}")
@@ -4716,6 +4823,7 @@ def main() -> int:
                 phase_k3(index, queries, torch))
         k4 = phase_k4(torch)
         k5 = phase_k5(torch)
+        k6 = phase_k6(torch)
         phase_search_vs_plain(index, raw, torch)
         phase_modes(index, raw, torch)
         del index, queries, raw
@@ -4744,6 +4852,9 @@ def main() -> int:
         kernels.append({"name": "moe_combine", "route": "cuda",
                         "source": K5_SOURCE, "replaces": None,
                         "launches": launches["moe_combine"], **k5})
+        kernels.append({"name": "mla_attention", "route": "cuda",
+                        "source": K6_SOURCE, "replaces": None,
+                        "launches": launches["mla_attention"], **k6})
         ref = parallel_reference(searcher, main_queries, torch)
         # the ranks hold the index (half each): free the parent's first
         del searcher, batch, main_queries

@@ -160,13 +160,15 @@ def _tower_dirs(path: str) -> tuple[str, str] | None:
 
 def _model_cfg_from_args(args):
     """DistilBERT-base computes in bf16; an HF-loaded model in f32 unless
-    ``--bf16``; ``--tiny`` always in f32 (the reference's rule).  An
+    ``--bf16`` (a ``deepseek_v2`` one on the card needs ``--bf16``);
+    ``--tiny`` always in f32 (the reference's rule).  An
     untied export (``--untie-encoder``) gives its ``query_model``'s
     ``config.json``."""
     import os
 
     import torch
 
+    from dhr_tpu_torch.models.decoder import DecoderConfig, check_card_dtype
     from dhr_tpu_torch.models.retrievers import RetrieverConfig
     from dhr_tpu_torch.models.transformer import EncoderConfig
 
@@ -183,6 +185,11 @@ def _model_cfg_from_args(args):
             towers[0] if towers and args.untie_encoder else path,
             dtype=torch.bfloat16 if args.bf16 else torch.float32,
         )
+        if isinstance(enc, DecoderConfig):   # before any weight is read
+            try:
+                check_card_dtype(enc, args.device or "cuda")
+            except ValueError as e:
+                raise SystemExit(f"{path}: {e}") from None
     elif args.tiny:
         enc = EncoderConfig.tiny(vocab_size=args.tiny_vocab,
                                  dtype=torch.float32)
@@ -1088,7 +1095,8 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--remove-dims", type=int, default=570)
     p.add_argument("--bf16", action="store_true",
                    help="compute an HF-loaded model in bf16 (DistilBERT-"
-                        "base without a checkpoint always does)")
+                        "base without a checkpoint always does; a "
+                        "deepseek_v2 checkpoint on the card needs it)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--cls-token-id", type=int, default=101)
     p.add_argument("--sep-token-id", type=int, default=102)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from dhr_tpu_torch.device import resolve_device
+from dhr_tpu_torch.models.decoder import check_card_dtype
 from dhr_tpu_torch.models.retrievers import BiEncoder, Reps, RetrieverConfig
 from dhr_tpu_torch.models.transformer import compute_copy
 from dhr_tpu_torch.ops.aggregate import aggregate, merge_reps
@@ -68,7 +69,9 @@ class Encoder:
       fit beside it).  A decoder with f32 parameters is copied as the
       encoder is.  The encoder then names each batch's real tokens to
       the model (``real_rows``), from the mask it collated on the host,
-      so that the MoE layers route those alone.
+      so that the MoE layers route those alone.  On the card the decoder
+      computes in bf16 alone (``decoder.check_card_dtype``: its attention
+      core's kernel takes bf16); another compute dtype is refused here.
 
     ``mesh``: encode data-parallel over its ranks (see the module
     docstring).
@@ -78,6 +81,8 @@ class Encoder:
                  encode_cfg: EncodeConfig = EncodeConfig(),
                  device: str | torch.device | None = None, mesh=None):
         self.device = resolve_device(device)
+        if cfg.causal:
+            check_card_dtype(cfg.encoder, self.device)
         self.cfg = cfg
         self.encode_cfg = encode_cfg
         if cfg.causal and cfg.encoder.param_dtype == cfg.encoder.dtype:

@@ -18,6 +18,7 @@ import torch
 from dhr_tpu_torch.data.collate import pad_token_batch
 from dhr_tpu_torch.device import resolve_device
 from dhr_tpu_torch.eval.metrics import rerank_metrics
+from dhr_tpu_torch.models.decoder import check_card_dtype
 from dhr_tpu_torch.models.retrievers import BiEncoder, RetrieverConfig
 from dhr_tpu_torch.models.transformer import compute_copy
 from dhr_tpu_torch.ops.aggregate import aggregate
@@ -42,6 +43,8 @@ def make_pair_scorer(model: BiEncoder, cfg: RetrieverConfig,
     210-227, Aggretriever/modeling.py:222-241, ColBERT/modeling.py:
     187-190, the dense dot product)."""
     dev = resolve_device(device)
+    if cfg.causal:
+        check_card_dtype(cfg.encoder, dev)
     model = compute_copy(model, cfg.encoder.dtype, dev).eval()
     mt = cfg.model_type
 

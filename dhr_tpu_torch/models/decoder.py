@@ -62,7 +62,12 @@ eval mode.  Departures from the HF code, none of which changes the maths:
 - the masked score is -1e9 in the compute dtype (HF: the dtype's least
   value);
 - the top-k slots are taken sorted by score, so a token's combine sums
-  its experts in that order.
+  its experts in that order;
+- on the card, where autograd records nothing, MLA's core between its
+  projections and ``o_proj`` is one kernel, K6 (``ops/mla_attention.py``):
+  its scores stay f32 (the eager chain rounds them to the compute dtype),
+  a masked key is left out instead of biased, and P is rounded to the
+  compute dtype before its division by the row's sum.
 
 The MoE's implementation (:class:`MoE`): the router routes the rows it is
 given, the real tokens of the batch where the caller names them
@@ -93,6 +98,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dhr_tpu_torch.models.transformer import Dense
+from dhr_tpu_torch.ops.mla_attention import mla_attention, mla_attention_plain
 from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
 from dhr_tpu_torch.utils import profiling
 
@@ -210,16 +216,6 @@ def rotary(cfg: DecoderConfig, length: int, device):
     return emb.cos() * scale, emb.sin() * scale
 
 
-def apply_rope(t: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> torch.Tensor:
-    """DeepSeek's rope on ``t`` (..., L, d): de-interleave, then rotate
-    (in f32, returning ``t``'s dtype)."""
-    d = t.shape[-1]
-    x = t.float().unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
-    rot = torch.cat([-x[..., d // 2:], x[..., :d // 2]], dim=-1)
-    return (x * cos + rot * sin).to(t.dtype)
-
-
 # -- layers -----------------------------------------------------------------
 
 
@@ -237,19 +233,22 @@ class RMSNorm(nn.Module):
         return (h * self.weight.float()).to(x.dtype)
 
 
-def causal_bias(attention_mask: torch.Tensor, dtype) -> torch.Tensor:
-    """``(B, 1, L, L)``: 0 where query ``i`` may see key ``j`` (``j <= i``
-    and ``j`` real), -1e9 in ``dtype`` elsewhere."""
-    L = attention_mask.shape[-1]
-    pos = torch.arange(L, device=attention_mask.device)
-    allowed = (pos[None, :] <= pos[:, None])[None, None] \
-        & (attention_mask[:, None, None, :] > 0)
-    return torch.where(allowed, 0.0, -1e9).to(dtype)
+def check_card_dtype(cfg: DecoderConfig, device) -> None:
+    """Refuse a decoder that would run inference on the card in another
+    compute dtype than bf16: there, where autograd records nothing, its
+    MLA core is K6 (:func:`mla_attention`), which takes bf16 alone."""
+    if torch.device(device).type == "cuda" and cfg.dtype != torch.bfloat16:
+        raise ValueError(
+            f"a decoder backbone runs inference on the card in bfloat16 "
+            f"only (its attention core's kernel takes bfloat16), not "
+            f"{cfg.dtype}: build its DecoderConfig with "
+            f"dtype=torch.bfloat16 (the CLI's --bf16), or run it on the CPU")
 
 
 class MLA(nn.Module):
-    """Multi-head latent attention, in its prefill form (K and V expanded
-    per head; encoding is one forward, so no cache)."""
+    """Multi-head latent attention, in its prefill form: ``k_nope`` and
+    ``v`` per head from ``kv_b_proj``, ``k_pe`` one head shared by all
+    (encoding is one forward, so no cache)."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -268,23 +267,21 @@ class MLA(nn.Module):
         m = yarn_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim)
         self.scale = q_dim ** -0.5 * m * m
 
-    def forward(self, x, bias, cos, sin):
-        B, L, _ = x.shape
-        n = self.n
-        q = self.q_proj(x).view(B, L, n, -1).transpose(1, 2)
-        q_nope, q_pe = q.split([self.d_nope, self.d_rope], dim=-1)
+    def forward(self, x, mask, cos, sin):
+        """``x`` (B, L, H), ``mask`` the (B, L) attention mask, ``cos`` and
+        ``sin`` :func:`rotary`'s.  The core between the projections and
+        ``o_proj`` is K6 (:func:`mla_attention`) for CUDA tensors where
+        autograd records nothing, :func:`mla_attention_plain` otherwise."""
+        q = self.q_proj(x)
         c, k_pe = self.kv_a_proj_with_mqa(x).split([self.rank, self.d_rope],
                                                    dim=-1)
-        kv = self.kv_b_proj(self.kv_a_layernorm(c)).view(B, L, n, -1) \
-            .transpose(1, 2)
-        k_nope, v = kv.split([self.d_nope, self.d_v], dim=-1)
-        q_pe = apply_rope(q_pe, cos, sin)
-        k_pe = apply_rope(k_pe[:, None], cos, sin)          # (B, 1, L, d)
-        q = torch.cat([q_nope, q_pe], dim=-1)
-        k = torch.cat([k_nope, k_pe.expand(B, n, L, self.d_rope)], dim=-1)
-        scores = torch.matmul(q, k.transpose(-1, -2)) * self.scale + bias
-        probs = torch.softmax(scores, dim=-1, dtype=torch.float32).to(x.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, -1)
+        kv = self.kv_b_proj(self.kv_a_layernorm(c))
+        records = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, kv, k_pe))
+        core = mla_attention if x.is_cuda and not records \
+            else mla_attention_plain
+        out = core(q, kv, k_pe, cos, sin, mask, self.n, self.d_nope,
+                   self.scale)
         return self.o_proj(out)
 
 
@@ -470,9 +467,9 @@ class DecoderLayer(nn.Module):
         self.mlp = MoE(cfg) if cfg.is_moe(layer) else MLP(
             H, cfg.intermediate_size, cfg.param_dtype)
 
-    def forward(self, x, bias, cos, sin, rows=None):
+    def forward(self, x, mask, cos, sin, rows=None):
         with profiling.span("mla.attention", device=True):
-            x = x + self.self_attn(self.input_layernorm(x), bias, cos, sin)
+            x = x + self.self_attn(self.input_layernorm(x), mask, cos, sin)
         h = self.post_attention_layernorm(x)
         h = self.mlp(h, rows) if isinstance(self.mlp, MoE) else self.mlp(h)
         return x + h
@@ -512,10 +509,9 @@ class DecoderModel(nn.Module):
             raise ValueError(f"rows of {L} tokens exceed the model's "
                              f"{self.cfg.max_position_embeddings} positions")
         x = F.embedding(input_ids, self.embed_tokens.weight.to(dt))
-        bias = causal_bias(attention_mask, dt)
         cos, sin = rotary(self.cfg, L, x.device)
         for layer in self.layers:
-            x = layer(x, bias, cos, sin, rows)
+            x = layer(x, attention_mask, cos, sin, rows)
         return self.norm(x)
 
 

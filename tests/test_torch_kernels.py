@@ -1,5 +1,5 @@
-"""CUDA kernels K1 / K2 / K3 / K4 / K5 against their plain PyTorch versions,
-on the card.
+"""CUDA kernels K1 / K2 / K3 / K4 / K5 / K6 against their plain PyTorch
+versions, on the card (K6 alone also in ``tests/test_torch_mla_attention.py``).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a GPU and no JAX it runs with
@@ -25,6 +25,7 @@ from dhr_tpu_torch.ops.gip_candidates import (
     kernel_limits,
 )
 from dhr_tpu_torch.ops.lexical_pool import lexical_pool, lexical_pool_plain
+from dhr_tpu_torch.ops.mla_attention import mla_attention
 from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
 from dhr_tpu_torch.ops.partial_gip import (
     partial_gip,
@@ -650,8 +651,9 @@ def test_moe_combine_refuses_autograd_and_bad_input(cuda):
 
 def test_decoder_encode_launches_k5_once_a_moe_layer(cuda):
     """``Encoder.encode_batch`` on the decoder backbone (inference mode)
-    launches K5 once per MoE layer of a batch; a forward with autograd on
-    takes the eager combine and launches none."""
+    launches K5 once per MoE layer of a batch and K6 once per layer (3 a
+    ``tiny`` batch); a forward with autograd on takes the eager combine
+    and the plain attention core and launches neither."""
     from dhr_tpu_torch.encode import EncodeConfig, Encoder
     from dhr_tpu_torch.models import decoder as dec
     from dhr_tpu_torch.models.retrievers import BiEncoder, RetrieverConfig
@@ -673,10 +675,82 @@ def test_decoder_encode_launches_k5_once_a_moe_layer(cuda):
             ).astype(np.int64)
     n_moe = sum(dc.is_moe(i) for i in range(dc.num_layers))
     before = kernel_launches()["moe_combine"]
+    before_mla = kernel_launches()["mla_attention"]
     enc.encode_batch(ids, mask, "passage")
     torch.cuda.synchronize()
     assert kernel_launches()["moe_combine"] == before + n_moe
+    assert dc.num_layers == 3
+    assert kernel_launches()["mla_attention"] == before_mla + 3
     model.train()
     x = torch.from_numpy(ids).to(cuda)
     model.encoder("passage")(x, torch.from_numpy(mask).to(cuda))
     assert kernel_launches()["moe_combine"] == before + n_moe
+    assert kernel_launches()["mla_attention"] == before_mla + 3
+
+
+# ---- K6: the MLA core -------------------------------------------------------
+
+
+def _mla_layer(cuda):
+    """A DeepSeek-V2-Lite MLA layer in bf16 on the card (init 0.006, the
+    cell's), a ragged right-padded batch of 8 x 79 and its rotary."""
+    from dhr_tpu_torch.models import decoder as dec
+
+    cfg = dec.DecoderConfig.deepseek_v2_lite(param_dtype=torch.bfloat16)
+    torch.manual_seed(3)
+    with torch.device(cuda):
+        layer = dec.MLA(cfg)
+    dec.init_weights(layer, 0.006)
+    B, L = 8, 79
+    x = torch.randn(B, L, cfg.hidden_size, device=cuda).bfloat16()
+    lengths = torch.tensor([79, 1, 8, 40, 64, 65, 78, 17], device=cuda)
+    mask = (torch.arange(L, device=cuda)[None] < lengths[:, None]).long()
+    cos, sin = dec.rotary(cfg, L, cuda)
+    return layer, x, mask, cos, sin
+
+
+def test_mla_layer_takes_k6_without_autograd_and_reads_nothing(cuda):
+    """The layer in inference launches K6 once, with no device-to-host
+    read (sync debug mode 'error'), the same bits twice; with autograd on
+    it takes the plain core and launches none.  The two outputs agree
+    within 2^-6 of the plain one's norm (relative L2): the cores differ
+    by ~2^-9 (K6) and ~2^-7 (the plain one's bf16 scores) of their scale
+    against f64 (``tests/test_torch_mla_attention.py``), and o_proj mixes
+    2,048 of them."""
+    layer, x, mask, cos, sin = _mla_layer(cuda)
+    before = kernel_launches()["mla_attention"]
+    with torch.no_grad():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = layer(x, mask, cos, sin)
+            again = layer(x, mask, cos, sin)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kernel_launches()["mla_attention"] == before + 2
+    assert torch.equal(got, again)
+    plain = layer(x, mask, cos, sin)
+    assert plain.requires_grad
+    assert kernel_launches()["mla_attention"] == before + 2
+    gap = (got.float() - plain.detach().float()).norm() / plain.float().norm()
+    assert float(gap) <= 2.0 ** -6, float(gap)
+
+
+def test_mla_attention_refuses_autograd_and_bad_input(cuda):
+    layer, x, mask, cos, sin = _mla_layer(cuda)
+    q = layer.q_proj(x)
+    c, k_pe = layer.kv_a_proj_with_mqa(x).split([512, 64], dim=-1)
+    kv = layer.kv_b_proj(layer.kv_a_layernorm(c))
+    with pytest.raises(RuntimeError, match="no backward"):
+        mla_attention(q, kv, k_pe, cos, sin, mask, 16, 128, layer.scale)
+    q, kv, k_pe = q.detach(), kv.detach(), k_pe.detach()
+    with pytest.raises(ValueError, match="one device"):
+        mla_attention(q, kv, k_pe, cos, sin, mask.cpu(), 16, 128, 0.1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        mla_attention(q.float(), kv, k_pe, cos, sin, mask, 16, 128, 0.1)
+    odd = torch.zeros(*k_pe.shape[:2], 68, device=cuda).bfloat16()[..., 4:]
+    with pytest.raises(ValueError, match="pitch"):
+        mla_attention(q, kv, odd, cos, sin, mask, 16, 128, 0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        mla_attention(q[..., :-16 * 8], kv, k_pe, cos, sin, mask, 16, 128,
+                      0.1)
