@@ -34,7 +34,9 @@ is in the repository), and checks what each returns:
 - ``bert_path``: BERT-base towers with token types, tied and untied, card
   against CPU; untied TASB DHR and packed ColBERT through the CLI chain.
 - K1-K6 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
-  the encode cell's batch, K5 and K6 at the dsv2 cell's), the other search
+  the encode cell's batch, K5 and K6 at the dsv2 cell's), Kimi Linear's
+  pieces at the Kimi cell's largest bucket (K6 without positions at 32
+  heads, the chunked KDA layer card against its CPU twin), the other search
   modes against the CPU's plain path, then the main and fused paths at
   8,841,823 rows (launch counts, staged-vs-exact agreement) and ip / pq
   on that index.
@@ -93,6 +95,11 @@ K6_SOURCE = "dhr_tpu_torch/csrc/mla_attention.cu"
 # plus BOS and EOS), a call of 2,048 passages in batches of 256
 DSV2_MLA = (16, (128, 64, 128), 512)
 DSV2_LENGTHS = (75, 0.45, 8, 126)
+# Kimi Linear at the Kimi cell's largest bucket (benchmarks/traffic/
+# moe-encode-docs.json: batches of 8 documents of up to 2,048 tokens):
+# hidden, KDA heads and width, MLA heads
+KIMI_BUCKET = (8, 2048)
+KIMI_WIDTHS = (2304, 32, 128, 32)
 SMALL_ROWS = 204_803
 ENCODE_PASSAGES = 32_768
 ENCODE_QUERIES = 1_024
@@ -1527,6 +1534,103 @@ def phase_k6(torch):
               "library_ms": None}
     emit({**out, **kernel})
     return kernel
+
+
+def phase_kimi(torch):
+    """Kimi Linear's pieces at the Kimi cell's largest bucket (8 x 2,048):
+    K6 without positions (the identity tables) at 32 heads of (128, 64,
+    128), ragged, within 2^-7 of an f64 core on its first 2 documents and
+    no farther than the plain version + 2^-8 (as ``phase_k6``); and one KDA
+    layer (published widths, random weights, TF32 off) in f32 on the card
+    against its CPU twin, within 1e-4 of the output's scale (f32 products
+    summed in another order), its chunked scan alone likewise.  Then the
+    bf16 layer's and its scan's ms at that bucket, and the bf16 layer's
+    gap to the f32 one."""
+    import numpy as np
+
+    from dhr_tpu_torch.models import decoder as dec
+    from dhr_tpu_torch.ops.mla_attention import (
+        mla_attention, mla_attention_plain)
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from mla_reference import f64_core, mla_inputs
+
+    B, L = KIMI_BUCKET
+    H, h, d, heads = KIMI_WIDTHS
+    dims = (128, 64, 128)
+    rng = np.random.default_rng(23)
+    lengths = rng.integers(L // 2, L + 1, B)
+    lengths[0] = L
+    cfg = dec.DecoderConfig.kimi_linear_48b_a3b()
+    cos, sin = dec.position_tables(cfg, L, "cuda")
+    scale = (dims[0] + dims[1]) ** -0.5
+    q, kv, k_pe, _, _, mask = mla_inputs(lengths, heads, dims, seed=23,
+                                         device="cuda")
+    with torch.inference_mode():
+        got = mla_attention(q, kv, k_pe, cos, sin, mask, heads, 128, scale)
+        plain = mla_attention_plain(q, kv, k_pe, cos, sin, mask, heads, 128,
+                                    scale)
+        ref = f64_core(q[:2], kv[:2], k_pe[:2], cos, sin, mask[:2], heads,
+                       dims, scale)
+        top = float(ref.abs().max())
+        k6_gap = float((got[:2].double() - ref).abs().max()) / top
+        plain_gap = float((plain[:2].double() - ref).abs().max()) / top
+        k6_ms = cuda_ms(lambda: mla_attention(q, kv, k_pe, cos, sin, mask,
+                                              heads, 128, scale), 10, torch)
+    if not (k6_gap <= 2.0 ** -7 and k6_gap <= plain_gap + 2.0 ** -8):
+        raise AssertionError(f"K6 without positions: {k6_gap} to f64 "
+                             f"(plain {plain_gap})")
+    del q, kv, k_pe, got, plain, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(23)
+    layer = dec.KDA(dataclasses.replace(cfg, dtype=torch.float32,
+                                        param_dtype=torch.float32))
+    dec.init_weights(layer, cfg.initializer_range)
+    x = torch.randn(B, L, H)
+    for b, n in enumerate(lengths):
+        x[b, n:] = 0.0
+    gens = [torch.Generator().manual_seed(s) for s in range(5)]
+    scan_in = (*(torch.randn(B, L, h, d, generator=gens[i])
+                 for i in range(3)),
+               -torch.rand(B, L, h, d, generator=gens[3]) * 0.2,
+               torch.rand(B, L, h, generator=gens[4]))
+    with torch.inference_mode():
+        want = layer(x)
+        want_scan = dec.kda_scan(*scan_in)
+        layer.cuda()
+        xc = x.cuda()
+        got = layer(xc)
+        got_scan = dec.kda_scan(*(t.cuda() for t in scan_in))
+        gaps = {"layer": float((got.cpu() - want).abs().max())
+                / float(want.abs().max()),
+                "scan": float((got_scan.cpu() - want_scan).abs().max())
+                / float(want_scan.abs().max())}
+        if not all(g <= 1e-4 for g in gaps.values()):
+            raise AssertionError(f"the KDA layer card vs CPU: {gaps}")
+        layer.to(torch.bfloat16)
+        xb = xc.to(torch.bfloat16)
+        bf16 = layer(xb)
+        gaps["bf16_layer_vs_f32"] = float((bf16.float() - got).abs().max()
+                                          ) / float(got.abs().max())
+        ms = cuda_ms(lambda: layer(xb), 5, torch)
+        bf_in = [t.cuda() for t in scan_in]
+        scan_ms = cuda_ms(lambda: dec.kda_scan(*bf_in), 5, torch)
+        peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "kimi_vs_plain", "bucket": [B, L],
+           "lengths": lengths.tolist(), "k6_nope_f64_gaps_k6_plain":
+           [k6_gap, plain_gap], "k6_nope_ms": k6_ms,
+           "kda_gaps_card_vs_cpu": gaps, "kda_layer_bf16_ms": ms,
+           "kda_scan_ms": scan_ms, "peak_bytes": peak,
+           "tol": "K6: 2^-7 to f64 and no farther than the plain version "
+                  "+ 2^-8; KDA f32: 1e-4 of the scale"}
+    emit(out)
+    del layer, x, xc, xb, got, bf16
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_search_vs_plain(index, queries_raw, torch):
@@ -4824,6 +4928,7 @@ def main() -> int:
         k4 = phase_k4(torch)
         k5 = phase_k5(torch)
         k6 = phase_k6(torch)
+        phase_kimi(torch)
         phase_search_vs_plain(index, raw, torch)
         phase_modes(index, raw, torch)
         del index, queries, raw

@@ -1,13 +1,16 @@
 """The decoder backbone: a causal pre-norm transformer of the DeepSeek-V2
 family (multi-head latent attention, YaRN rotary positions, a mixture of
-experts), as a retriever's backbone.
+experts) and of the Kimi Linear family (Kimi Delta Attention layers
+beside MLA without positions, a sigmoid-routed mixture of experts), as a
+retriever's backbone.
 
 The equations are those of Hugging Face's ``modeling_deepseek.py``
-(DeepSeek-V2).  ``x`` is ``(B, L, H)``.
+(DeepSeek-V2) and ``modeling_kimi.py`` (Kimi Linear, arXiv:2510.26692).
+``x`` is ``(B, L, H)``.
 
 Block (pre-norm), then a final RMSNorm after the last block::
 
-    x = x + MLA(RMSNorm(x))
+    x = x + ATTN(RMSNorm(x))        (MLA, or KDA on the layers it names)
     x = x + FFN(RMSNorm(x))
 
 RMSNorm: ``x * rsqrt(mean(x^2) + eps) * weight``.
@@ -25,7 +28,9 @@ MLA (no query LoRA; ``n`` heads of ``d_nope + d_rope`` for q and k and
 with ``scale = (d_nope + d_rope) ** -0.5 * m * m``, ``m = 0.1 *
 mscale_all_dim * ln(factor) + 1``.  ``rope`` de-interleaves the rope
 half (``t.view(..., d/2, 2).transpose(-1, -2).reshape(..., d)``) and then
-rotates it: ``t * cos + rotate_half(t) * sin``.
+rotates it: ``t * cos + rotate_half(t) * sin``.  Without positions
+(``mla_use_nope``, Kimi Linear) ``q_pe`` and ``k_pe`` enter the scores
+unrotated and ``scale = (d_nope + d_rope) ** -0.5``.
 
 YaRN (rope dim ``d``, base ``b``, ``factor``, original length ``L0``)::
 
@@ -38,36 +43,78 @@ YaRN (rope dim ``d``, base ``b``, ``factor``, original length ``L0``)::
 and cos, sin of ``position * inv_freq`` scaled by ``mscale(factor,
 mscale) / mscale(factor, mscale_all_dim)`` (1 at the published numbers).
 
-FFN: the first ``first_k_dense_replace`` layers are SwiGLU MLPs,
-``down(silu(gate(x)) * up(x))``.  The others are mixtures of experts:
+KDA, Kimi Delta Attention (the layers ``kda_layers`` names, 1-based as
+published; ``h`` heads of ``d``, ``D = h d``)::
 
-    scores = softmax(x.float() @ W_gate.float().T)        (64 in f32)
+    q, k, v = SiLU(CausalConv_c(x W_c)),  c in {q, k, v}; W_c: H -> D;
+              depthwise over the last ``kda_conv_size`` positions, no bias
+    q, k    = L2Norm over each head's d (x * rsqrt(sum(x^2) + 1e-6));
+              q <- q * d ** -0.5
+    g       = -exp(A_log[head]) * softplus(f_b(f_a(x)) + dt_bias)
+              f_a: H -> d, f_b: d -> D; a log-decay per channel
+    beta    = sigmoid(b_proj(x))                              b_proj: H -> h
+    S_0 = 0 (d x d per passage and head)
+    S_t = (I - beta_t k_t k_t^T) Diag(exp g_t) S_{t-1} + beta_t k_t v_t^T
+    o_t = S_t^T q_t
+    out = o_proj(RMSNorm_head(o) * sigmoid(g_b(g_a(x))))
+          g_a: H -> d, g_b: d -> D with a bias; RMSNorm weight d, eps
+          rms_norm_eps
+
+computed by :func:`kda_scan` in its chunked form (see there).
+
+FFN: the first ``first_k_dense_replace`` layers are SwiGLU MLPs,
+``down(silu(gate(x)) * up(x))``.  The others are mixtures of experts,
+with a softmax router (DeepSeek-V2)::
+
+    scores = softmax(x.float() @ W_gate.float().T)        (E in f32)
     i_1..k, w_1..k = the top ``k`` scores (greedy)  x routed_scaling_factor
+
+or a sigmoid one (``router == "sigmoid"``, Kimi Linear)::
+
+    s        = sigmoid(x.float() @ W_gate.float().T)       (E in f32)
+    i_1..k   = the top ``k`` of s + e_score_correction_bias
+    w_j      = s_{i_j} / (sum_j s_{i_j} + 1e-20) x routed_scaling_factor
+
+and then::
+
     y = sum_j w_j * E_{i_j}(x)   (in f32, cast to the compute dtype)
         + shared(x)              (one SwiGLU of n_shared x the expert width)
 
+A layer may hold a share of the experts (``experts_held``, a contiguous
+range, as one chip of an expert-parallel deployment holds): it routes
+over all ``n_routed_experts`` and sums only its own experts' terms; the
+shared expert is computed whole.
+
 Numerics, in the port's conventions: parameters live in ``param_dtype``
 (f32 to train; the compute dtype for inference, built so and never
-copied) and RMSNorm weights in f32 always; linear maps compute in their
-input's dtype; RMSNorm, the rotary products, the softmaxes, the gate and
-the experts' combine in f32, each returning the compute dtype.  There is
-no dropout (the published config has none), and the modules start in
-eval mode.  Departures from the HF code, none of which changes the maths:
+copied) and RMSNorm weights, ``A_log``, ``dt_bias`` and the correction
+bias in f32 always; linear maps and the short convolutions compute in
+their input's dtype; RMSNorm, the rotary products, the softmaxes, the
+gates, KDA's normalisations, decays and recurrence and the experts'
+combine in f32, each returning the compute dtype.  There is no dropout
+(the published configs have none), and the modules start in eval mode.
+Departures from the HF code, none of which changes the maths:
 
 - RMSNorm multiplies by its f32 weight before the cast to the compute
   dtype (HF casts first, then multiplies by a weight of the model's
   dtype);
 - the rotary products run in f32 on f32 cos / sin (HF casts cos and sin
-  to the compute dtype);
+  to the compute dtype); without positions the tables are identities
+  (cos 1, sin 0), which leave ``q_pe`` and ``k_pe`` exact;
 - the masked score is -1e9 in the compute dtype (HF: the dtype's least
   value);
-- the top-k slots are taken sorted by score, so a token's combine sums
-  its experts in that order;
+- the top-k slots are taken sorted by score (by choice score for the
+  sigmoid router), so a token's combine sums its experts in that order;
 - on the card, where autograd records nothing, MLA's core between its
   projections and ``o_proj`` is one kernel, K6 (``ops/mla_attention.py``):
   its scores stay f32 (the eager chain rounds them to the compute dtype),
   a masked key is left out instead of biased, and P is rounded to the
-  compute dtype before its division by the row's sum.
+  compute dtype before its division by the row's sum;
+- KDA's recurrence runs chunked in f32 plain torch ops (the published
+  code's Triton kernels ``chunk_kda`` compute it in sub-chunks), its
+  output rounded to the compute dtype before the gated norm, as the
+  published kernel returns it; the convolutions have no cache (encoding
+  is one forward).
 
 The MoE's implementation (:class:`MoE`): the router routes the rows it is
 given, the real tokens of the batch where the caller names them
@@ -82,10 +129,12 @@ the experts' row groups; the combine gathers each token's ``k`` rows
 back by the inverse permutation and sums them weighted in f32: no atomics,
 the same bits from run to run (on the card, where autograd records
 nothing, in one kernel, K5 ``ops/moe_combine.py``).  No device-to-host
-read happens inside the layer.  :func:`routed_experts_loop` is the plain
-twin, a loop of matmuls over the experts that reads each expert's rows to
-the host; a CPU tensor takes it, a CUDA tensor takes the grouped GEMMs or
-raises.
+read happens inside the layer.  A layer holding a share sends the slots
+of the experts it lacks to one more group past its own, which no GEMM
+computes and whose slots weigh 0.  :func:`routed_experts_loop` is the
+plain twin, a loop of matmuls over the held experts that reads each
+expert's rows to the host; a CPU tensor takes it, a CUDA tensor takes the
+grouped GEMMs or raises.
 """
 
 from __future__ import annotations
@@ -136,17 +185,82 @@ class DecoderConfig:
     max_position_embeddings: int = 163840
     rms_norm_eps: float = 1e-6
     initializer_range: float = 0.006
+    # the router: "softmax" (DeepSeek-V2) or "sigmoid" with a correction
+    # bias for the choice (Kimi Linear's moe_router_activation_func)
+    router: str = "softmax"
+    # [start, stop) of the routed experts this layer holds (one chip's
+    # share of an expert-parallel layer); None: all of them
+    experts_held: tuple[int, int] | None = None
+    # MLA without rotary positions (Kimi Linear's mla_use_nope)
+    mla_use_nope: bool = False
+    # Kimi Linear's linear_attn_config: the KDA layers (1-based), their
+    # heads, head width and short-convolution length
+    kda_layers: tuple[int, ...] = ()
+    kda_num_heads: int = 32
+    kda_head_dim: int = 128
+    kda_conv_size: int = 4
     dtype: torch.dtype = torch.bfloat16        # activation / compute dtype
     param_dtype: torch.dtype = torch.float32   # linear and embedding weights
 
     def __post_init__(self):
         if self.num_experts_per_tok > self.n_routed_experts:
             raise ValueError("num_experts_per_tok exceeds n_routed_experts")
+        if self.router not in ("softmax", "sigmoid"):
+            raise ValueError(f"router {self.router!r}: softmax or sigmoid")
+        if self.experts_held is not None:
+            lo, hi = self.experts_held
+            if not 0 <= lo < hi <= self.n_routed_experts:
+                raise ValueError(f"experts_held {self.experts_held} is not "
+                                 f"a range inside the "
+                                 f"{self.n_routed_experts} routed experts")
+        if any(not 1 <= i <= self.num_layers for i in self.kda_layers):
+            raise ValueError(f"kda_layers {self.kda_layers} are 1-based "
+                             f"layer numbers up to {self.num_layers}")
 
     @staticmethod
     def deepseek_v2_lite(**kw) -> "DecoderConfig":
         """DeepSeek-V2-Lite's published shape (its HF ``config.json``)."""
         return DecoderConfig(**kw)
+
+    @staticmethod
+    def kimi_linear_48b_a3b(**kw) -> "DecoderConfig":
+        """Kimi-Linear-48B-A3B's published shape (its HF ``config.json``):
+        27 layers at 2,304, 20 KDA layers (32 heads of 128, conv 4) and 7
+        MLA layers without positions, layer 1 dense (9,216), then 256
+        experts of 1,024 top-8 (sigmoid, renormalised, x 2.446) and one
+        shared; vocabulary 163,840."""
+        base = dict(vocab_size=163840, hidden_size=2304, num_layers=27,
+                    num_heads=32, intermediate_size=9216,
+                    moe_intermediate_size=1024, n_routed_experts=256,
+                    n_shared_experts=1, num_experts_per_tok=8,
+                    norm_topk_prob=True, routed_scaling_factor=2.446,
+                    router="sigmoid", mla_use_nope=True, rope_factor=1.0,
+                    max_position_embeddings=1048576, rms_norm_eps=1e-5,
+                    kda_layers=KIMI_KDA_LAYERS)
+        base.update(kw)
+        return DecoderConfig(**base)
+
+    @staticmethod
+    def tiny_kimi_linear(**kw) -> "DecoderConfig":
+        """A fast Kimi Linear config for tests: 1 dense + 3 MoE layers,
+        KDA layers 1, 2 and 4 beside MLA layer 3 (no positions), 8
+        experts top-3 (sigmoid) and one shared, small widths."""
+        base = dict(vocab_size=1024, hidden_size=32, num_layers=4,
+                    num_heads=2, intermediate_size=48,
+                    moe_intermediate_size=16, n_routed_experts=8,
+                    n_shared_experts=1, num_experts_per_tok=3,
+                    norm_topk_prob=True, routed_scaling_factor=2.446,
+                    router="sigmoid", mla_use_nope=True, rope_factor=1.0,
+                    kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8,
+                    v_head_dim=8, max_position_embeddings=4096,
+                    rms_norm_eps=1e-5, initializer_range=0.02,
+                    kda_layers=(1, 2, 4), kda_num_heads=2, kda_head_dim=8)
+        base.update(kw)
+        return DecoderConfig(**base)
+
+    def is_kda(self, layer: int) -> bool:
+        """Layer ``layer`` (0-based) is a KDA layer."""
+        return layer + 1 in self.kda_layers
 
     @staticmethod
     def tiny(**kw) -> "DecoderConfig":
@@ -166,6 +280,10 @@ class DecoderConfig:
         return (self.n_routed_experts > 0
                 and layer >= self.first_k_dense_replace
                 and layer % self.moe_layer_freq == 0)
+
+
+KIMI_KDA_LAYERS = (1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15, 17, 18, 19, 21, 22,
+                   23, 25, 26)
 
 
 # -- rotary positions -------------------------------------------------------
@@ -216,6 +334,16 @@ def rotary(cfg: DecoderConfig, length: int, device):
     return emb.cos() * scale, emb.sin() * scale
 
 
+def position_tables(cfg: DecoderConfig, length: int, device):
+    """MLA's ``(cos, sin)``: :func:`rotary`'s, or identities (cos 1, sin
+    0) for MLA without positions, which leave the rope half exact."""
+    if not cfg.mla_use_nope:
+        return rotary(cfg, length, device)
+    shape = (length, cfg.qk_rope_head_dim)
+    return (torch.ones(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
+
+
 # -- layers -----------------------------------------------------------------
 
 
@@ -264,7 +392,8 @@ class MLA(nn.Module):
         self.kv_b_proj = Dense(self.rank, self.n * (self.d_nope + self.d_v),
                                bias=False, dtype=pd)
         self.o_proj = Dense(self.n * self.d_v, H, bias=False, dtype=pd)
-        m = yarn_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim)
+        m = 1.0 if cfg.mla_use_nope else yarn_mscale(
+            cfg.rope_factor, cfg.rope_mscale_all_dim)
         self.scale = q_dim ** -0.5 * m * m
 
     def forward(self, x, mask, cos, sin):
@@ -283,6 +412,195 @@ class MLA(nn.Module):
         out = core(q, kv, k_pe, cos, sin, mask, self.n, self.d_nope,
                    self.scale)
         return self.o_proj(out)
+
+
+# -- Kimi Delta Attention --------------------------------------------------
+
+KDA_CHUNK = 64      # the recurrence's chunk
+KDA_SUB = 8         # a chunk's sub-chunks, at whose edges decays factor
+KDA_BLOCK_BYTES = 1 << 30   # the within-chunk transients of a block of chunks
+
+
+def l2norm(t: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``t * rsqrt(sum(t^2) + eps)`` over the last dim, in f32."""
+    t = t.float()
+    return t * torch.rsqrt(t.pow(2).sum(-1, keepdim=True) + eps)
+
+
+def _chunk_local(q, k, v, g, beta, sub: int):
+    """The part of :func:`kda_scan` that each chunk computes alone, for
+    chunks laid out ``(..., C, d)`` in f32: ``g`` the log-decays (<= 0),
+    ``beta`` ``(..., C)``.  Returns ``(u, wk, qs, o_in, ks, decay)``: the
+    chunk's recurrence is then, from its entering state ``S``, ``W = u -
+    wk S``, ``o = o_in + qs S`` and ``S' = decay * S + ks^T W``.
+
+    With ``G`` the cumulative log-decay within the chunk, ``A[r, s] =
+    beta_r sum_i k_r,i k_s,i exp(G_r,i - G_s,i)`` (s < r) and ``P[r, s] =
+    sum_i q_r,i k_s,i exp(G_r,i - G_s,i)`` (s <= r).  For ``s`` in an
+    earlier sub-chunk than ``r`` the decay factors at the end ``e`` of the
+    sub-chunk before ``r``'s, ``exp(G_r - G_e) exp(G_e - G_s)``, and the
+    pair is one matrix product; inside a sub-chunk it is taken pairwise.
+    Every exponent is a sum of the ``g`` it spans (cumulative sums and sums
+    of whole sub-chunks, never a difference of two), so each is <= 0 and
+    keeps its relative precision however far the decay has run.  ``(I +
+    A) [u | wk] = [beta v | beta exp(G) k]`` is one unit-triangular
+    solve."""
+    C, d = k.shape[-2:]
+    ns = C // sub
+    lead = k.shape[:-2]
+    dev = k.device
+    gs, ks_, qs_ = (t.unflatten(-2, (ns, sub)) for t in (g, k, q))
+    incl = gs.cumsum(-2)              # g over [sub-chunk start, t]
+    # g over (t, sub-chunk end]: the shifted g summed from the end
+    after = F.pad(gs[..., 1:, :], (0, 0, 0, 1)).flip(-2).cumsum(-2).flip(-2)
+    # between[I, J]: g over the whole sub-chunks strictly between J and I
+    # (I = ns: to the chunk's end), -inf where J >= I
+    blk = torch.arange(ns, device=dev)
+    inside = (blk[None, :, None] < blk[None, None, :]) \
+        & (blk[None, None, :] < torch.arange(ns + 1, device=dev)[:, None,
+                                                                  None])
+    between = torch.matmul(inside.flatten(0, 1).float(), incl[..., -1, :]) \
+        .unflatten(-2, (ns + 1, ns))
+    between = between.masked_fill(
+        (blk[None, :] >= torch.arange(ns + 1, device=dev)[:, None])[..., None],
+        float("-inf"))
+    col = (between[..., :ns, :, None, :] + after.unsqueeze(-4)) \
+        .flatten(-3, -2).exp_().mul_(k.unsqueeze(-3))   # (.., ns, C, d)
+    row = incl.exp()
+    lhs = torch.cat([ks_ * row, qs_ * row], dim=-2)       # (.., ns, 2s, d)
+    off = torch.matmul(lhs, col.transpose(-1, -2))        # (.., ns, 2s, C)
+    a = off[..., :sub, :].reshape(*lead, C, C)
+    p = off[..., sub:, :].reshape(*lead, C, C)
+    sp = torch.arange(sub, device=dev)
+    # g over (s, r] inside a sub-chunk: (.., ns, r, s, d)
+    pair = (gs.unsqueeze(-2) * (sp[:, None] > sp[None, :])[..., None]) \
+        .cumsum_(-3).exp_().mul_(ks_.unsqueeze(-3))
+    both = torch.matmul(pair, torch.stack([ks_, qs_], dim=-1))
+    tri = torch.ones(sub, sub, dtype=torch.bool, device=dev).tril()
+    a.view(*lead, ns, sub, ns, sub).diagonal(0, -4, -2).add_(
+        (both[..., 0] * tri.tril(-1)).movedim(-3, -1))
+    p.view(*lead, ns, sub, ns, sub).diagonal(0, -4, -2).add_(
+        (both[..., 1] * tri).movedim(-3, -1))
+    a.mul_(beta[..., None])
+    eg = g.cumsum(-2).exp_()
+    dv = v.shape[-1]
+    x = torch.linalg.solve_triangular(
+        a, torch.cat([v, eg * k], dim=-1) * beta[..., None], upper=False,
+        unitriangular=True)
+    u, wk = x[..., :dv], x[..., dv:]
+    ks = (between[..., ns, :, None, :] + after).flatten(-3, -2).exp_() * k
+    return (u, wk, (eg * q).sub_(torch.matmul(p, wk)), torch.matmul(p, u),
+            ks, eg[..., -1, :])
+
+
+def kda_scan(q, k, v, g, beta) -> torch.Tensor:
+    """KDA's recurrence from its post-convolution ``q``, ``k``, ``v``
+    ``(B, L, h, d)``, log-decays ``g`` ``(B, L, h, d)`` (<= 0) and ``beta``
+    ``(B, L, h)``: ``o`` ``(B, L, h, d_v)`` in ``v``'s dtype, with ``q``
+    and ``k`` L2-normed here and ``q`` scaled by ``d ** -0.5`` (the
+    published ``chunk_kda`` with ``use_qk_l2norm_in_kernel``).
+
+    Chunked, in f32 plain torch ops: each chunk of :data:`KDA_CHUNK`
+    positions computes its local part (:func:`_chunk_local`) for a block
+    of chunks at a time, whose transients stay under
+    :data:`KDA_BLOCK_BYTES`, and the state ``(d, d_v)`` per passage and
+    head passes from chunk to chunk, three batched products a chunk:
+    ``ceil(L / 64)`` steps.  A position sees only itself and those before
+    it, so right padding changes no real output."""
+    B, L, h, d = k.shape
+    dv = v.shape[-1]
+    chunk, sub = KDA_CHUNK, KDA_SUB
+    n = -(-L // chunk)
+    BH, dev = B * h, k.device
+
+    def lay(t):   # (B, L, h, e) -> (n, B h, chunk, e) f32, right-padded
+        t = F.pad(t, (0, 0, 0, 0, 0, n * chunk - L))
+        t = t.view(B, n, chunk, h, -1).permute(1, 0, 3, 2, 4)
+        return torch.empty(t.shape, dtype=torch.float32,
+                           device=dev).copy_(t).view(n, BH, chunk, -1)
+
+    qc = lay(l2norm(q) * d ** -0.5)
+    kc, vc = lay(l2norm(k)), lay(v)
+    gc = lay(g)
+    bc = lay(beta.float()[..., None])[..., 0]
+    per = 4 * (chunk // sub * (sub * sub * d + chunk * d)
+               + chunk * (6 * d + 3 * dv + 4 * chunk))
+    nb = max(1, min(n, KDA_BLOCK_BYTES // (BH * per)))
+    out = torch.empty(n, BH, chunk, dv, dtype=torch.float32, device=dev)
+    state = torch.zeros(BH, d, dv, dtype=torch.float32, device=dev)
+    for c0 in range(0, n, nb):
+        c1 = min(c0 + nb, n)
+        u, wk, qs, o_in, ks, decay = _chunk_local(
+            qc[c0:c1], kc[c0:c1], vc[c0:c1], gc[c0:c1], bc[c0:c1], sub)
+        states = torch.empty(c1 - c0 + 1, BH, d, dv, dtype=torch.float32,
+                             device=dev)
+        states[0] = state
+        for j in range(c1 - c0):
+            w = torch.baddbmm(u[j], wk[j], states[j], alpha=-1)
+            torch.baddbmm(states[j] * decay[j][..., None],
+                          ks[j].transpose(-1, -2), w, out=states[j + 1])
+        out[c0:c1] = torch.matmul(qs, states[:-1]).add_(o_in)
+        state = states[-1]
+    o = out.view(n, B, h, chunk, dv).permute(1, 0, 3, 2, 4) \
+        .reshape(B, n * chunk, h, dv)
+    return o[:, :L].to(v.dtype)
+
+
+class ShortConv(nn.Module):
+    """The published ``ShortConvolution``: a causal depthwise convolution
+    over the last ``size`` positions, no bias, then SiLU; its weight
+    ``(D, 1, size)`` as ``nn.Conv1d``'s.  Computes in its input's dtype."""
+
+    def __init__(self, dim: int, size: int, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim, 1, size, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        L, size = x.shape[1], self.weight.shape[-1]
+        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype),
+                     padding=size - 1, groups=x.shape[-1])
+        return F.silu(y[..., :L]).transpose(1, 2)
+
+
+class KDA(nn.Module):
+    """Kimi Delta Attention (the module docstring's equations), under the
+    published names; ``A_log`` ``(1, 1, h, 1)`` and ``dt_bias`` ``(D,)`` in
+    f32.  Device span ``kda.scan`` around the recurrence."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        H, pd = cfg.hidden_size, cfg.param_dtype
+        self.h, self.d = cfg.kda_num_heads, cfg.kda_head_dim
+        D = self.h * self.d
+        for c in ("q", "k", "v"):
+            setattr(self, f"{c}_proj", Dense(H, D, bias=False, dtype=pd))
+            setattr(self, f"{c}_conv1d", ShortConv(D, cfg.kda_conv_size, pd))
+        self.A_log = nn.Parameter(torch.zeros(1, 1, self.h, 1))
+        self.f_a_proj = Dense(H, self.d, bias=False, dtype=pd)
+        self.f_b_proj = Dense(self.d, D, bias=False, dtype=pd)
+        self.dt_bias = nn.Parameter(torch.zeros(D))
+        self.b_proj = Dense(H, self.h, bias=False, dtype=pd)
+        self.g_a_proj = Dense(H, self.d, bias=False, dtype=pd)
+        self.g_b_proj = Dense(self.d, D, bias=True, dtype=pd)
+        self.o_norm = RMSNorm(self.d, cfg.rms_norm_eps)
+        self.o_proj = Dense(D, H, bias=False, dtype=pd)
+
+    def forward(self, x, mask=None, cos=None, sin=None):
+        """``x`` (B, L, H) right-padded; ``mask``, ``cos`` and ``sin`` are
+        not read (causal order keeps pads out of real positions)."""
+        B, L, _ = x.shape
+        heads = (B, L, self.h, self.d)
+        q, k, v = (getattr(self, f"{c}_conv1d")(
+            getattr(self, f"{c}_proj")(x)).reshape(heads) for c in "qkv")
+        g = self.f_b_proj(self.f_a_proj(x)).float().reshape(heads)
+        g = F.softplus(g + self.dt_bias.float().view(self.h, self.d)) \
+            * -self.A_log.float().view(self.h, 1).exp()
+        beta = torch.sigmoid(self.b_proj(x).float())
+        with profiling.span("kda.scan", device=True):
+            o = kda_scan(q, k, v, g, beta)
+        gate = torch.sigmoid(self.g_b_proj(self.g_a_proj(x)).float())
+        o = self.o_norm(o.float()) * gate.reshape(heads)
+        return self.o_proj(o.reshape(B, L, -1).to(x.dtype))
 
 
 class MLP(nn.Module):
@@ -332,6 +650,20 @@ def route(x: torch.Tensor, gate_weight: torch.Tensor, k: int,
     return idx, w
 
 
+def route_sigmoid(x: torch.Tensor, gate_weight: torch.Tensor,
+                  bias: torch.Tensor, k: int, scaling: float = 1.0,
+                  norm_topk: bool = True):
+    """``(experts (N, k) int64, weights (N, k) f32)``: sigmoid scores in
+    f32, the top ``k`` of the scores plus ``bias`` (highest first), their
+    scores renormalised and times ``scaling``."""
+    scores = torch.sigmoid(F.linear(x.float(), gate_weight.float()))
+    _, idx = torch.topk(scores + bias.float(), k, dim=-1, sorted=True)
+    w = scores.gather(1, idx)
+    if k > 1 and norm_topk:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return idx, w * scaling
+
+
 @dataclasses.dataclass
 class Dispatch:
     """Routed rows ordered by expert, all on the device: ``token`` (N*k,)
@@ -369,35 +701,53 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def routed_experts_grouped(x, idx, weights, experts: Experts):
+def routed_experts_grouped(x, idx, weights, experts: Experts,
+                           first: int | None = None):
     """The routed part of an MoE layer on ``x`` (N, H): dispatch, three
     grouped GEMMs, combine.  No device-to-host read.  Where autograd
     records nothing the combine is :func:`moe_combine` (K5 on the card,
     :func:`combine` on the CPU); otherwise the eager :func:`combine`,
-    which autograd differentiates."""
-    d = dispatch(idx, experts.gate_proj.shape[0])
+    which autograd differentiates.
+
+    ``first``: the global id of the first expert ``experts`` holds, where
+    it holds a share (None: all).  The slots of other experts then form
+    one more group past the held ones, which no GEMM computes (its rows
+    stay unwritten); they weigh 0 and read row 0, which is a held expert's
+    row, or zeroed where no slot of the batch is held."""
+    E = experts.gate_proj.shape[0]
+    if first is not None:
+        held = (idx >= first) & (idx < first + E)
+        idx = torch.where(held, idx - first, E)
+        weights = torch.where(held, weights, 0.0)
+    d = dispatch(idx, E if first is None else E + 1)
+    offs = d.offs[:E]
     wg, wu, wd = experts.weights(x.dtype)
     xs = x[d.token]
-    h = F.silu(grouped_mm(xs, wg, d.offs)) * grouped_mm(xs, wu, d.offs)
-    rows = grouped_mm(h, wd, d.offs)
+    h = F.silu(grouped_mm(xs, wg, offs)) * grouped_mm(xs, wu, offs)
+    rows = grouped_mm(h, wd, offs)
+    slot = d.slot
+    if first is not None:
+        slot = torch.where(held, slot, 0)
+        rows[:1].masked_fill_(offs[-1:] == 0, 0)
     if torch.is_grad_enabled() and (rows.requires_grad
                                     or weights.requires_grad):
-        return combine(rows, d.slot, weights)
-    return moe_combine(rows, d.slot, weights)
+        return combine(rows, slot, weights)
+    return moe_combine(rows, slot, weights)
 
 
-def routed_experts_loop(x, idx, weights, experts: Experts):
-    """The plain twin of :func:`routed_experts_grouped`: each expert's
-    rows found on the host (one read an expert, counted as
+def routed_experts_loop(x, idx, weights, experts: Experts,
+                        first: int | None = None):
+    """The plain twin of :func:`routed_experts_grouped`: each held
+    expert's rows found on the host (one read an expert, counted as
     ``moe.host_reads`` once for the layer), a matmul chain per expert,
-    the same combine."""
+    the same combine (the slots of experts not held keep zero rows)."""
     N, k = idx.shape
     wg, wu, wd = experts.weights(x.dtype)
     rows = torch.zeros(N * k, x.shape[-1], dtype=x.dtype, device=x.device)
     flat = idx.reshape(-1)
     profiling.count("moe.host_reads", wg.shape[0])
     for e in range(wg.shape[0]):
-        at = torch.nonzero(flat == e)[:, 0]
+        at = torch.nonzero(flat == (first or 0) + e)[:, 0]
         if at.numel() == 0:
             continue
         t = x[at // k]
@@ -408,28 +758,48 @@ def routed_experts_loop(x, idx, weights, experts: Experts):
 
 
 class MoEGate(nn.Module):
-    def __init__(self, n: int, hidden: int, dtype):
+    """The router: its weight ``(E, H)``; a sigmoid router's
+    ``e_score_correction_bias`` ``(E,)`` f32 too (a buffer).  Its forward
+    gives ``(experts (N, k) int64, weights (N, k) f32)`` of the rows it is
+    given (:func:`route` or :func:`route_sigmoid`), so a forward hook on it
+    sees the layer's routes."""
+
+    def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(n, hidden, dtype=dtype))
+        n = cfg.n_routed_experts
+        self.k = cfg.num_experts_per_tok
+        self.scaling = cfg.routed_scaling_factor
+        self.norm_topk = cfg.norm_topk_prob
+        self.sigmoid = cfg.router == "sigmoid"
+        self.weight = nn.Parameter(torch.empty(n, cfg.hidden_size,
+                                               dtype=cfg.param_dtype))
+        if self.sigmoid:
+            self.register_buffer("e_score_correction_bias", torch.zeros(n))
+
+    def forward(self, t: torch.Tensor):
+        if self.sigmoid:
+            return route_sigmoid(t, self.weight, self.e_score_correction_bias,
+                                 self.k, self.scaling, self.norm_topk)
+        return route(t, self.weight, self.k, self.scaling, self.norm_topk)
 
 
 class MoE(nn.Module):
     """Router, routed experts and shared experts.  ``rows``: the flattened
     positions to route (the batch's real tokens); the others get an FFN
-    output of 0.  Device spans ``moe.route`` (gate, softmax, top-k) and
-    ``moe.experts`` (dispatch, the three grouped GEMMs, combine); the
-    counter ``moe.host_reads`` counts the layer's device reads (0 on the
-    grouped path)."""
+    output of 0.  Device spans ``moe.route`` (gate, softmax or sigmoid,
+    top-k) and ``moe.experts`` (dispatch, the three grouped GEMMs,
+    combine); the counter ``moe.host_reads`` counts the layer's device
+    reads (0 on the grouped path).  With ``cfg.experts_held`` the layer
+    holds those experts alone (``experts.*`` stacks of their number),
+    routes over all and sums their terms alone."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         H, pd = cfg.hidden_size, cfg.param_dtype
-        self.k = cfg.num_experts_per_tok
-        self.scaling = cfg.routed_scaling_factor
-        self.norm_topk = cfg.norm_topk_prob
-        self.gate = MoEGate(cfg.n_routed_experts, H, pd)
-        self.experts = Experts(cfg.n_routed_experts, H,
-                               cfg.moe_intermediate_size, pd)
+        self.gate = MoEGate(cfg)
+        lo, hi = cfg.experts_held or (0, cfg.n_routed_experts)
+        self.first = None if cfg.experts_held is None else lo
+        self.experts = Experts(hi - lo, H, cfg.moe_intermediate_size, pd)
         self.shared_experts = MLP(
             H, cfg.moe_intermediate_size * cfg.n_shared_experts, pd) \
             if cfg.n_shared_experts else None
@@ -439,14 +809,14 @@ class MoE(nn.Module):
         flat = x.reshape(-1, shape[-1])
         t = flat if rows is None else flat.index_select(0, rows)
         with profiling.span("moe.route", device=True):
-            idx, w = route(t, self.gate.weight, self.k, self.scaling,
-                           self.norm_topk)
+            idx, w = self.gate(t)
         with profiling.span("moe.experts", device=True):
             if t.is_cuda:
-                y = routed_experts_grouped(t, idx, w, self.experts)
+                y = routed_experts_grouped(t, idx, w, self.experts,
+                                           self.first)
                 profiling.count("moe.host_reads", 0)
             elif t.device.type == "cpu":
-                y = routed_experts_loop(t, idx, w, self.experts)
+                y = routed_experts_loop(t, idx, w, self.experts, self.first)
             else:
                 raise ValueError(f"the MoE layer runs on cuda or cpu, not "
                                  f"{t.device}")
@@ -462,13 +832,15 @@ class DecoderLayer(nn.Module):
         super().__init__()
         H, eps = cfg.hidden_size, cfg.rms_norm_eps
         self.input_layernorm = RMSNorm(H, eps)
-        self.self_attn = MLA(cfg)
+        kda = cfg.is_kda(layer)
+        self.self_attn = KDA(cfg) if kda else MLA(cfg)
+        self.attn_span = "kda.attention" if kda else "mla.attention"
         self.post_attention_layernorm = RMSNorm(H, eps)
         self.mlp = MoE(cfg) if cfg.is_moe(layer) else MLP(
             H, cfg.intermediate_size, cfg.param_dtype)
 
     def forward(self, x, mask, cos, sin, rows=None):
-        with profiling.span("mla.attention", device=True):
+        with profiling.span(self.attn_span, device=True):
             x = x + self.self_attn(self.input_layernorm(x), mask, cos, sin)
         h = self.post_attention_layernorm(x)
         h = self.mlp(h, rows) if isinstance(self.mlp, MoE) else self.mlp(h)
@@ -509,7 +881,7 @@ class DecoderModel(nn.Module):
             raise ValueError(f"rows of {L} tokens exceed the model's "
                              f"{self.cfg.max_position_embeddings} positions")
         x = F.embedding(input_ids, self.embed_tokens.weight.to(dt))
-        cos, sin = rotary(self.cfg, L, x.device)
+        cos, sin = position_tables(self.cfg, L, x.device)
         for layer in self.layers:
             x = layer(x, attention_mask, cos, sin, rows)
         return self.norm(x)
@@ -550,11 +922,21 @@ class DecoderLM(nn.Module):
 
 def init_weights(module: nn.Module, std: float) -> None:
     """HF's init: linear, embedding, gate and expert weights from
-    ``N(0, std)`` (RMSNorm weights stay 1).  Skipped on the meta device,
-    where a normal draw costs the import of ``torch._dynamo``."""
+    ``N(0, std)`` (RMSNorm weights stay 1, biases 0); KDA's published
+    inits: ``A_log = log U(1, 16)``, ``dt_bias = softplus^-1(U(1e-3,
+    1e-1))``, the short convolutions ``nn.Conv1d``'s ``U(+-size^-0.5)``.
+    Skipped on the meta device, where a draw costs the import of
+    ``torch._dynamo``."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Embedding, MoEGate, Experts)):
                 for p in m.parameters(recurse=False):
                     if p.dim() > 1 and not p.is_meta:
                         p.normal_(0.0, std)
+            elif isinstance(m, ShortConv) and not m.weight.is_meta:
+                bound = m.weight.shape[-1] ** -0.5
+                m.weight.uniform_(-bound, bound)
+            elif isinstance(m, KDA) and not m.A_log.is_meta:
+                m.A_log.uniform_(1, 16).log_()
+                dt = torch.empty_like(m.dt_bias).uniform_(1e-3, 1e-1)
+                m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))

@@ -17,11 +17,14 @@ the port's modules and back, from local directories only:
 - :func:`export_hf_mlm` is the way back (the MLM keys are omitted for an
   encoder-only backbone);
 - :func:`load_sidecar_head` / :func:`save_sidecar_head` handle the heads;
-- a ``deepseek_v2`` checkpoint (``config.json`` and its ``model.*`` /
-  ``lm_head`` tensors, sharded or not) loads into the decoder backbone
-  (:func:`decoder_config_from_hf`, :func:`hf_decoder_to_state_dict`): the
+- a ``deepseek_v2`` or ``kimi_linear`` checkpoint (``config.json`` and
+  its ``model.*`` / ``lm_head`` tensors, sharded or not) loads into the
+  decoder backbone (:func:`decoder_config_from_hf`,
+  :func:`kimi_config_from_hf`, :func:`hf_decoder_to_state_dict`): the
   port keeps HF's names and stacks each MoE layer's experts into one
-  tensor per projection.
+  tensor per projection (Kimi Linear's ``block_sparse_moe.experts.{e}.
+  w1 / w3 / w2`` become ``mlp.experts.gate_proj / up_proj / down_proj``,
+  its gate and shared expert ``mlp.gate`` and ``mlp.shared_experts``).
 
 HF linear weights are ``(out, in)`` like ``torch.nn.Linear``, so the map is
 a renaming of keys.
@@ -112,13 +115,15 @@ def encoder_config_from_hf(model_dir: str,
                            dtype: torch.dtype = torch.bfloat16
                            ) -> EncoderConfig | DecoderConfig:
     """Build an :class:`EncoderConfig` from an HF ``config.json`` (a
-    :class:`DecoderConfig` from a ``deepseek_v2`` one, its parameters in
-    ``dtype``)."""
+    :class:`DecoderConfig` from a ``deepseek_v2`` or ``kimi_linear`` one,
+    its parameters in ``dtype``)."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     model_type = hf.get("model_type", "distilbert")
     if model_type == "deepseek_v2":
         return decoder_config_from_hf(hf, dtype, dtype)
+    if model_type == "kimi_linear":
+        return kimi_config_from_hf(hf, dtype, dtype)
     if model_type == "distilbert":
         return EncoderConfig(
             vocab_size=hf["vocab_size"],
@@ -200,37 +205,122 @@ def decoder_config_from_hf(hf: dict, dtype: torch.dtype = torch.bfloat16,
         dtype=dtype, param_dtype=param_dtype)
 
 
+def kimi_config_from_hf(hf: dict, dtype: torch.dtype = torch.bfloat16,
+                        param_dtype: torch.dtype = torch.float32,
+                        experts_held: tuple[int, int] | None = None
+                        ) -> DecoderConfig:
+    """A :class:`DecoderConfig` from a ``kimi_linear`` ``config.json``'s
+    dict (``experts_held``: the routed experts this model holds, all when
+    None).  Refuses what the decoder does not implement: a query LoRA,
+    MLA with rotary positions, expert groups, a router other than sigmoid
+    or softmax, layers named neither KDA nor full attention, tied
+    embeddings."""
+    lac = hf.get("linear_attn_config") or {}
+    kda, full = lac.get("kda_layers", []), lac.get("full_attn_layers", [])
+    unsupported = []
+    if hf.get("q_lora_rank") is not None:
+        unsupported.append("q_lora_rank")
+    if not hf.get("mla_use_nope", False):
+        unsupported.append("mla_use_nope")
+    if (hf.get("num_expert_group") or 1) != 1:
+        unsupported.append("num_expert_group")
+    if hf.get("moe_router_activation_func") not in ("sigmoid", "softmax"):
+        unsupported.append("moe_router_activation_func")
+    if sorted(kda + full) != list(range(1, hf["num_hidden_layers"] + 1)):
+        unsupported.append("linear_attn_config")
+    if hf.get("tie_word_embeddings", False):
+        unsupported.append("tie_word_embeddings")
+    if unsupported:
+        raise ValueError(f"the decoder backbone does not implement "
+                         f"{unsupported} as this config sets them")
+    return DecoderConfig(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        intermediate_size=hf["intermediate_size"],
+        moe_intermediate_size=hf["moe_intermediate_size"],
+        n_routed_experts=hf.get("num_experts") or 0,
+        n_shared_experts=hf.get("num_shared_experts") or 0,
+        num_experts_per_tok=hf["num_experts_per_token"],
+        first_k_dense_replace=hf["first_k_dense_replace"],
+        moe_layer_freq=hf.get("moe_layer_freq", 1),
+        norm_topk_prob=hf.get("moe_renormalize", True),
+        routed_scaling_factor=float(hf["routed_scaling_factor"]),
+        router=hf["moe_router_activation_func"],
+        experts_held=experts_held, mla_use_nope=True, rope_factor=1.0,
+        kv_lora_rank=hf["kv_lora_rank"],
+        qk_nope_head_dim=hf["qk_nope_head_dim"],
+        qk_rope_head_dim=hf["qk_rope_head_dim"],
+        v_head_dim=hf["v_head_dim"],
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        max_position_embeddings=hf.get("model_max_length",
+                                       hf.get("max_position_embeddings")),
+        rms_norm_eps=hf["rms_norm_eps"],
+        initializer_range=hf.get("initializer_range", 0.006),
+        kda_layers=tuple(kda), kda_num_heads=lac["num_heads"],
+        kda_head_dim=lac["head_dim"],
+        kda_conv_size=lac["short_conv_kernel_size"],
+        dtype=dtype, param_dtype=param_dtype)
+
+
+# KDA's tensors under ``self_attn.`` (the published names, the port's too)
+_KDA = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+        "q_conv1d.weight", "k_conv1d.weight", "v_conv1d.weight", "A_log",
+        "f_a_proj.weight", "f_b_proj.weight", "dt_bias", "b_proj.weight",
+        "g_a_proj.weight", "g_b_proj.weight", "g_b_proj.bias",
+        "o_norm.weight", "o_proj.weight")
+_F32 = ("norm.weight", "A_log", "dt_bias", "e_score_correction_bias")
+
+
 def hf_decoder_to_state_dict(sd: dict[str, np.ndarray], cfg: DecoderConfig
                              ) -> dict[str, torch.Tensor]:
-    """A ``deepseek_v2`` state dict -> the state dict of a
+    """A ``deepseek_v2`` state dict (or a ``kimi_linear`` one, for a
+    config with the sigmoid router) -> the state dict of a
     :class:`DecoderLM` (``model.*``, ``lm_head.weight``), the experts of
-    each MoE layer stacked; tensors in ``cfg.param_dtype``, RMSNorm
-    weights in f32.  Keys the decoder does not read (rotary buffers) are
-    skipped."""
+    each MoE layer stacked (those ``cfg.experts_held`` names alone);
+    tensors in ``cfg.param_dtype``, RMSNorm weights, ``A_log``,
+    ``dt_bias`` and the router's correction bias in f32.  Keys the decoder
+    does not read (rotary buffers) are skipped."""
     def tensor(a, name):
         t = torch.from_numpy(np.asarray(a, np.float32).copy())
-        return t if name.endswith("norm.weight") else t.to(cfg.param_dtype)
+        return t if name.endswith(_F32) else t.to(cfg.param_dtype)
 
+    kimi = cfg.router == "sigmoid"
+    moe = "block_sparse_moe." if kimi else "mlp."
+    expert = ({"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
+              if kimi else {n: n for n in ("gate_proj", "up_proj",
+                                           "down_proj")})
+    lo, hi = cfg.experts_held or (0, cfg.n_routed_experts)
+    D, h = cfg.kda_num_heads * cfg.kda_head_dim, cfg.kda_num_heads
+    shape = {"A_log": (1, 1, h, 1)} | {
+        f"{c}_conv1d.weight": (D, 1, cfg.kda_conv_size) for c in "qkv"}
     out = {}
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
-        names = [p + "input_layernorm.weight",
-                 p + "post_attention_layernorm.weight"] + [
-            f"{p}self_attn.{n}.weight" for n in (
-                "q_proj", "kv_a_proj_with_mqa", "kv_a_layernorm",
-                "kv_b_proj", "o_proj")]
+        attn = _KDA if cfg.is_kda(i) else [
+            f"{n}.weight" for n in ("q_proj", "kv_a_proj_with_mqa",
+                                    "kv_a_layernorm", "kv_b_proj", "o_proj")]
+        for n in attn:
+            t = tensor(sd[p + "self_attn." + n], n)
+            out[p + "self_attn." + n] = t.reshape(shape.get(n, t.shape))
+        names = {p + "input_layernorm.weight": None,
+                 p + "post_attention_layernorm.weight": None}
         if cfg.is_moe(i):
-            names.append(p + "mlp.gate.weight")
-            for proj in ("gate_proj", "up_proj", "down_proj"):
+            names[p + moe + "gate.weight"] = p + "mlp.gate.weight"
+            if kimi:
+                names[p + moe + "gate.e_score_correction_bias"] = \
+                    p + "mlp.gate.e_score_correction_bias"
+            for proj, theirs in expert.items():
                 out[f"{p}mlp.experts.{proj}"] = tensor(np.stack([
-                    sd[f"{p}mlp.experts.{e}.{proj}.weight"]
-                    for e in range(cfg.n_routed_experts)]), proj)
+                    sd[f"{p}{moe}experts.{e}.{theirs}.weight"]
+                    for e in range(lo, hi)]), proj)
                 if cfg.n_shared_experts:
-                    names.append(f"{p}mlp.shared_experts.{proj}.weight")
+                    names[f"{p}{moe}shared_experts.{proj}.weight"] = \
+                        f"{p}mlp.shared_experts.{proj}.weight"
         else:
-            names += [f"{p}mlp.{proj}.weight"
-                      for proj in ("gate_proj", "up_proj", "down_proj")]
-        out.update({n: tensor(sd[n], n) for n in names})
+            names.update({f"{p}mlp.{proj}.weight": None
+                          for proj in ("gate_proj", "up_proj", "down_proj")})
+        out.update({ours or n: tensor(sd[n], n) for n, ours in names.items()})
     for n in ("model.embed_tokens.weight", "model.norm.weight",
               "lm_head.weight"):
         if n in sd:
@@ -348,8 +438,8 @@ def load_hf_backbone(backbone: nn.Module, sd: dict[str, np.ndarray],
                      cfg: EncoderConfig) -> None:
     """Load an HF state dict into an ``EncoderWithMLM`` (which needs the
     MLM head) or a ``TransformerEncoder`` (which takes the encoder only),
-    or a ``deepseek_v2`` one into a ``DecoderLM`` (which needs the LM
-    head) or a ``DecoderModel``."""
+    or a ``deepseek_v2`` or ``kimi_linear`` one into a ``DecoderLM``
+    (which needs the LM head) or a ``DecoderModel``."""
     if isinstance(backbone, (DecoderLM, DecoderModel)):
         state = hf_decoder_to_state_dict(sd, cfg)
         if isinstance(backbone, DecoderModel):
