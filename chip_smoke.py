@@ -33,10 +33,11 @@ is in the repository), and checks what each returns:
   train -> encode -> index -> search -> eval for three of them.
 - ``bert_path``: BERT-base towers with token types, tied and untied, card
   against CPU; untied TASB DHR and packed ColBERT through the CLI chain.
-- K1-K6 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
+- K1-K7 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
   the encode cell's batch, K5 and K6 at the dsv2 cell's), Kimi Linear's
   pieces at the Kimi cell's largest bucket (K6 without positions at 32
-  heads, the chunked KDA layer card against its CPU twin), the other search
+  heads, the KDA layer card against its CPU twin, K7 against an f64
+  recurrence beside the plain scan, and both timed), the other search
   modes against the CPU's plain path, then the main and fused paths at
   8,841,823 rows (launch counts, staged-vs-exact agreement) and ip / pq
   on that index.
@@ -53,8 +54,8 @@ is in the repository), and checks what each returns:
 Speed is the benchmark's (``BENCHMARK.json``, ``benchmarks/``).  The
 smoke times only each hand-written kernel alone, beside its plain version
 and its bound (the ``kernel_shapes``, ``k4_vs_plain``, ``k5_vs_plain``,
-``k6_vs_plain`` and ``kernels`` lines), and its own phases (``seconds``,
-``walls``).
+``k6_vs_plain``, ``kimi_vs_plain`` and ``kernels`` lines), and its own
+phases (``seconds``, ``walls``).
 
 Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line, which counts
@@ -89,6 +90,7 @@ K3_SOURCE = "dhr_tpu_torch/csrc/gip_candidates.cu"
 K4_SOURCE = "dhr_tpu_torch/csrc/lexical_pool.cu"
 K5_SOURCE = "dhr_tpu_torch/csrc/moe_combine.cu"
 K6_SOURCE = "dhr_tpu_torch/csrc/mla_attention.cu"
+K7_SOURCE = "dhr_tpu_torch/csrc/kda_scan.cu"
 # K6 at DeepSeek-V2-Lite's MLA: heads, (d_nope, d_rope, d_v), kv rank, and
 # the dsv2 cell's passage length spec (benchmarks/traffic/
 # moe-encode-corpus.json: log-normal, mean 75, sigma 0.45, in [8, 126],
@@ -1543,18 +1545,24 @@ def phase_kimi(torch):
     no farther than the plain version + 2^-8 (as ``phase_k6``); and one KDA
     layer (published widths, random weights, TF32 off) in f32 on the card
     against its CPU twin, within 1e-4 of the output's scale (f32 products
-    summed in another order), its chunked scan alone likewise.  Then the
-    bf16 layer's and its scan's ms at that bucket, and the bf16 layer's
-    gap to the f32 one."""
+    summed in another order), its chunked scan alone likewise (the layer
+    on the card runs K7, the scan called alone the plain version).  K7
+    against an f64 token-by-token recurrence on 2 documents with the
+    published decay inits (a chunk's log-decay past -100), no farther from
+    it than 1.5 times the plain scan.  Then the bf16 layer's ms at that
+    bucket, K7's and the plain scan's from bf16 inputs laid out as the
+    convolution gives them, and the bf16 layer's gap to the f32 one."""
     import numpy as np
 
     from dhr_tpu_torch.models import decoder as dec
+    from dhr_tpu_torch.ops.kda_scan import fused_kda_scan
     from dhr_tpu_torch.ops.mla_attention import (
         mla_attention, mla_attention_plain)
 
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
+    import kimi_linear_reference as kref
     from mla_reference import f64_core, mla_inputs
 
     B, L = KIMI_BUCKET
@@ -1617,20 +1625,51 @@ def phase_kimi(torch):
         gaps["bf16_layer_vs_f32"] = float((bf16.float() - got).abs().max()
                                           ) / float(got.abs().max())
         ms = cuda_ms(lambda: layer(xb), 5, torch)
-        bf_in = [t.cuda() for t in scan_in]
+        gen = torch.Generator().manual_seed(24)
+        a_log = torch.empty(h, 1).uniform_(1, 16, generator=gen).log_()
+        dt = torch.empty(h, d).uniform_(1e-3, 1e-1, generator=gen)
+        g64 = -a_log.exp() * torch.nn.functional.softplus(
+            torch.randn(2, L, h, d, generator=gen) + dt
+            + torch.log(-torch.expm1(-dt)))
+        f64_in = [t[:2].cuda() for t in scan_in]
+        f64_in[3] = g64.cuda()
+        k7 = fused_kda_scan(*f64_in)
+        plain = dec.kda_scan(*f64_in)
+        qd, kd, vd, gd, bd = (t.double() for t in f64_in)
+        ref = kref.kda_recurrence(kref.l2norm(qd) * d ** -0.5,
+                                  kref.l2norm(kd), vd, gd, bd)
+        top = float(ref.abs().max())
+        f64_gaps = [float((k7.double() - ref).abs().max()) / top,
+                    float((plain.double() - ref).abs().max()) / top]
+        k7_vs_plain = float((k7 - plain).abs().max() / plain.abs().max())
+        if not f64_gaps[0] <= 1.5 * f64_gaps[1]:
+            raise AssertionError(f"K7 to f64 {f64_gaps[0]}, the plain scan "
+                                 f"{f64_gaps[1]}")
+        del k7, plain, ref, qd, kd, vd, gd, bd, f64_in
+        bf_in = [t.cuda().reshape(B, L, h * d).transpose(1, 2).contiguous()
+                 .to(torch.bfloat16).transpose(1, 2).reshape(B, L, h, d)
+                 for t in scan_in[:3]] + [t.cuda() for t in scan_in[3:]]
+        k7_ms = cuda_ms(lambda: fused_kda_scan(*bf_in), 10, torch)
         scan_ms = cuda_ms(lambda: dec.kda_scan(*bf_in), 5, torch)
         peak = torch.cuda.max_memory_allocated()
     out = {"phase": "kimi_vs_plain", "bucket": [B, L],
            "lengths": lengths.tolist(), "k6_nope_f64_gaps_k6_plain":
            [k6_gap, plain_gap], "k6_nope_ms": k6_ms,
            "kda_gaps_card_vs_cpu": gaps, "kda_layer_bf16_ms": ms,
+           "k7_f64_gaps_k7_plain": f64_gaps, "k7_ms": k7_ms,
            "kda_scan_ms": scan_ms, "peak_bytes": peak,
            "tol": "K6: 2^-7 to f64 and no farther than the plain version "
-                  "+ 2^-8; KDA f32: 1e-4 of the scale"}
-    emit(out)
+                  "+ 2^-8; KDA f32: 1e-4 of the scale; K7: to f64 no "
+                  "farther than 1.5x the plain scan"}
+    # K7's least bytes: q, k, v in and o out in bf16, g and beta in f32
+    nbytes = B * L * h * (d * (4 * 2 + 4) + 4)
+    kernel = {"max_rel_err": k7_vs_plain, "ms": k7_ms, "plain_ms": scan_ms,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+              "library_ms": None}
+    emit({**out, **kernel})
     del layer, x, xc, xb, got, bf16
     torch.cuda.empty_cache()
-    return out
+    return kernel
 
 
 def phase_search_vs_plain(index, queries_raw, torch):
@@ -4928,7 +4967,7 @@ def main() -> int:
         k4 = phase_k4(torch)
         k5 = phase_k5(torch)
         k6 = phase_k6(torch)
-        phase_kimi(torch)
+        k7 = phase_kimi(torch)
         phase_search_vs_plain(index, raw, torch)
         phase_modes(index, raw, torch)
         del index, queries, raw
@@ -4960,6 +4999,9 @@ def main() -> int:
         kernels.append({"name": "mla_attention", "route": "cuda",
                         "source": K6_SOURCE, "replaces": None,
                         "launches": launches["mla_attention"], **k6})
+        kernels.append({"name": "kda_scan", "route": "cuda",
+                        "source": K7_SOURCE, "replaces": None,
+                        "launches": launches["kda_scan"], **k7})
         ref = parallel_reference(searcher, main_queries, torch)
         # the ranks hold the index (half each): free the parent's first
         del searcher, batch, main_queries

@@ -110,9 +110,13 @@ Departures from the HF code, none of which changes the maths:
   its scores stay f32 (the eager chain rounds them to the compute dtype),
   a masked key is left out instead of biased, and P is rounded to the
   compute dtype before its division by the row's sum;
-- KDA's recurrence runs chunked in f32 plain torch ops (the published
-  code's Triton kernels ``chunk_kda`` compute it in sub-chunks), its
-  output rounded to the compute dtype before the gated norm, as the
+- KDA's recurrence runs chunked in f32 (the published code's Triton
+  kernels ``chunk_kda`` compute it in sub-chunks): on the card, where
+  autograd records nothing, in one kernel, K7 (``ops/kda_scan.py``), whose
+  products, solve and state are f32 on the CUDA cores; otherwise (on the
+  CPU, or where autograd records) in plain torch ops, :func:`kda_scan`,
+  K7's twin.
+  Its output is rounded to the compute dtype before the gated norm, as the
   published kernel returns it; the convolutions have no cache (encoding
   is one forward).
 
@@ -147,6 +151,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dhr_tpu_torch.models.transformer import Dense
+from dhr_tpu_torch.ops.kda_scan import fused_kda_scan
 from dhr_tpu_torch.ops.mla_attention import mla_attention, mla_attention_plain
 from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
 from dhr_tpu_torch.utils import profiling
@@ -506,7 +511,13 @@ def kda_scan(q, k, v, g, beta) -> torch.Tensor:
     :data:`KDA_BLOCK_BYTES`, and the state ``(d, d_v)`` per passage and
     head passes from chunk to chunk, three batched products a chunk:
     ``ceil(L / 64)`` steps.  A position sees only itself and those before
-    it, so right padding changes no real output."""
+    it, so right padding changes no real output.
+
+    This is the plain version: on the card, where autograd records
+    nothing, :class:`KDA` takes K7 (``ops/kda_scan.py``
+    :func:`~dhr_tpu_torch.ops.kda_scan.fused_kda_scan`) instead, which
+    computes the same in one kernel; this twin runs on the CPU and where
+    autograd records (K7 has no backward)."""
     B, L, h, d = k.shape
     dv = v.shape[-1]
     chunk, sub = KDA_CHUNK, KDA_SUB
@@ -565,7 +576,9 @@ class ShortConv(nn.Module):
 class KDA(nn.Module):
     """Kimi Delta Attention (the module docstring's equations), under the
     published names; ``A_log`` ``(1, 1, h, 1)`` and ``dt_bias`` ``(D,)`` in
-    f32.  Device span ``kda.scan`` around the recurrence."""
+    f32.  Device span ``kda.scan`` around the recurrence: K7
+    (:func:`fused_kda_scan`) for CUDA tensors where autograd records
+    nothing, the plain :func:`kda_scan` otherwise."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -596,8 +609,11 @@ class KDA(nn.Module):
         g = F.softplus(g + self.dt_bias.float().view(self.h, self.d)) \
             * -self.A_log.float().view(self.h, 1).exp()
         beta = torch.sigmoid(self.b_proj(x).float())
+        records = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, g, beta))
+        scan = fused_kda_scan if x.is_cuda and not records else kda_scan
         with profiling.span("kda.scan", device=True):
-            o = kda_scan(q, k, v, g, beta)
+            o = scan(q, k, v, g, beta)
         gate = torch.sigmoid(self.g_b_proj(self.g_a_proj(x)).float())
         o = self.o_norm(o.float()) * gate.reshape(heads)
         return self.o_proj(o.reshape(B, L, -1).to(x.dtype))

@@ -56,10 +56,11 @@ def short_conv(x, w):
 def kda_recurrence(q, k, v, g, beta):
     """``o`` (B, L, h, d_v): the recurrence token by token from L2-normed,
     scaled ``q``, L2-normed ``k``, ``v``, log-decays ``g`` (B, L, h, d)
-    and ``beta`` (B, L, h), the state ``S`` (B, h, d, d_v) from 0."""
+    and ``beta`` (B, L, h), the state ``S`` (B, h, d, d_v) from 0, in
+    ``q``'s dtype and on its device (f64 for an exact yardstick)."""
     B, L, h, d = k.shape
-    S = torch.zeros(B, h, d, v.shape[-1], dtype=torch.float32)
-    out = torch.zeros(B, L, h, v.shape[-1], dtype=torch.float32)
+    S = torch.zeros(B, h, d, v.shape[-1], dtype=q.dtype, device=q.device)
+    out = torch.zeros(B, L, h, v.shape[-1], dtype=q.dtype, device=q.device)
     for t in range(L):
         kt, bt = k[:, t], beta[:, t, :, None, None]
         S = S * g[:, t].exp()[..., None]

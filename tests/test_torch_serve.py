@@ -1070,5 +1070,6 @@ def test_info_verb_reports_the_runtime(capsys):
     assert out["cuda_available"] == torch.cuda.is_available()
     assert set(out["kernels_built"]) == {"partial_gip", "rerank_gip",
                                          "gip_candidates", "lexical_pool",
-                                         "moe_combine", "mla_attention"}
+                                         "moe_combine", "mla_attention",
+                                         "kda_scan"}
     assert not any(k.startswith("jax") for k in out)
