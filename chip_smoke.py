@@ -37,10 +37,13 @@ is in the repository), and checks what each returns:
   the encode cell's batch, K5 and K6 at the dsv2 cell's), Kimi Linear's
   pieces at the Kimi cell's largest bucket (K6 without positions at 32
   heads, the KDA layer card against its CPU twin, K7 against an f64
-  recurrence beside the plain scan, and both timed), the other search
-  modes against the CPU's plain path, then the main and fused paths at
-  8,841,823 rows (launch counts, staged-vs-exact agreement) and ip / pq
-  on that index.
+  recurrence beside the plain scan, and both timed),
+  NVIDIA-Nemotron-3-Nano-30B-A3B's at its cell's largest batch (K4 over
+  131,072 terms, K5 at hidden 2,688, the SSD scan card against its CPU
+  twin, SDPA's GQA against f64, a published-width relu^2 MoE's launches),
+  the other search modes against the CPU's plain path, then the main and
+  fused paths at 8,841,823 rows (launch counts, staged-vs-exact
+  agreement) and ip / pq on that index.
 - ``serve_path``: the ``serve`` verb as a process (reloads, 503 shedding,
   token refusal, SIGINT), a free-first reload's device memory, the
   service at 8,841,823 rows under closed-loop clients at concurrency 1 and
@@ -54,8 +57,8 @@ is in the repository), and checks what each returns:
 Speed is the benchmark's (``BENCHMARK.json``, ``benchmarks/``).  The
 smoke times only each hand-written kernel alone, beside its plain version
 and its bound (the ``kernel_shapes``, ``k4_vs_plain``, ``k5_vs_plain``,
-``k6_vs_plain``, ``kimi_vs_plain`` and ``kernels`` lines), and its own
-phases (``seconds``, ``walls``).
+``k6_vs_plain``, ``kimi_vs_plain``, ``nemotron_vs_plain`` and
+``kernels`` lines), and its own phases (``seconds``, ``walls``).
 
 Each phase prints one JSON line; the card's name and power limit (as
 nvidia-smi gives them) and the ``{"kernels": [...]}`` line, which counts
@@ -102,6 +105,10 @@ DSV2_LENGTHS = (75, 0.45, 8, 126)
 # hidden, KDA heads and width, MLA heads
 KIMI_BUCKET = (8, 2048)
 KIMI_WIDTHS = (2304, 32, 128, 32)
+# NVIDIA-Nemotron-3-Nano-30B-A3B's cell's largest batch (benchmarks/traffic/
+# ssm-encode-docs.json: the top 8 of the log-normal's 32 quantiles, plus BOS
+# and EOS; 16,218 real tokens in a bucket of 8 x 2,048)
+NEMOTRON_BATCH = (1882,) + (2048,) * 7
 SMALL_ROWS = 204_803
 ENCODE_PASSAGES = 32_768
 ENCODE_QUERIES = 1_024
@@ -1302,6 +1309,24 @@ def _pool_inputs(B, T, V, dtype, torch, pitch=None, full=False, seed=0):
     return proj, bias, tw * mask.float()
 
 
+POOL_RTOL = 3e-5    # K4 vs plain: f32 sums of exponentials in another order
+
+
+def _check_pool(proj, bias, w, label, torch) -> float:
+    """K4 against its plain version on one input: each value within
+    :data:`POOL_RTOL` of its own magnitude; the largest relative gap."""
+    from dhr_tpu_torch.ops.lexical_pool import (
+        lexical_pool, lexical_pool_plain)
+
+    got = lexical_pool(proj, bias, w)
+    want = lexical_pool_plain(proj, bias, w)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not torch.allclose(got, want, rtol=POOL_RTOL, atol=1e-30):
+        raise AssertionError(f"lexical_pool {label}: max relative gap {rel}")
+    return rel
+
+
 def phase_k4(torch):
     """K4 vs plain: the encode cell's batch (256, 79, 30,522), (1, 7),
     (3, 511), an odd pitch (element loads) in bf16, and f16 / f32 at a
@@ -1318,7 +1343,7 @@ def phase_k4(torch):
     from dhr_tpu_torch.ops.lexical_pool import (
         lexical_pool, lexical_pool_plain)
 
-    rtol, worst, cases = 3e-5, 0.0, 0
+    worst, cases = 0.0, 0
     for B, T, V, pitch, dt in (
             (256, 79, 30522, None, torch.bfloat16),
             (1, 7, 30522, None, torch.bfloat16),
@@ -1327,15 +1352,9 @@ def phase_k4(torch):
             (3, 17, 30522, None, torch.float16),
             (3, 17, 30522, None, torch.float32)):
         proj, bias, w = _pool_inputs(B, T, V, dt, torch, pitch)
-        got = lexical_pool(proj, bias, w)
-        want = lexical_pool_plain(proj, bias, w)
-        torch.cuda.synchronize()
-        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-        if not torch.allclose(got, want, rtol=rtol, atol=1e-30):
-            raise AssertionError(f"lexical_pool {(B, T, V, pitch, dt)}: "
-                                 f"max relative gap {rel}")
+        rel = _check_pool(proj, bias, w, (B, T, V, pitch, dt), torch)
         worst, cases = max(worst, rel), cases + 1
-        del proj, bias, w, got, want
+        del proj, bias, w
 
     B, T, V, H = 256, 79, 30522, 768
     proj, bias, w = _pool_inputs(B, T, V, torch.bfloat16, torch, full=True)
@@ -1358,8 +1377,8 @@ def phase_k4(torch):
         gemm_ms = cuda_ms(lambda: F.linear(hidden, head.decoder.weight), 5,
                           torch)
     out = {"phase": "k4_vs_plain", "cases": cases, "max_rel_err": worst,
-           "tol": f"rtol {rtol} (f32 sums of exponentials in another "
-                  "order)",
+           "tol": f"rtol {POOL_RTOL} (f32 sums of exponentials in "
+                  "another order)",
            "shape": [B, T, V], "bytes_each_input_once": nbytes,
            "head_ms_now": head_ms, "head_ms_chain_before": chain_ms,
            "vocab_gemm_ms": gemm_ms}
@@ -1380,6 +1399,32 @@ def _combine_inputs(N, k, H, dtype, torch, seed=0):
     w = torch.rand(N, k, generator=g, device="cuda") * 1.5 - 0.5
     w[::3, 0] = 0.0
     return rows, slot, w
+
+
+def _check_combine(N, k, H, dt, torch) -> tuple[float, float]:
+    """K5 against its plain version on :func:`_combine_inputs`: each value
+    within an ulp of ``dt`` at the larger result plus the f32 sums'
+    round-off (2 k 2^-24 of the products' magnitudes), and at least 99%
+    bit-equal in 16-bit dtypes; (the largest gap over its bound, the
+    bit-equal share)."""
+    from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
+
+    rows, slot, w = _combine_inputs(N, k, H, dt, torch)
+    got = moe_combine(rows, slot, w)
+    want = combine(rows, slot, w)
+    fi = torch.finfo(dt)
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    _, e = torch.frexp(big)
+    ulp = (torch.ldexp(torch.ones_like(big), e - 1) * fi.eps).clamp_min(
+        fi.tiny * fi.eps)
+    picked = rows[slot.reshape(-1)].view(N, k, H).float().abs()
+    tol = ulp + 2 * k * 2.0 ** -24 * (picked * w.abs()[..., None]).sum(1)
+    ratio = float(((got.float() - want.float()).abs() / tol).max())
+    equal = float((got == want).float().mean())
+    if ratio > 1 or (dt != torch.float32 and equal < 0.99):
+        raise AssertionError(f"moe_combine {(N, k, H, dt)}: gap {ratio} of "
+                             f"its bound, {equal} bit-equal")
+    return ratio, equal
 
 
 def phase_k5(torch):
@@ -1404,25 +1449,10 @@ def phase_k5(torch):
                         (100, 16, 128, torch.bfloat16),
                         (999, 6, 2048, torch.float16),
                         (999, 6, 2048, torch.float32)):
-        rows, slot, w = _combine_inputs(N, k, H, dt, torch)
-        got = moe_combine(rows, slot, w)
-        want = combine(rows, slot, w)
-        fi = torch.finfo(dt)
-        big = torch.maximum(got.float().abs(), want.float().abs())
-        _, e = torch.frexp(big)
-        ulp = (torch.ldexp(torch.ones_like(big), e - 1) * fi.eps).clamp_min(
-            fi.tiny * fi.eps)
-        picked = rows[slot.reshape(-1)].view(N, k, H).float().abs()
-        tol = ulp + 2 * k * 2.0 ** -24 * (picked * w.abs()[..., None]).sum(1)
-        ratio = float(((got.float() - want.float()).abs() / tol).max())
-        equal = float((got == want).float().mean())
-        if ratio > 1 or (dt != torch.float32 and equal < 0.99):
-            raise AssertionError(f"moe_combine {(N, k, H, dt)}: gap "
-                                 f"{ratio} of its bound, {equal} bit-equal")
+        ratio, equal = _check_combine(N, k, H, dt, torch)
         worst, cases = max(worst, ratio), cases + 1
         if dt != torch.float32:
             least_equal = min(least_equal, equal)
-        del rows, slot, w, got, want, big, ulp, picked, tol
 
     N, k, H = 19000, 6, 2048
     rows, slot, w = _combine_inputs(N, k, H, torch.bfloat16, torch)
@@ -1670,6 +1700,149 @@ def phase_kimi(torch):
     del layer, x, xc, xb, got, bf16
     torch.cuda.empty_cache()
     return kernel
+
+
+def phase_nemotron(torch):
+    """NVIDIA-Nemotron-3-Nano-30B-A3B's pieces at its cell's largest batch
+    (:data:`NEMOTRON_BATCH`): K4 over the untied head's vocabulary (8,
+    2,048, 131,072) in bf16 against its plain version (as ``phase_k4``);
+    K5 at (16,218 x 6, 2,688) in bf16 against its plain version (as
+    ``phase_k5``); the chunked SSD scan (64 heads of 64, 8 groups of state
+    128, chunks of 128, the published ``dt`` and ``A`` inits) in f32 on
+    the card against its CPU twin on 2 documents of 2,048 positions, one
+    padded from 1,500, within 1e-4 of the output's scale (f32 products
+    summed in another order); SDPA's causal GQA (32 query heads over 2
+    key / value heads of 128) in bf16 at 2 x 2,048 within 2e-2 of an f64
+    core's scale (``tests/nemotron_h_reference.py``) and no farther from
+    it than twice the plain twin + 1e-3; and one MoE layer at the
+    published widths (128 relu^2 experts of 1,856, top 6, one shared of
+    3,712) in bf16 over the batch's real tokens: its launches read from
+    zero (two grouped GEMMs, one K5, no K4), the pads' outputs 0, and the
+    grouped path within 2e-2 of the output's scale of the f32 loop twin
+    over the same routes.  Then K4's and K5's ms at those shapes beside
+    their bounds (the real positions' plane, the bias, the weights and the
+    (B, V) f32 output; K5's as ``phase_k5``) at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from dhr_tpu_torch.models import decoder as dec
+    from dhr_tpu_torch.ops.lexical_pool import lexical_pool
+    from dhr_tpu_torch.ops.moe_combine import moe_combine
+    from dhr_tpu_torch.utils import profiling
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import nemotron_h_reference as nref
+
+    cfg = dec.DecoderConfig.nemotron_3_nano_30b_a3b(
+        param_dtype=torch.bfloat16)
+    B, L = len(NEMOTRON_BATCH), max(NEMOTRON_BATCH)
+    V, H, k = cfg.vocab_size, cfg.hidden_size, cfg.num_experts_per_tok
+    lengths = torch.tensor(NEMOTRON_BATCH, device="cuda")
+    live = torch.arange(L, device="cuda")[None] < lengths[:, None]
+    real = int(lengths.sum())
+
+    proj, bias, w = _pool_inputs(B, L, V, torch.bfloat16, torch, full=True)
+    w = w * live.float()
+    k4_gap = _check_pool(proj, bias, w, (B, L, V), torch)
+    k4_ms = cuda_ms(lambda: lexical_pool(proj, bias, w), 10, torch)
+    k4_bytes = real * V * 2 + V * 2 + B * L * 4 + B * V * 4
+    del proj, bias, w
+    torch.cuda.empty_cache()
+    k5_gap, k5_equal = _check_combine(real, k, H, torch.bfloat16, torch)
+    rows, slot, cw = _combine_inputs(real, k, H, torch.bfloat16, torch)
+    k5_ms = cuda_ms(lambda: moe_combine(rows, slot, cw), 20, torch)
+    k5_bytes = real * k * H * 2 + real * H * 2 + real * k * (8 + 4)
+    del rows, slot, cw
+
+    h, P, g, N = (cfg.mamba_num_heads, cfg.mamba_head_dim, cfg.n_groups,
+                  cfg.ssm_state_size)
+    gen = torch.Generator().manual_seed(25)
+    dt0 = torch.empty(h).uniform_(math.log(1e-3), math.log(0.1),
+                                  generator=gen).exp_().clamp_(min=1e-4)
+    dt = F.softplus(torch.randn(2, L, h, generator=gen)
+                    + dt0 + torch.log(-torch.expm1(-dt0)))
+    scan_in = [torch.randn(2, L, h, P, generator=gen), dt,
+               -torch.arange(1, h + 1, dtype=torch.float32),
+               torch.randn(2, L, g, N, generator=gen),
+               torch.randn(2, L, g, N, generator=gen), torch.ones(h)]
+    for i in (0, 1, 3, 4):
+        scan_in[i][1, 1500:] = 0.0
+    with torch.inference_mode():
+        want = dec.ssd_scan(*scan_in, chunk=cfg.chunk_size)
+        got = dec.ssd_scan(*(t.cuda() for t in scan_in),
+                           chunk=cfg.chunk_size)
+    scan_gap = float((got.cpu() - want).abs().max()) / float(
+        want.abs().max())
+    if not (torch.isfinite(got).all() and scan_gap <= 1e-4):
+        raise AssertionError(f"ssd_scan card vs CPU: {scan_gap}")
+    least_decay = float((dt * scan_in[2]).min())
+    del scan_in, want, got
+
+    n, kv, d = cfg.num_heads, cfg.num_key_value_heads, cfg.head_dim
+    gen = torch.Generator().manual_seed(26)
+    q = torch.randn(2, n, L, d, generator=gen).to("cuda", torch.bfloat16)
+    kk, vv = (torch.randn(2, kv, L, d, generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    with torch.inference_mode():
+        sdpa = F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True, scale=d ** -0.5, enable_gqa=True)
+        plain = dec.gqa_attention_plain(q, kk, vv, d ** -0.5)
+        ref = nref.causal_gqa(*(t.double().transpose(1, 2)
+                                for t in (q, kk, vv)), d ** -0.5
+                              ).transpose(1, 2)
+    top = float(ref.abs().max())
+    gqa_gaps = [float((sdpa.double() - ref).abs().max()) / top,
+                float((plain.double() - ref).abs().max()) / top]
+    if not (gqa_gaps[0] < 2e-2 and gqa_gaps[0] <= 2 * gqa_gaps[1] + 1e-3):
+        raise AssertionError(f"SDPA GQA to f64 {gqa_gaps[0]}, the plain "
+                             f"twin {gqa_gaps[1]}")
+    del q, kk, vv, sdpa, plain, ref
+
+    torch.manual_seed(25)
+    with torch.device("cuda"):
+        moe = dec.MoE(cfg)
+    dec.init_weights(moe, cfg.initializer_range)
+    moe.gate.e_score_correction_bias.normal_(0.0, 0.01)
+    x = torch.randn(B, L, H, device="cuda").to(torch.bfloat16)
+    at = live.reshape(-1).nonzero()[:, 0]
+    with torch.inference_mode():
+        reset_launches()
+        y = moe(x, at)
+        torch.cuda.synchronize()
+        launches = {"moe_grouped_mm":
+                    profiling.counters().get("launches.moe_grouped_mm", 0),
+                    **{key: read_launches()[key]
+                       for key in ("moe_combine", "lexical_pool")}}
+        pads = float(y.reshape(-1, H)[~live.reshape(-1)].abs().max())
+        t = x.reshape(-1, H)[at]
+        idx, rw = moe.gate(t)
+        grouped = dec.routed_experts_grouped(t, idx, rw, moe.experts)
+        loop = dec.routed_experts_loop(t.float(), idx, rw, moe.experts)
+        moe_gap = float((grouped.float() - loop).abs().max()) / float(
+            loop.abs().max())
+        reset_launches()
+    if launches != {"moe_grouped_mm": 2, "moe_combine": 1,
+                    "lexical_pool": 0} or pads != 0.0 or moe_gap > 2e-2:
+        raise AssertionError(f"the relu^2 MoE at the published widths: "
+                             f"launches {launches}, pads {pads}, grouped "
+                             f"vs loop {moe_gap}")
+    del moe, x, y, t, grouped, loop
+    torch.cuda.empty_cache()
+    emit({"phase": "nemotron_vs_plain", "batch": list(NEMOTRON_BATCH),
+          "real_tokens": real, "k4_shape": [B, L, V], "k4_max_rel_err":
+          k4_gap, "k4_ms": k4_ms, "k4_bound_ms":
+          k4_bytes / HBM_BYTES_PER_S * 1e3, "k5_shape": [real, k, H],
+          "k5_gap_over_bound": k5_gap, "k5_bit_equal_share": k5_equal,
+          "k5_ms": k5_ms, "k5_bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3,
+          "ssd_scan_gap_card_vs_cpu": scan_gap,
+          "ssd_least_dt_a": least_decay,
+          "gqa_f64_gaps_sdpa_plain": gqa_gaps,
+          "moe_grouped_vs_f32_loop": moe_gap, "moe_launches": launches,
+          "tol": f"K4: rtol {POOL_RTOL}; K5: an ulp + 2 k 2^-24 sum |w x|; "
+                 "scan: 1e-4 of the scale; SDPA: 2e-2 to f64 and no "
+                 "farther than 2x the plain twin + 1e-3; MoE: 2e-2 of the "
+                 "scale"})
 
 
 def phase_search_vs_plain(index, queries_raw, torch):
@@ -4968,6 +5141,7 @@ def main() -> int:
         k5 = phase_k5(torch)
         k6 = phase_k6(torch)
         k7 = phase_kimi(torch)
+        phase_nemotron(torch)
         phase_search_vs_plain(index, raw, torch)
         phase_modes(index, raw, torch)
         del index, queries, raw

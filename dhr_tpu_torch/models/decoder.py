@@ -1,12 +1,15 @@
 """The decoder backbone: a causal pre-norm transformer of the DeepSeek-V2
 family (multi-head latent attention, YaRN rotary positions, a mixture of
-experts) and of the Kimi Linear family (Kimi Delta Attention layers
-beside MLA without positions, a sigmoid-routed mixture of experts), as a
-retriever's backbone.
+experts), of the Kimi Linear family (Kimi Delta Attention layers beside
+MLA without positions, a sigmoid-routed mixture of experts) and of the
+Nemotron-H family (blocks of one mixer each: Mamba-2, attention with
+grouped key / value heads and no positions, or a mixture of relu^2
+experts), as a retriever's backbone.
 
 The equations are those of Hugging Face's ``modeling_deepseek.py``
-(DeepSeek-V2) and ``modeling_kimi.py`` (Kimi Linear, arXiv:2510.26692).
-``x`` is ``(B, L, H)``.
+(DeepSeek-V2), ``modeling_kimi.py`` (Kimi Linear, arXiv:2510.26692) and
+``modeling_nemotron_h.py`` (Nemotron-H, arXiv:2504.03624; Nemotron 3
+Nano).  ``x`` is ``(B, L, H)``.
 
 Block (pre-norm), then a final RMSNorm after the last block::
 
@@ -85,6 +88,42 @@ range, as one chip of an expert-parallel deployment holds): it routes
 over all ``n_routed_experts`` and sums only its own experts' terms; the
 shared expert is computed whole.
 
+Nemotron-H (``hybrid_override_pattern``, one letter a block: ``M``
+Mamba-2, ``*`` attention, ``E`` a mixture of experts).  Each block holds
+one mixer, and a final RMSNorm (``norm_f``) follows the last::
+
+    x = x + MIXER(RMSNorm(x))            RMSNorm eps layer_norm_epsilon
+
+Mamba-2 (``h`` heads of ``P``, ``D = h P``; ``g`` groups of B and C of
+state ``N``; head ``j`` reads group ``j // (h / g)``)::
+
+    [z | xBC | dt] = in_proj(x)                        D + (D + 2 g N) + h
+    xBC            = SiLU(CausalConv1d_K(xBC) + bias)  depthwise, K taps
+    [x | B | C]    = xBC                               (h, P), (g, N), (g, N)
+    dt             = softplus(dt + dt_bias)            (h,)
+    A              = -exp(A_log)                       (h,)
+    S_0 = 0;  S_t  = exp(dt_t A) S_{t-1} + dt_t x_t B_t^T     (P x N a head)
+    y_t            = S_t C_t + D_skip x_t
+    out            = out_proj(RMSNorm_group(y * SiLU(z)))
+
+with the gate applied before the norm (``norm_before_gate=False``) and
+the norm over groups of ``D / g`` channels.  HF clamps ``dt`` to
+``time_step_limit``, (0, inf) in every published config: a no-op, left
+out (``hf_io`` refuses another limit).  The recurrence is the SSD
+scan (:func:`ssd_scan`), chunked.
+
+Attention: ``n`` query heads and ``n_kv`` key / value heads of
+``head_dim``, query head ``j`` reading key / value head ``j // (n /
+n_kv)``, no rotary positions (HF's ``NemotronHAttention`` applies none;
+``rope_theta`` goes unread)::
+
+    out = o_proj(softmax(q k^T * head_dim ** -0.5 + causal mask) v)
+
+Its MoE routes with the sigmoid router above (``n_group`` 1) and its
+experts and shared expert are not gated: ``down(relu(up(x))^2)``
+(``mlp_hidden_act`` ``relu2``), the shared expert of its own width
+``moe_shared_expert_intermediate_size``.
+
 Numerics, in the port's conventions: parameters live in ``param_dtype``
 (f32 to train; the compute dtype for inference, built so and never
 copied) and RMSNorm weights, ``A_log``, ``dt_bias`` and the correction
@@ -118,7 +157,22 @@ Departures from the HF code, none of which changes the maths:
   K7's twin.
   Its output is rounded to the compute dtype before the gated norm, as the
   published kernel returns it; the convolutions have no cache (encoding
-  is one forward).
+  is one forward);
+- Mamba-2's SSD scan runs chunked in f32 plain torch ops (HF's
+  ``torch_forward`` form; the published kernels ``mamba_chunk_scan_
+  combined`` compute it chunked too), every decay exponent the sum of
+  the ``dt A`` it spans, B and C read by group, never broadcast to the
+  heads in memory; its output is rounded to the compute dtype before the
+  gated norm, as the published kernel returns it; ``A_log``, ``dt_bias``
+  and ``D`` are held in f32 and the gated norm multiplies its f32 weight
+  before the cast (HF casts, then multiplies);
+- Nemotron-H's attention runs, on the card where autograd records
+  nothing, as ``F.scaled_dot_product_attention`` (causal, the key / value
+  heads shared by their groups of query heads), otherwise as its plain
+  twin :func:`gqa_attention_plain` (f32 scores and softmax); neither reads
+  the key mask: pads sit after every real position;
+- the router's weight is held in the compute dtype (HF holds it in
+  f32); its scores are f32 either way.
 
 The MoE's implementation (:class:`MoE`): the router routes the rows it is
 given, the real tokens of the batch where the caller names them
@@ -127,8 +181,8 @@ the caller from what it collated on the host) and every position
 otherwise.  The routed rows are ordered by expert with one stable device
 sort; per-expert counts come from a ``scatter_add_`` into ``E`` counters
 and their ``cumsum`` (``bincount`` and boolean indexing read the device
-on CUDA); each of the three expert projections is one grouped GEMM
-(``torch._grouped_mm``, bf16, the group offsets kept on the device) over
+on CUDA); each expert projection (three SwiGLU, two relu^2) is one grouped
+GEMM (``torch._grouped_mm``, bf16, the group offsets kept on the device) over
 the experts' row groups; the combine gathers each token's ``k`` rows
 back by the inverse permutation and sums them weighted in f32: no atomics,
 the same bits from run to run (on the card, where autograd records
@@ -204,6 +258,26 @@ class DecoderConfig:
     kda_num_heads: int = 32
     kda_head_dim: int = 128
     kda_conv_size: int = 4
+    # Nemotron-H's blocks, one letter each ("M" Mamba-2, "*" attention,
+    # "E" a mixture of experts), each holding that one mixer; "": the
+    # blocks of attention then an FFN above
+    hybrid_override_pattern: str = ""
+    # Nemotron-H's Mamba-2 mixers: heads, head width, state, groups of B
+    # and C, the convolution's taps, the SSD chunk
+    mamba_num_heads: int = 64
+    mamba_head_dim: int = 64
+    ssm_state_size: int = 128
+    n_groups: int = 8
+    conv_kernel: int = 4
+    chunk_size: int = 128
+    # Nemotron-H's attention: key / value heads and the head width
+    num_key_value_heads: int = 2
+    head_dim: int = 128
+    # the experts' activation: "silu" (SwiGLU: gate, up, down) or "relu2"
+    # (down(relu(up(x))^2), Nemotron-H), and the shared expert's width
+    # where it is a key of its own (0: n_shared x the expert width)
+    mlp_hidden_act: str = "silu"
+    moe_shared_expert_intermediate_size: int = 0
     dtype: torch.dtype = torch.bfloat16        # activation / compute dtype
     param_dtype: torch.dtype = torch.float32   # linear and embedding weights
 
@@ -221,6 +295,21 @@ class DecoderConfig:
         if any(not 1 <= i <= self.num_layers for i in self.kda_layers):
             raise ValueError(f"kda_layers {self.kda_layers} are 1-based "
                              f"layer numbers up to {self.num_layers}")
+        if self.mlp_hidden_act not in ("silu", "relu2"):
+            raise ValueError(f"mlp_hidden_act {self.mlp_hidden_act!r}: "
+                             f"silu or relu2")
+        pattern = self.hybrid_override_pattern
+        if pattern:
+            if len(pattern) != self.num_layers or set(pattern) - set("M*E"):
+                raise ValueError(f"hybrid_override_pattern {pattern!r} is "
+                                 f"not {self.num_layers} letters of M, * "
+                                 f"and E")
+            if self.kda_layers:
+                raise ValueError("a block pattern takes no kda_layers")
+            if self.mamba_num_heads % self.n_groups \
+                    or self.num_heads % self.num_key_value_heads:
+                raise ValueError("n_groups must divide mamba_num_heads, "
+                                 "and num_key_value_heads num_heads")
 
     @staticmethod
     def deepseek_v2_lite(**kw) -> "DecoderConfig":
@@ -263,6 +352,54 @@ class DecoderConfig:
         base.update(kw)
         return DecoderConfig(**base)
 
+    @staticmethod
+    def nemotron_3_nano_30b_a3b(**kw) -> "DecoderConfig":
+        """NVIDIA-Nemotron-3-Nano-30B-A3B's published shape (its HF
+        ``config.json``, ``model_type`` ``nemotron_h``): 52 blocks at
+        2,688 after :data:`NEMOTRON_3_NANO_PATTERN`, 23 Mamba-2 mixers (64
+        heads of 64, state 128, 8 groups, conv 4, chunk 128), 6 attention
+        layers (32 query and 2 key / value heads of 128, no positions), 23
+        MoE layers of 128 relu^2 experts of 1,856 top-6 (sigmoid,
+        renormalised, x 2.5) and one shared of 3,712; vocabulary 131,072,
+        untied head."""
+        base = dict(vocab_size=131072, hidden_size=2688, num_layers=52,
+                    num_heads=32, num_key_value_heads=2, head_dim=128,
+                    intermediate_size=1856, moe_intermediate_size=1856,
+                    n_routed_experts=128, n_shared_experts=1,
+                    moe_shared_expert_intermediate_size=3712,
+                    num_experts_per_tok=6, first_k_dense_replace=0,
+                    norm_topk_prob=True, routed_scaling_factor=2.5,
+                    router="sigmoid", mlp_hidden_act="relu2",
+                    hybrid_override_pattern=NEMOTRON_3_NANO_PATTERN,
+                    mamba_num_heads=64, mamba_head_dim=64, ssm_state_size=128,
+                    n_groups=8, conv_kernel=4, chunk_size=128,
+                    max_position_embeddings=262144, rms_norm_eps=1e-5,
+                    initializer_range=0.02)
+        base.update(kw)
+        return DecoderConfig(**base)
+
+    @staticmethod
+    def tiny_nemotron_h(**kw) -> "DecoderConfig":
+        """A fast Nemotron-H config for tests: blocks ``MEM*EME``, 4 Mamba
+        heads of 8 (state 16, 2 groups, chunk 16), 4 query and 2 key /
+        value heads of 8, 8 relu^2 experts top-3 and one shared of its own
+        width."""
+        base = dict(vocab_size=1024, hidden_size=32, num_layers=7,
+                    num_heads=4, num_key_value_heads=2, head_dim=8,
+                    intermediate_size=16, moe_intermediate_size=16,
+                    n_routed_experts=8, n_shared_experts=1,
+                    moe_shared_expert_intermediate_size=24,
+                    num_experts_per_tok=3, first_k_dense_replace=0,
+                    norm_topk_prob=True, routed_scaling_factor=2.5,
+                    router="sigmoid", mlp_hidden_act="relu2",
+                    hybrid_override_pattern="MEM*EME", mamba_num_heads=4,
+                    mamba_head_dim=8, ssm_state_size=16, n_groups=2,
+                    conv_kernel=4, chunk_size=16,
+                    max_position_embeddings=4096, rms_norm_eps=1e-5,
+                    initializer_range=0.02)
+        base.update(kw)
+        return DecoderConfig(**base)
+
     def is_kda(self, layer: int) -> bool:
         """Layer ``layer`` (0-based) is a KDA layer."""
         return layer + 1 in self.kda_layers
@@ -282,6 +419,8 @@ class DecoderConfig:
         return DecoderConfig(**base)
 
     def is_moe(self, layer: int) -> bool:
+        if self.hybrid_override_pattern:
+            return self.hybrid_override_pattern[layer] == "E"
         return (self.n_routed_experts > 0
                 and layer >= self.first_k_dense_replace
                 and layer % self.moe_layer_freq == 0)
@@ -289,6 +428,8 @@ class DecoderConfig:
 
 KIMI_KDA_LAYERS = (1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15, 17, 18, 19, 21, 22,
                    23, 25, 26)
+NEMOTRON_3_NANO_PATTERN = \
+    "MEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEMEM*EMEMEMEME"
 
 
 # -- rotary positions -------------------------------------------------------
@@ -559,16 +700,21 @@ def kda_scan(q, k, v, g, beta) -> torch.Tensor:
 
 class ShortConv(nn.Module):
     """The published ``ShortConvolution``: a causal depthwise convolution
-    over the last ``size`` positions, no bias, then SiLU; its weight
-    ``(D, 1, size)`` as ``nn.Conv1d``'s.  Computes in its input's dtype."""
+    over the last ``size`` positions, then SiLU; its weight ``(D, 1,
+    size)`` and, where ``bias`` (Mamba-2's ``conv1d``), its bias ``(D,)``
+    as ``nn.Conv1d``'s (KDA's have none).  Computes in its input's
+    dtype."""
 
-    def __init__(self, dim: int, size: int, dtype):
+    def __init__(self, dim: int, size: int, dtype, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dim, 1, size, dtype=dtype))
+        self.register_parameter("bias", nn.Parameter(
+            torch.zeros(dim, dtype=dtype)) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         L, size = x.shape[1], self.weight.shape[-1]
-        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype),
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype), bias,
                      padding=size - 1, groups=x.shape[-1])
         return F.silu(y[..., :L]).transpose(1, 2)
 
@@ -619,37 +765,243 @@ class KDA(nn.Module):
         return self.o_proj(o.reshape(B, L, -1).to(x.dtype))
 
 
-class MLP(nn.Module):
-    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
+# -- Nemotron-H: Mamba-2 and attention with grouped key / value heads -----
 
-    def __init__(self, hidden: int, width: int, dtype):
+SSD_BLOCK_BYTES = 1 << 30   # the within-chunk transients of a block of chunks
+
+
+def ssd_scan(x, dt, A, B, C, D, chunk: int = 128) -> torch.Tensor:
+    """Mamba-2's SSD recurrence from its post-convolution ``x`` ``(Bt, L,
+    h, P)``, ``dt`` ``(Bt, L, h)`` (>= 0), ``A`` ``(h,)`` (< 0), ``B`` and
+    ``C`` ``(Bt, L, g, N)`` (head ``j`` reads group ``j // (h / g)``) and
+    the skip ``D`` ``(h,)``: ``y`` ``(Bt, L, h, P)`` in ``x``'s dtype, ``y_t
+    = S_t C_t + D x_t`` with ``S_t = exp(dt_t A) S_{t-1} + dt_t x_t
+    B_t^T`` from ``S_0 = 0``.
+
+    Chunked, in f32 plain torch ops (HF's ``torch_forward``): within a
+    chunk of ``chunk`` positions, with ``a = dt A`` (<= 0), the output is
+    ``(C B^T o exp(seg)) (dt x)`` per head, ``seg[i, j]`` the ``a`` summed
+    over ``(j, i]`` (a masked cumulative sum, HF's ``segment_sum``), plus
+    the entering state's ``exp(a summed over [0, i]) C_i S``; a chunk's
+    state is ``B^T (exp(a summed over (j, end]) dt x)`` and passes on
+    decayed by its ``a`` summed whole.  Every exponent is a sum of the
+    ``a`` it spans, never a difference of two cumulative sums, so each is
+    <= 0 and keeps its precision however far the decay has run.  ``C
+    B^T`` is one product a group, the states' and the entering state's
+    products one a group over its heads side by side: B and C are never
+    broadcast to the heads in memory.  The within-chunk transients of a
+    block of chunks at a time stay under :data:`SSD_BLOCK_BYTES`.  A
+    position sees only itself and those before it, so right padding
+    changes no real output."""
+    Bt, L, h, P = x.shape
+    g, N = B.shape[-2:]
+    r = h // g
+    n = -(-L // chunk)
+    pad = n * chunk - L
+    f32 = torch.float32
+    dt = dt.float()
+    # (Bt, n, c, g, r, P) and (Bt, n, g, c, N), zeros past the end
+    xd = F.pad(x.float() * dt[..., None], (0, 0, 0, 0, 0, pad)).view(
+        Bt, n, chunk, g, r, P)
+    Bc, Cc = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)).view(
+        Bt, n, chunk, g, N).transpose(2, 3) for t in (B, C))
+    a = F.pad(dt * A.float(), (0, 0, 0, pad)).view(Bt, n, chunk, g, r) \
+        .permute(0, 1, 3, 4, 2)                       # (Bt, n, g, r, c)
+    upto = a.cumsum(-1)                                  # a over [0, i]
+    after = F.pad(a[..., 1:], (0, 1)).flip(-1).cumsum(-1).flip(-1)
+    # each chunk's own state: B^T (exp(a over (j, end]) dt x), a group's
+    # heads side by side
+    xe = xd.transpose(2, 3) * after.exp().transpose(-1, -2)[..., None]
+    own = torch.matmul(Bc.transpose(-1, -2), xe.flatten(-2))  # (.., N, rP)
+    decay = upto[..., -1].exp()                           # (Bt, n, g, r)
+    states = torch.empty_like(own)                        # entering each
+    s = torch.zeros_like(own[:, 0])
+    for j in range(n):
+        states[:, j] = s
+        s = (s.unflatten(-1, (r, P)) * decay[:, j, :, None, :, None]) \
+            .flatten(-2) + own[:, j]
+    del xe, own
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device)
+    below, upper = tri.tril(-1), ~tri.tril()
+    per = 4 * g * r * chunk * chunk * 3
+    nb = max(1, min(n, SSD_BLOCK_BYTES // (Bt * per)))
+    y = torch.empty(Bt, n, chunk, g, r, P, dtype=f32, device=x.device)
+    for c0 in range(0, n, nb):
+        c1 = min(c0 + nb, n)
+        ab = a[:, c0:c1]
+        # seg[i, j]: a over (j, i], -inf above the diagonal
+        seg = ab[..., :, None].expand(*ab.shape, chunk) \
+            .masked_fill(~below, 0.0).cumsum(-2).masked_fill_(upper,
+                                                            float("-inf"))
+        cb = torch.matmul(Cc[:, c0:c1], Bc[:, c0:c1].transpose(-1, -2))
+        m = seg.exp_().mul_(cb[:, :, :, None])           # (.., g, r, c, c)
+        del seg, cb
+        inner = torch.matmul(m, xd[:, c0:c1].permute(0, 1, 3, 4, 2, 5))
+        del m
+        enter = torch.matmul(Cc[:, c0:c1], states[:, c0:c1]).unflatten(
+            -1, (r, P)) * upto[:, c0:c1].exp().transpose(-1, -2)[..., None]
+        y[:, c0:c1] = (inner.transpose(3, 4) + enter).transpose(2, 3)
+        del inner, enter
+    y = y.view(Bt, n * chunk, h, P)[:, :L] + D.float()[:, None] * x.float()
+    return y.to(x.dtype)
+
+
+class GatedRMSNorm(nn.Module):
+    """Mamba-2's ``MambaRMSNormGated`` (``norm_before_gate=False``): ``y *
+    SiLU(z)`` normed over groups of ``dim / groups`` channels, times an f32
+    weight, in f32, returning ``y``'s dtype."""
+
+    def __init__(self, dim: int, groups: int, eps: float):
         super().__init__()
-        self.gate_proj = Dense(hidden, width, bias=False, dtype=dtype)
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32))
+
+    def forward(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        t = (y.float() * F.silu(z.float())).unflatten(-1, (self.groups, -1))
+        t = t * torch.rsqrt(t.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (t.flatten(-2) * self.weight.float()).to(y.dtype)
+
+
+class Mamba2(nn.Module):
+    """Nemotron-H's Mamba-2 mixer (the module docstring's equations) under
+    the published names: ``in_proj``, ``conv1d`` (with its bias),
+    ``dt_bias``, ``A_log`` and ``D`` ``(h,)`` in f32, ``norm`` (gated,
+    grouped), ``out_proj``.  Device span ``mamba.scan`` around
+    :func:`ssd_scan`."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        H, pd = cfg.hidden_size, cfg.param_dtype
+        self.h, self.p = cfg.mamba_num_heads, cfg.mamba_head_dim
+        self.g, self.n = cfg.n_groups, cfg.ssm_state_size
+        self.chunk = cfg.chunk_size
+        D = self.h * self.p
+        self.split = (D, D + 2 * self.g * self.n, self.h)
+        self.in_proj = Dense(H, sum(self.split), bias=False, dtype=pd)
+        self.conv1d = ShortConv(self.split[1], cfg.conv_kernel, pd,
+                                bias=True)
+        self.dt_bias = nn.Parameter(torch.ones(self.h))
+        self.A_log = nn.Parameter(torch.arange(1, self.h + 1,
+                                               dtype=torch.float32).log())
+        self.D = nn.Parameter(torch.ones(self.h))
+        self.norm = GatedRMSNorm(D, self.g, cfg.rms_norm_eps)
+        self.out_proj = Dense(D, H, bias=False, dtype=pd)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (B, L, H) right-padded (causal order keeps pads out of
+        real positions)."""
+        B, L, _ = x.shape
+        D, gn = self.split[0], self.g * self.n
+        z, xbc, dt = self.in_proj(x).split(self.split, dim=-1)
+        xs, b, c = self.conv1d(xbc).split([D, gn, gn], dim=-1)
+        dt = F.softplus(dt.float() + self.dt_bias.float())
+        with profiling.span("mamba.scan", device=True):
+            y = ssd_scan(xs.reshape(B, L, self.h, self.p), dt,
+                         -self.A_log.float().exp(),
+                         b.reshape(B, L, self.g, self.n),
+                         c.reshape(B, L, self.g, self.n), self.D,
+                         self.chunk)
+        return self.out_proj(self.norm(y.reshape(B, L, D), z))
+
+
+def gqa_attention_plain(q, k, v, scale: float) -> torch.Tensor:
+    """Causal attention of ``q`` ``(B, n, L, d)`` over ``k`` and ``v``
+    ``(B, n_kv, L, d)``, query head ``j`` reading key / value head ``j //
+    (n / n_kv)``: scores and softmax in f32, P in ``v``'s dtype times
+    ``v``; ``(B, n, L, d)``."""
+    B, n, L, d = q.shape
+    kv = k.shape[1]
+    qg = q.float().reshape(B, kv, n // kv, L, d)
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
+    causal = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.matmul(p.to(v.dtype), v[:, :, None]).view(B, n, L, d)
+
+
+class GQA(nn.Module):
+    """Nemotron-H's attention: ``q_proj``, ``k_proj``, ``v_proj``,
+    ``o_proj`` (no bias), no positions, scale ``head_dim ** -0.5``.  The
+    core is ``F.scaled_dot_product_attention`` (causal, grouped) for CUDA
+    tensors where autograd records nothing, :func:`gqa_attention_plain`
+    otherwise."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        H, pd = cfg.hidden_size, cfg.param_dtype
+        self.n, self.kv, self.d = (cfg.num_heads, cfg.num_key_value_heads,
+                                   cfg.head_dim)
+        self.q_proj = Dense(H, self.n * self.d, bias=False, dtype=pd)
+        self.k_proj = Dense(H, self.kv * self.d, bias=False, dtype=pd)
+        self.v_proj = Dense(H, self.kv * self.d, bias=False, dtype=pd)
+        self.o_proj = Dense(self.n * self.d, H, bias=False, dtype=pd)
+        self.scale = self.d ** -0.5
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (B, L, H) right-padded; the key mask is not read (a pad
+        sits after every real position)."""
+        B, L, _ = x.shape
+        q = self.q_proj(x).view(B, L, self.n, self.d).transpose(1, 2)
+        k, v = (p(x).view(B, L, self.kv, self.d).transpose(1, 2)
+                for p in (self.k_proj, self.v_proj))
+        records = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v))
+        if x.is_cuda and not records:
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=self.scale, enable_gqa=True)
+        else:
+            out = gqa_attention_plain(q, k, v, self.scale)
+        return self.o_proj(out.transpose(1, 2).reshape(B, L, -1))
+
+
+class MLP(nn.Module):
+    """SwiGLU, ``down(silu(gate(x)) * up(x))``; with ``act`` ``"relu2"``
+    Nemotron-H's form, not gated and without ``gate_proj``:
+    ``down(relu(up(x))^2)``."""
+
+    def __init__(self, hidden: int, width: int, dtype, act: str = "silu"):
+        super().__init__()
+        self.gated = act == "silu"
+        if self.gated:
+            self.gate_proj = Dense(hidden, width, bias=False, dtype=dtype)
         self.up_proj = Dense(hidden, width, bias=False, dtype=dtype)
         self.down_proj = Dense(width, hidden, bias=False, dtype=dtype)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.gated:
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(F.relu(self.up_proj(x)).square())
 
 
 class Experts(nn.Module):
-    """The routed experts' SwiGLU weights, stacked: ``gate_proj`` and
-    ``up_proj`` ``(E, width, H)``, ``down_proj`` ``(E, H, width)`` (each
-    expert's ``nn.Linear`` layout)."""
+    """The routed experts' weights, stacked: ``gate_proj`` (SwiGLU alone)
+    and ``up_proj`` ``(E, width, H)``, ``down_proj`` ``(E, H, width)``
+    (each expert's ``nn.Linear`` layout); ``act`` as :class:`MLP`'s.
+    :meth:`weights` gives the input projections, then ``down_proj``;
+    :meth:`act` joins the input projections' outputs."""
 
-    def __init__(self, n: int, hidden: int, width: int, dtype):
+    def __init__(self, n: int, hidden: int, width: int, dtype,
+                 act: str = "silu"):
         super().__init__()
-        self.gate_proj = nn.Parameter(torch.empty(n, width, hidden,
-                                                  dtype=dtype))
+        self.gated = act == "silu"
+        if self.gated:
+            self.gate_proj = nn.Parameter(torch.empty(n, width, hidden,
+                                                      dtype=dtype))
         self.up_proj = nn.Parameter(torch.empty(n, width, hidden,
                                                 dtype=dtype))
         self.down_proj = nn.Parameter(torch.empty(n, hidden, width,
                                                   dtype=dtype))
 
     def weights(self, dtype):
-        """The three stacks in ``dtype`` (a no-op where they are)."""
-        return tuple(w.to(dtype) for w in
-                     (self.gate_proj, self.up_proj, self.down_proj))
+        """The stacks in ``dtype`` (a no-op where they are)."""
+        ws = (self.gate_proj,) if self.gated else ()
+        return tuple(w.to(dtype) for w in (*ws, self.up_proj,
+                                           self.down_proj))
+
+    def act(self, *ins: torch.Tensor) -> torch.Tensor:
+        if self.gated:
+            gate, up = ins
+            return F.silu(gate) * up
+        return F.relu(ins[0]).square()
 
 
 def route(x: torch.Tensor, gate_weight: torch.Tensor, k: int,
@@ -719,27 +1071,27 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor,
 
 def routed_experts_grouped(x, idx, weights, experts: Experts,
                            first: int | None = None):
-    """The routed part of an MoE layer on ``x`` (N, H): dispatch, three
-    grouped GEMMs, combine.  No device-to-host read.  Where autograd
-    records nothing the combine is :func:`moe_combine` (K5 on the card,
-    :func:`combine` on the CPU); otherwise the eager :func:`combine`,
-    which autograd differentiates.
+    """The routed part of an MoE layer on ``x`` (N, H): dispatch, a grouped
+    GEMM a stack (three SwiGLU, two relu^2), combine.  No device-to-host
+    read.  Where autograd records nothing the combine is
+    :func:`moe_combine` (K5 on the card, :func:`combine` on the CPU);
+    otherwise the eager :func:`combine`, which autograd differentiates.
 
     ``first``: the global id of the first expert ``experts`` holds, where
     it holds a share (None: all).  The slots of other experts then form
     one more group past the held ones, which no GEMM computes (its rows
     stay unwritten); they weigh 0 and read row 0, which is a held expert's
     row, or zeroed where no slot of the batch is held."""
-    E = experts.gate_proj.shape[0]
+    E = experts.down_proj.shape[0]
     if first is not None:
         held = (idx >= first) & (idx < first + E)
         idx = torch.where(held, idx - first, E)
         weights = torch.where(held, weights, 0.0)
     d = dispatch(idx, E if first is None else E + 1)
     offs = d.offs[:E]
-    wg, wu, wd = experts.weights(x.dtype)
+    *ins, wd = experts.weights(x.dtype)
     xs = x[d.token]
-    h = F.silu(grouped_mm(xs, wg, offs)) * grouped_mm(xs, wu, offs)
+    h = experts.act(*(grouped_mm(xs, w, offs) for w in ins))
     rows = grouped_mm(h, wd, offs)
     slot = d.slot
     if first is not None:
@@ -758,16 +1110,16 @@ def routed_experts_loop(x, idx, weights, experts: Experts,
     ``moe.host_reads`` once for the layer), a matmul chain per expert,
     the same combine (the slots of experts not held keep zero rows)."""
     N, k = idx.shape
-    wg, wu, wd = experts.weights(x.dtype)
+    *ins, wd = experts.weights(x.dtype)
     rows = torch.zeros(N * k, x.shape[-1], dtype=x.dtype, device=x.device)
     flat = idx.reshape(-1)
-    profiling.count("moe.host_reads", wg.shape[0])
-    for e in range(wg.shape[0]):
+    profiling.count("moe.host_reads", wd.shape[0])
+    for e in range(wd.shape[0]):
         at = torch.nonzero(flat == (first or 0) + e)[:, 0]
         if at.numel() == 0:
             continue
         t = x[at // k]
-        h = F.silu(t @ wg[e].T) * (t @ wu[e].T)
+        h = experts.act(*(t @ w[e].T for w in ins))
         rows[at] = h @ wd[e].T
     slot = torch.arange(N * k, device=x.device).view(N, k)
     return combine(rows, slot, weights)
@@ -803,11 +1155,15 @@ class MoE(nn.Module):
     """Router, routed experts and shared experts.  ``rows``: the flattened
     positions to route (the batch's real tokens); the others get an FFN
     output of 0.  Device spans ``moe.route`` (gate, softmax or sigmoid,
-    top-k) and ``moe.experts`` (dispatch, the three grouped GEMMs,
-    combine); the counter ``moe.host_reads`` counts the layer's device
-    reads (0 on the grouped path).  With ``cfg.experts_held`` the layer
-    holds those experts alone (``experts.*`` stacks of their number),
-    routes over all and sums their terms alone."""
+    top-k) and ``moe.experts`` (dispatch, the grouped GEMMs: three
+    SwiGLU, two relu^2; combine); the counter ``moe.host_reads`` counts
+    the layer's device reads (0 on the grouped path).  With
+    ``cfg.experts_held`` the layer holds those experts alone
+    (``experts.*`` stacks of their number), routes over all and sums their
+    terms alone.  ``cfg.mlp_hidden_act``
+    chooses the form of :class:`Experts` and the shared :class:`MLP` when
+    the layer is built: SwiGLU or relu^2 (the shared expert then
+    ``moe_shared_expert_intermediate_size`` wide)."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -815,9 +1171,12 @@ class MoE(nn.Module):
         self.gate = MoEGate(cfg)
         lo, hi = cfg.experts_held or (0, cfg.n_routed_experts)
         self.first = None if cfg.experts_held is None else lo
-        self.experts = Experts(hi - lo, H, cfg.moe_intermediate_size, pd)
-        self.shared_experts = MLP(
-            H, cfg.moe_intermediate_size * cfg.n_shared_experts, pd) \
+        act = cfg.mlp_hidden_act
+        self.experts = Experts(hi - lo, H, cfg.moe_intermediate_size, pd,
+                               act)
+        width = (cfg.moe_shared_expert_intermediate_size
+                 or cfg.moe_intermediate_size * cfg.n_shared_experts)
+        self.shared_experts = MLP(H, width, pd, act) \
             if cfg.n_shared_experts else None
 
     def forward(self, x: torch.Tensor, rows: torch.Tensor | None = None):
@@ -863,9 +1222,36 @@ class DecoderLayer(nn.Module):
         return x + h
 
 
+class MixerBlock(nn.Module):
+    """A Nemotron-H block: ``x + MIXER(RMSNorm(x))``, its mixer the
+    pattern's letter for the block (``M`` :class:`Mamba2`, ``*``
+    :class:`GQA`, ``E`` :class:`MoE`), under the published names ``norm``
+    and ``mixer``.  Device spans ``mamba.mixer`` and ``gqa.attention``
+    around a whole M or * block (norm, mixer, residual); an E block's
+    are its MoE's."""
+
+    MIXERS = {"M": ("mamba.mixer", Mamba2), "*": ("gqa.attention", GQA),
+              "E": (None, MoE)}
+
+    def __init__(self, cfg: DecoderConfig, layer: int):
+        super().__init__()
+        self.span, mixer = self.MIXERS[cfg.hybrid_override_pattern[layer]]
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.mixer = mixer(cfg)
+
+    def forward(self, x, mask=None, cos=None, sin=None, rows=None):
+        """``mask``, ``cos`` and ``sin`` are not read; ``rows``: the real
+        positions an E block routes (:class:`MoE`)."""
+        if self.span is None:
+            return x + self.mixer(self.norm(x), rows)
+        with profiling.span(self.span, device=True):
+            return x + self.mixer(self.norm(x))
+
+
 class DecoderModel(nn.Module):
-    """Embeddings, the decoder layers and the final RMSNorm: the
-    final-normed hidden states ``(B, L, H)`` in the compute dtype."""
+    """Embeddings, the decoder layers (or Nemotron-H's blocks, where the
+    config has a block pattern) and the final RMSNorm: the final-normed
+    hidden states ``(B, L, H)`` in the compute dtype."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -873,7 +1259,8 @@ class DecoderModel(nn.Module):
         self.embed_tokens = nn.Embedding(
             cfg.vocab_size, cfg.hidden_size, _weight=torch.empty(
                 cfg.vocab_size, cfg.hidden_size, dtype=cfg.param_dtype))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, i)
+        block = MixerBlock if cfg.hybrid_override_pattern else DecoderLayer
+        self.layers = nn.ModuleList(block(cfg, i)
                                     for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         init_weights(self, cfg.initializer_range)
@@ -897,7 +1284,8 @@ class DecoderModel(nn.Module):
             raise ValueError(f"rows of {L} tokens exceed the model's "
                              f"{self.cfg.max_position_embeddings} positions")
         x = F.embedding(input_ids, self.embed_tokens.weight.to(dt))
-        cos, sin = position_tables(self.cfg, L, x.device)
+        cos, sin = (None, None) if self.cfg.hybrid_override_pattern \
+            else position_tables(self.cfg, L, x.device)
         for layer in self.layers:
             x = layer(x, attention_mask, cos, sin, rows)
         return self.norm(x)
@@ -940,9 +1328,11 @@ def init_weights(module: nn.Module, std: float) -> None:
     """HF's init: linear, embedding, gate and expert weights from
     ``N(0, std)`` (RMSNorm weights stay 1, biases 0); KDA's published
     inits: ``A_log = log U(1, 16)``, ``dt_bias = softplus^-1(U(1e-3,
-    1e-1))``, the short convolutions ``nn.Conv1d``'s ``U(+-size^-0.5)``.
-    Skipped on the meta device, where a draw costs the import of
-    ``torch._dynamo``."""
+    1e-1))``, the short convolutions ``nn.Conv1d``'s ``U(+-size^-0.5)``
+    (and their bias, where they have one); Mamba-2's: ``A_log = log(1..h)``,
+    ``D = 1``, ``dt_bias = softplus^-1(dt)`` with ``dt = exp U(log 1e-3,
+    log 0.1)`` floored at 1e-4.  Skipped on the meta device, where a draw
+    costs the import of ``torch._dynamo``."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Embedding, MoEGate, Experts)):
@@ -952,6 +1342,12 @@ def init_weights(module: nn.Module, std: float) -> None:
             elif isinstance(m, ShortConv) and not m.weight.is_meta:
                 bound = m.weight.shape[-1] ** -0.5
                 m.weight.uniform_(-bound, bound)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound)
+            elif isinstance(m, Mamba2) and not m.A_log.is_meta:
+                dt = torch.empty_like(m.dt_bias).uniform_(
+                    math.log(1e-3), math.log(0.1)).exp_().clamp_(min=1e-4)
+                m.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
             elif isinstance(m, KDA) and not m.A_log.is_meta:
                 m.A_log.uniform_(1, 16).log_()
                 dt = torch.empty_like(m.dt_bias).uniform_(1e-3, 1e-1)

@@ -24,7 +24,14 @@ the port's modules and back, from local directories only:
   port keeps HF's names and stacks each MoE layer's experts into one
   tensor per projection (Kimi Linear's ``block_sparse_moe.experts.{e}.
   w1 / w3 / w2`` become ``mlp.experts.gate_proj / up_proj / down_proj``,
-  its gate and shared expert ``mlp.gate`` and ``mlp.shared_experts``).
+  its gate and shared expert ``mlp.gate`` and ``mlp.shared_experts``);
+- a ``nemotron_h`` checkpoint likewise (:func:`nemotron_h_config_from_hf`):
+  ``backbone.embeddings``, ``backbone.layers.{i}.{norm, mixer.*}`` and
+  ``backbone.norm_f`` become the port's ``model.embed_tokens``,
+  ``model.layers.{i}.{norm, mixer.*}`` and ``model.norm``, each MoE
+  block's ``mixer.experts.{j}.up_proj / down_proj`` stacked into
+  ``mixer.experts.up_proj / down_proj``; :func:`nemotron_h_state_dict_to_hf`
+  is the way back.
 
 HF linear weights are ``(out, in)`` like ``torch.nn.Linear``, so the map is
 a renaming of keys.
@@ -115,8 +122,8 @@ def encoder_config_from_hf(model_dir: str,
                            dtype: torch.dtype = torch.bfloat16
                            ) -> EncoderConfig | DecoderConfig:
     """Build an :class:`EncoderConfig` from an HF ``config.json`` (a
-    :class:`DecoderConfig` from a ``deepseek_v2`` or ``kimi_linear`` one,
-    its parameters in ``dtype``)."""
+    :class:`DecoderConfig` from a ``deepseek_v2``, ``kimi_linear`` or
+    ``nemotron_h`` one, its parameters in ``dtype``)."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     model_type = hf.get("model_type", "distilbert")
@@ -124,6 +131,8 @@ def encoder_config_from_hf(model_dir: str,
         return decoder_config_from_hf(hf, dtype, dtype)
     if model_type == "kimi_linear":
         return kimi_config_from_hf(hf, dtype, dtype)
+    if model_type == "nemotron_h":
+        return nemotron_h_config_from_hf(hf, dtype, dtype)
     if model_type == "distilbert":
         return EncoderConfig(
             vocab_size=hf["vocab_size"],
@@ -263,13 +272,79 @@ def kimi_config_from_hf(hf: dict, dtype: torch.dtype = torch.bfloat16,
         dtype=dtype, param_dtype=param_dtype)
 
 
+def nemotron_h_config_from_hf(hf: dict, dtype: torch.dtype = torch.bfloat16,
+                              param_dtype: torch.dtype = torch.float32
+                              ) -> DecoderConfig:
+    """A :class:`DecoderConfig` from a ``nemotron_h`` ``config.json``'s
+    dict (blocks of M, * and E).  Refuses what the decoder does not
+    implement: other blocks (``-``, the dense MLP of Nemotron-H's dense
+    models), expert groups, activations other than relu^2 experts and a
+    SiLU Mamba, biases on the projections or none on the convolution, a
+    clamp on dt other than (0, inf), a sliding window, an f32 residual,
+    tied embeddings."""
+    pattern = hf.get("hybrid_override_pattern", "")
+    unsupported = []
+    if set(pattern) - set("M*E") or len(pattern) != hf["num_hidden_layers"]:
+        unsupported.append("hybrid_override_pattern")
+    if (hf.get("n_group") or 1) != 1:
+        unsupported.append("n_group")
+    if hf.get("mlp_hidden_act", "relu2") != "relu2":
+        unsupported.append("mlp_hidden_act")
+    if hf.get("mamba_hidden_act", "silu") != "silu":
+        unsupported.append("mamba_hidden_act")
+    for key in ("attention_bias", "mlp_bias", "use_bias", "mamba_proj_bias",
+                "residual_in_fp32", "tie_word_embeddings"):
+        if hf.get(key, False):
+            unsupported.append(key)
+    if hf.get("sliding_window") is not None:
+        unsupported.append("sliding_window")
+    if not hf.get("use_conv_bias", True):
+        unsupported.append("use_conv_bias")
+    if tuple(hf.get("time_step_limit", (0.0, float("inf")))) \
+            != (0.0, float("inf")):
+        unsupported.append("time_step_limit")
+    if unsupported:
+        raise ValueError(f"the decoder backbone does not implement "
+                         f"{unsupported} as this config sets them")
+    heads = hf["num_attention_heads"]
+    return DecoderConfig(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"], num_heads=heads,
+        num_key_value_heads=hf["num_key_value_heads"],
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // heads,
+        intermediate_size=hf["intermediate_size"],
+        moe_intermediate_size=hf["moe_intermediate_size"],
+        moe_shared_expert_intermediate_size=hf[
+            "moe_shared_expert_intermediate_size"],
+        n_routed_experts=hf["n_routed_experts"],
+        n_shared_experts=hf.get("n_shared_experts") or 0,
+        num_experts_per_tok=hf["num_experts_per_tok"],
+        first_k_dense_replace=0, norm_topk_prob=hf["norm_topk_prob"],
+        routed_scaling_factor=float(hf["routed_scaling_factor"]),
+        router="sigmoid", mlp_hidden_act="relu2",
+        hybrid_override_pattern=pattern,
+        mamba_num_heads=hf["mamba_num_heads"],
+        mamba_head_dim=hf["mamba_head_dim"],
+        ssm_state_size=hf["ssm_state_size"], n_groups=hf["n_groups"],
+        conv_kernel=hf["conv_kernel"], chunk_size=hf["chunk_size"],
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        max_position_embeddings=hf["max_position_embeddings"],
+        rms_norm_eps=hf["layer_norm_epsilon"],
+        initializer_range=hf.get("initializer_range", 0.02),
+        dtype=dtype, param_dtype=param_dtype)
+
+
 # KDA's tensors under ``self_attn.`` (the published names, the port's too)
 _KDA = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
         "q_conv1d.weight", "k_conv1d.weight", "v_conv1d.weight", "A_log",
         "f_a_proj.weight", "f_b_proj.weight", "dt_bias", "b_proj.weight",
         "g_a_proj.weight", "g_b_proj.weight", "g_b_proj.bias",
         "o_norm.weight", "o_proj.weight")
-_F32 = ("norm.weight", "A_log", "dt_bias", "e_score_correction_bias")
+_F32 = ("norm.weight", "A_log", "dt_bias", "e_score_correction_bias", ".D")
+# Nemotron-H's names outside the blocks: the checkpoint's, the port's
+_NEMOTRON_OUTER = {"backbone.embeddings.weight": "model.embed_tokens.weight",
+                   "backbone.norm_f.weight": "model.norm.weight",
+                   "lm_head.weight": "lm_head.weight"}
 
 
 def hf_decoder_to_state_dict(sd: dict[str, np.ndarray], cfg: DecoderConfig
@@ -285,6 +360,8 @@ def hf_decoder_to_state_dict(sd: dict[str, np.ndarray], cfg: DecoderConfig
         t = torch.from_numpy(np.asarray(a, np.float32).copy())
         return t if name.endswith(_F32) else t.to(cfg.param_dtype)
 
+    if cfg.hybrid_override_pattern:
+        return _nemotron_h_to_state_dict(sd, cfg, tensor)
     kimi = cfg.router == "sigmoid"
     moe = "block_sparse_moe." if kimi else "mlp."
     expert = ({"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
@@ -325,6 +402,49 @@ def hf_decoder_to_state_dict(sd: dict[str, np.ndarray], cfg: DecoderConfig
               "lm_head.weight"):
         if n in sd:
             out[n] = tensor(sd[n], n)
+    return out
+
+
+def _nemotron_h_to_state_dict(sd, cfg: DecoderConfig, tensor) -> dict:
+    """:func:`hf_decoder_to_state_dict` of a ``nemotron_h`` checkpoint."""
+    lo, hi = cfg.experts_held or (0, cfg.n_routed_experts)
+    out = {}
+    for i in range(cfg.num_layers):
+        theirs, ours = f"backbone.layers.{i}.", f"model.layers.{i}."
+        experts = theirs + "mixer.experts."
+        for n in sd:
+            if n.startswith(theirs) and not n.startswith(experts):
+                out[ours + n[len(theirs):]] = tensor(sd[n], n)
+        if cfg.is_moe(i):
+            for proj in ("up_proj", "down_proj"):
+                out[f"{ours}mixer.experts.{proj}"] = tensor(np.stack([
+                    sd[f"{experts}{e}.{proj}.weight"]
+                    for e in range(lo, hi)]), proj)
+    out.update({ours: tensor(sd[n], ours)
+                for n, ours in _NEMOTRON_OUTER.items() if n in sd})
+    return out
+
+
+def nemotron_h_state_dict_to_hf(state: dict, cfg: DecoderConfig
+                                ) -> dict[str, torch.Tensor]:
+    """A ``DecoderLM``'s state dict of a Nemotron-H config -> the
+    checkpoint's names (``backbone.*``, ``lm_head.weight``), each stacked
+    expert projection split into ``mixer.experts.{j}.<proj>.weight`` (its
+    global id ``j``, where the model holds a share)."""
+    lo = (cfg.experts_held or (0,))[0]
+    back = {ours: theirs for theirs, ours in _NEMOTRON_OUTER.items()}
+    out = {}
+    for n, t in state.items():
+        if n in back:
+            out[back[n]] = t
+            continue
+        name = "backbone." + n.removeprefix("model.")
+        head, _, proj = name.rpartition(".experts.")
+        if proj in ("up_proj", "down_proj"):
+            out.update({f"{head}.experts.{lo + j}.{proj}.weight": w
+                        for j, w in enumerate(t.unbind(0))})
+        else:
+            out[name] = t
     return out
 
 
