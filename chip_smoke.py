@@ -33,14 +33,16 @@ is in the repository), and checks what each returns:
   train -> encode -> index -> search -> eval for three of them.
 - ``bert_path``: BERT-base towers with token types, tied and untied, card
   against CPU; untied TASB DHR and packed ColBERT through the CLI chain.
-- K1-K7 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
+- K1-K8 against their plain versions (K1-K3 on a 204,803-row slice, K4 at
   the encode cell's batch, K5 and K6 at the dsv2 cell's), Kimi Linear's
   pieces at the Kimi cell's largest bucket (K6 without positions at 32
   heads, the KDA layer card against its CPU twin, K7 against an f64
   recurrence beside the plain scan, and both timed),
   NVIDIA-Nemotron-3-Nano-30B-A3B's at its cell's largest batch (K4 over
   131,072 terms, K5 at hidden 2,688, the SSD scan card against its CPU
-  twin, SDPA's GQA against f64, a published-width relu^2 MoE's launches),
+  twin, K8 against the CPU's plain scan and timed beside the plain scan
+  on the card, SDPA's GQA against f64, a published-width relu^2 MoE's
+  launches),
   the other search modes against the CPU's plain path, then the main and
   fused paths at 8,841,823 rows (launch counts, staged-vs-exact
   agreement) and ip / pq on that index.
@@ -94,6 +96,7 @@ K4_SOURCE = "dhr_tpu_torch/csrc/lexical_pool.cu"
 K5_SOURCE = "dhr_tpu_torch/csrc/moe_combine.cu"
 K6_SOURCE = "dhr_tpu_torch/csrc/mla_attention.cu"
 K7_SOURCE = "dhr_tpu_torch/csrc/kda_scan.cu"
+K8_SOURCE = "dhr_tpu_torch/csrc/ssd_scan.cu"
 # K6 at DeepSeek-V2-Lite's MLA: heads, (d_nope, d_rope, d_v), kv rank, and
 # the dsv2 cell's passage length spec (benchmarks/traffic/
 # moe-encode-corpus.json: log-normal, mean 75, sigma 0.45, in [8, 126],
@@ -1711,7 +1714,15 @@ def phase_nemotron(torch):
     128, chunks of 128, the published ``dt`` and ``A`` inits) in f32 on
     the card against its CPU twin on 2 documents of 2,048 positions, one
     padded from 1,500, within 1e-4 of the output's scale (f32 products
-    summed in another order); SDPA's causal GQA (32 query heads over 2
+    summed in another order); K8 on the card against the CPU's plain scan
+    at the batch's whole bucket (8 x 2,048 positions, every one drawn) in
+    f32, within 1e-6 of the scale (both f32, summed in other orders), one
+    K8 launch a call and none for the plain scan on the card; K8 from
+    those inputs in bf16, laid out as the convolution gives them
+    (channel-major, read in place: the path the cell takes), against the
+    CPU's plain scan of the same bf16 tensors, element by element within
+    one bf16 ulp (1e-5 of the scale near zero);
+    SDPA's causal GQA (32 query heads over 2
     key / value heads of 128) in bf16 at 2 x 2,048 within 2e-2 of an f64
     core's scale (``tests/nemotron_h_reference.py``) and no farther from
     it than twice the plain twin + 1e-3; and one MoE layer at the
@@ -1721,12 +1732,20 @@ def phase_nemotron(torch):
     grouped path within 2e-2 of the output's scale of the f32 loop twin
     over the same routes.  Then K4's and K5's ms at those shapes beside
     their bounds (the real positions' plane, the bias, the weights and the
-    (B, V) f32 output; K5's as ``phase_k5``) at 3.35 TB/s."""
+    (B, V) f32 output; K5's as ``phase_k5``) at 3.35 TB/s; and K8's and
+    the plain scan's ms from bf16 x, B and C laid out as the convolution
+    gives them (channel-major) at that batch, beside K8's bounds: its
+    bytes (x, B, C and y in bf16, dt in f32, once each) at 3.35 TB/s, and
+    the chunked algorithm's FLOPs (``benchmarks/roofline_mamba.py``'s
+    count over the padded positions) at the f32 FFMA rate (67 TFLOP/s).
+    Returns K8's row of the kernels line: the bf16 gap and ms, both of the
+    path the cell takes."""
     import torch.nn.functional as F
 
     from dhr_tpu_torch.models import decoder as dec
     from dhr_tpu_torch.ops.lexical_pool import lexical_pool
     from dhr_tpu_torch.ops.moe_combine import moe_combine
+    from dhr_tpu_torch.ops.ssd_scan import fused_ssd_scan
     from dhr_tpu_torch.utils import profiling
 
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
@@ -1778,6 +1797,69 @@ def phase_nemotron(torch):
         raise AssertionError(f"ssd_scan card vs CPU: {scan_gap}")
     least_decay = float((dt * scan_in[2]).min())
     del scan_in, want, got
+
+    # K8 at the whole batch, f32, against the CPU's plain scan
+    gen = torch.Generator().manual_seed(27)
+    dt = F.softplus(torch.randn(B, L, h, generator=gen)
+                    + dt0 + torch.log(-torch.expm1(-dt0)))
+    scan_in = [torch.randn(B, L, h, P, generator=gen), dt,
+               -torch.arange(1, h + 1, dtype=torch.float32),
+               torch.randn(B, L, g, N, generator=gen),
+               torch.randn(B, L, g, N, generator=gen),
+               1 + 0.1 * torch.randn(h, generator=gen)]
+    with torch.inference_mode():
+        want = dec.ssd_scan(*scan_in, chunk=cfg.chunk_size)
+        on_card = [t.cuda() for t in scan_in]
+        reset_launches()
+        got = fused_ssd_scan(*on_card, cfg.chunk_size)
+        torch.cuda.synchronize()
+        k8_launches = read_launches()["ssd_scan"]
+        dec.ssd_scan(*on_card, chunk=cfg.chunk_size)
+        torch.cuda.synchronize()
+        k8_launches = [k8_launches, read_launches()["ssd_scan"]]
+        reset_launches()
+    k8_gap = float((got.cpu().double() - want.double()).abs().max()) / float(
+        want.abs().max())
+    if not (torch.isfinite(got).all() and k8_gap <= 1e-6
+            and k8_launches == [1, 1]):
+        raise AssertionError(f"K8 vs the CPU's plain scan: {k8_gap}, "
+                             f"launches {k8_launches}")
+    del want, got
+    # K8 from the convolution's layout, in bf16 (the path it takes in the
+    # cell), against the CPU's plain scan of the same tensors; then timed
+    # beside the plain scan on the card
+    bf_in = list(on_card)
+    for i in (0, 3, 4):
+        t = on_card[i]
+        bf_in[i] = (t.reshape(B, L, -1).transpose(1, 2).contiguous()
+                    .to(torch.bfloat16).transpose(1, 2).reshape(t.shape))
+    with torch.inference_mode():
+        got = fused_ssd_scan(*bf_in, cfg.chunk_size).cpu().float()
+        want = dec.ssd_scan(*(t.cpu() for t in bf_in),
+                            chunk=cfg.chunk_size).float()
+    top = float(want.abs().max())
+    mag = torch.maximum(got.abs(), want.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    k8_bf16_off = int(((got - want).abs() > torch.maximum(
+        ulp, torch.full_like(ulp, 1e-5 * top))).sum())
+    k8_bf16_gap = float((got - want).abs().max()) / top
+    if not (torch.isfinite(got).all() and k8_bf16_off == 0):
+        raise AssertionError(f"K8 from bf16 channel-major inputs vs the "
+                             f"CPU's plain scan: {k8_bf16_off} elements past "
+                             f"a bf16 ulp, {k8_bf16_gap} of the scale")
+    del got, want, mag, ulp
+    with torch.inference_mode():
+        k8_ms = cuda_ms(lambda: fused_ssd_scan(*bf_in, cfg.chunk_size), 20,
+                        torch)
+        plain_ms = cuda_ms(lambda: dec.ssd_scan(*bf_in,
+                                                chunk=cfg.chunk_size), 5,
+                           torch)
+    k8_bytes = B * L * (2 * h * P * 2 + 2 * g * N * 2 + 4 * h)
+    c = cfg.chunk_size
+    k8_flops = B * (L // c) * (g * 2 * c * c * N
+                               + h * (2 * c * c * P + 4 * c * N * P))
+    del scan_in, on_card, bf_in
+    torch.cuda.empty_cache()
 
     n, kv, d = cfg.num_heads, cfg.num_key_value_heads, cfg.head_dim
     gen = torch.Generator().manual_seed(26)
@@ -1836,13 +1918,22 @@ def phase_nemotron(torch):
           "k5_gap_over_bound": k5_gap, "k5_bit_equal_share": k5_equal,
           "k5_ms": k5_ms, "k5_bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3,
           "ssd_scan_gap_card_vs_cpu": scan_gap,
-          "ssd_least_dt_a": least_decay,
+          "ssd_least_dt_a": least_decay, "k8_gap_vs_cpu_plain": k8_gap,
+          "k8_bf16_gap_vs_cpu_plain": k8_bf16_gap,
+          "k8_launches_k8_then_plain": k8_launches, "k8_ms": k8_ms,
+          "ssd_scan_plain_ms": plain_ms,
+          "k8_bound_ms": k8_bytes / HBM_BYTES_PER_S * 1e3,
+          "k8_ffma_floor_ms": k8_flops / F32_FLOPS_PER_S * 1e3,
           "gqa_f64_gaps_sdpa_plain": gqa_gaps,
           "moe_grouped_vs_f32_loop": moe_gap, "moe_launches": launches,
           "tol": f"K4: rtol {POOL_RTOL}; K5: an ulp + 2 k 2^-24 sum |w x|; "
-                 "scan: 1e-4 of the scale; SDPA: 2e-2 to f64 and no "
-                 "farther than 2x the plain twin + 1e-3; MoE: 2e-2 of the "
-                 "scale"})
+                 "scan: 1e-4 of the scale; K8: 1e-6 of the scale in f32, "
+                 "a bf16 ulp (1e-5 of the scale near 0) from bf16; SDPA: "
+                 "2e-2 to f64 and no farther than 2x the plain twin + "
+                 "1e-3; MoE: 2e-2 of the scale"})
+    return {"max_rel_err": k8_bf16_gap, "ms": k8_ms, "plain_ms": plain_ms,
+            "bound_ms": k8_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def phase_search_vs_plain(index, queries_raw, torch):
@@ -5141,7 +5232,7 @@ def main() -> int:
         k5 = phase_k5(torch)
         k6 = phase_k6(torch)
         k7 = phase_kimi(torch)
-        phase_nemotron(torch)
+        k8 = phase_nemotron(torch)
         phase_search_vs_plain(index, raw, torch)
         phase_modes(index, raw, torch)
         del index, queries, raw
@@ -5176,6 +5267,9 @@ def main() -> int:
         kernels.append({"name": "kda_scan", "route": "cuda",
                         "source": K7_SOURCE, "replaces": None,
                         "launches": launches["kda_scan"], **k7})
+        kernels.append({"name": "ssd_scan", "route": "cuda",
+                        "source": K8_SOURCE, "replaces": None,
+                        "launches": launches["ssd_scan"], **k8})
         ref = parallel_reference(searcher, main_queries, torch)
         # the ranks hold the index (half each): free the parent's first
         del searcher, batch, main_queries

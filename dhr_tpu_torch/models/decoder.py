@@ -158,14 +158,18 @@ Departures from the HF code, none of which changes the maths:
   Its output is rounded to the compute dtype before the gated norm, as the
   published kernel returns it; the convolutions have no cache (encoding
   is one forward);
-- Mamba-2's SSD scan runs chunked in f32 plain torch ops (HF's
-  ``torch_forward`` form; the published kernels ``mamba_chunk_scan_
-  combined`` compute it chunked too), every decay exponent the sum of
-  the ``dt A`` it spans, B and C read by group, never broadcast to the
-  heads in memory; its output is rounded to the compute dtype before the
-  gated norm, as the published kernel returns it; ``A_log``, ``dt_bias``
-  and ``D`` are held in f32 and the gated norm multiplies its f32 weight
-  before the cast (HF casts, then multiplies);
+- Mamba-2's SSD scan runs chunked in f32 (HF's ``torch_forward`` form;
+  the published kernels ``mamba_chunk_scan_combined`` compute it chunked
+  too), every decay exponent the sum of the ``dt A`` it spans, B and C
+  read by group, never broadcast to the heads in memory: on the card,
+  where autograd records nothing, in one kernel, K8 (``ops/ssd_scan.py``),
+  whose products and sums are f32 on the CUDA cores and which reads x, B
+  and C in place from the convolution's output; otherwise (on the CPU, or
+  where autograd records) in plain torch ops, :func:`ssd_scan`, K8's twin.
+  Its output is rounded to the compute dtype before the gated norm, as
+  the published kernel returns it; ``A_log``, ``dt_bias`` and ``D`` are
+  held in f32 and the gated norm multiplies its f32 weight before the
+  cast (HF casts, then multiplies);
 - Nemotron-H's attention runs, on the card where autograd records
   nothing, as ``F.scaled_dot_product_attention`` (causal, the key / value
   heads shared by their groups of query heads), otherwise as its plain
@@ -208,6 +212,7 @@ from dhr_tpu_torch.models.transformer import Dense
 from dhr_tpu_torch.ops.kda_scan import fused_kda_scan
 from dhr_tpu_torch.ops.mla_attention import mla_attention, mla_attention_plain
 from dhr_tpu_torch.ops.moe_combine import combine, moe_combine
+from dhr_tpu_torch.ops.ssd_scan import fused_ssd_scan
 from dhr_tpu_torch.utils import profiling
 
 
@@ -866,8 +871,10 @@ class Mamba2(nn.Module):
     """Nemotron-H's Mamba-2 mixer (the module docstring's equations) under
     the published names: ``in_proj``, ``conv1d`` (with its bias),
     ``dt_bias``, ``A_log`` and ``D`` ``(h,)`` in f32, ``norm`` (gated,
-    grouped), ``out_proj``.  Device span ``mamba.scan`` around
-    :func:`ssd_scan`."""
+    grouped), ``out_proj``.  Device span ``mamba.scan`` around the
+    recurrence: K8 (:func:`fused_ssd_scan`, reading x, B and C in place
+    from the convolution's output) for CUDA tensors where autograd records
+    nothing, the plain :func:`ssd_scan` otherwise."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -896,11 +903,14 @@ class Mamba2(nn.Module):
         xs, b, c = self.conv1d(xbc).split([D, gn, gn], dim=-1)
         dt = F.softplus(dt.float() + self.dt_bias.float())
         with profiling.span("mamba.scan", device=True):
-            y = ssd_scan(xs.reshape(B, L, self.h, self.p), dt,
-                         -self.A_log.float().exp(),
-                         b.reshape(B, L, self.g, self.n),
-                         c.reshape(B, L, self.g, self.n), self.D,
-                         self.chunk)
+            args = (xs.reshape(B, L, self.h, self.p), dt,
+                    -self.A_log.float().exp(),
+                    b.reshape(B, L, self.g, self.n),
+                    c.reshape(B, L, self.g, self.n), self.D.float())
+            records = torch.is_grad_enabled() and any(
+                t.requires_grad for t in args)
+            scan = fused_ssd_scan if x.is_cuda and not records else ssd_scan
+            y = scan(*args, self.chunk)
         return self.out_proj(self.norm(y.reshape(B, L, D), z))
 
 

@@ -22,7 +22,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("partial_gip", "rerank_gip", "gip_candidates",
            "lexical_pool", "moe_combine", "mla_attention",
-           "kda_scan")  # csrc/<name>.cu
+           "kda_scan", "ssd_scan")  # csrc/<name>.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

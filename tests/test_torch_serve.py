@@ -1071,5 +1071,5 @@ def test_info_verb_reports_the_runtime(capsys):
     assert set(out["kernels_built"]) == {"partial_gip", "rerank_gip",
                                          "gip_candidates", "lexical_pool",
                                          "moe_combine", "mla_attention",
-                                         "kda_scan"}
+                                         "kda_scan", "ssd_scan"}
     assert not any(k.startswith("jax") for k in out)

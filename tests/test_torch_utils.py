@@ -198,13 +198,13 @@ def test_kernel_launches_keep_their_keys_and_read_the_recorder():
     assert kernel_launches() == {"partial_gip": 0, "rerank_gip": 0,
                                  "gip_candidates": 0, "lexical_pool": 0,
                                  "moe_combine": 0, "mla_attention": 0,
-                                 "kda_scan": 0}
+                                 "kda_scan": 0, "ssd_scan": 0}
     profiling.count("launches.rerank_gip")
     profiling.count("launches.partial_gip", 3)
     assert kernel_launches() == {"partial_gip": 3, "rerank_gip": 1,
                                  "gip_candidates": 0, "lexical_pool": 0,
                                  "moe_combine": 0, "mla_attention": 0,
-                                 "kda_scan": 0}
+                                 "kda_scan": 0, "ssd_scan": 0}
     profiling.reset()
     assert set(kernel_launches().values()) == {0}
 
